@@ -1,0 +1,393 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero; the last line is printed only on success):
+
+1. the card's name and power limit; build every kernel from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once);
+2. each kernel (B1..B4) on the card at the main path's shapes -- the rows
+   that gemma2_2b at full width and 4 layers gives the 64 MB bucketed
+   exchange -- against its plain PyTorch version on the same inputs, with
+   its time, the plain version's time, the library yardstick's time where
+   one PyTorch call computes the same function, and the bound;
+3. the engine's cuda and reference backends on a small ragged layout (codes,
+   fits and reconstructions agree);
+4. the port's training CLI in-process: gemma2_2b full width, 4 layers,
+   3 compressed_dp EF steps (sequenced transport, 64 MB buckets,
+   backend auto, selector auto), with the kernels' launch counts;
+5. one step of the same with ``--selector bisect`` (B1's path).
+
+Then one JSON line with every kernel's numbers, and as the last line
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
+package.  ``--rows`` and ``--skip-train`` shorten a run while a kernel is
+being brought up; ``--profile`` traces the training phase with
+``torch.profiler`` and prints device time by kernel, by op and per step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, an FMA counted as 2
+# compares, adds, counts and multiplies that are not fused issue one per lane
+# per clock, at half the FMA-counted rate
+FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
+KEEP_THETA = 0.7
+TRAIN_ARGS = ["--arch", "gemma2_2b", "--n-layers", "4", "--steps", "3", "--batch", "4",
+              "--seq", "512", "--mode", "compressed_dp", "--reducer", "fft",
+              "--transport", "sequenced", "--bucket-mb", "64", "--error-feedback",
+              "--backend", "auto", "--selector", "auto"]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_instr: float, n_flops: float = 0.0):
+    """Least time (ms) and what sets it: ``n_bytes`` over the HBM rate, or
+    ``n_instr`` unfused fp32/int operations plus ``n_flops`` FMA-countable
+    flops over the card's rates for them."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n_instr / FP32_INSTR_PER_S + n_flops / FP32_FLOPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main_path_rows() -> int:
+    """Chunk rows one exchange compresses for gemma2_2b, 4 layers, 64 MB."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.comms.bucketing import build_layout
+
+    cfg = dataclasses.replace(configs.get_config("gemma2_2b"), n_layers=4)
+    layout = build_layout(cfg.param_count(), 64 << 20)
+    return layout.n_buckets * layout.max_chunks
+
+
+def kernel_phase(rows: int, dev) -> list:
+    """Each kernel against its plain version at ``rows`` rows."""
+    from repro_torch.core import fft as cfft
+    from repro_torch.core import sparsify
+    from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
+    from repro_torch.kernels import (fused_compress, fused_decompress, sampled_threshold,
+                                     topk_threshold)
+    from repro_torch.core import selection
+
+    chunk, cols = 4096, 2049
+    k = sparsify.keep_count(cols, KEEP_THETA)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((rows, chunk), generator=gen, device=dev) * 1e-3
+    freqs = torch.fft.rfft(x, dim=-1)
+    del x
+    re, im = freqs.real.contiguous(), freqs.imag.contiguous()
+    del freqs
+    w = cfft.hermitian_weights(chunk, dev)
+    mag = torch.sqrt(re * re + im * im) * w
+    results = []
+
+    # B1
+    tau_k, cnt_k = topk_threshold.threshold(mag, k=k)
+    tau_p, cnt_p = topk_threshold.threshold_plain(mag, k)
+    torch.cuda.synchronize()
+    mism = int((tau_k != tau_p).sum() + (cnt_k != cnt_p).sum())
+    err = float((tau_k - tau_p).abs().max())
+    log(f"[B1 topk_threshold] rows={rows} tau/count mismatches={mism} (tolerance 0: bitwise)")
+    if mism:
+        raise AssertionError(f"B1 disagrees with its plain version on {mism} values")
+    b_ms, b_by = bound(rows * cols * 4 + rows * 8, rows * cols * (selection.BISECT_ITERS + 2))
+    results.append(dict(
+        kernel=topk_threshold.KERNEL, max_abs_err=err,
+        ms=time_ms(lambda: topk_threshold.threshold(mag, k=k), 5),
+        plain_ms=time_ms(lambda: topk_threshold.threshold_plain(mag, k), 2),
+        library_ms=time_ms(lambda: torch.topk(mag, k, dim=-1).values[:, -1], 2),
+        bound_ms=b_ms, bound_by=b_by))
+
+    # B4
+    sample = selection.strided_sample(mag)
+    lo, hi = selection.sample_bracket(sample, k, cols)
+    s_tau_k, s_cnt_k = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
+    s_tau_p, s_cnt_p = sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)
+    torch.cuda.synchronize()
+    mism = int((s_tau_k != s_tau_p).sum() + (s_cnt_k != s_cnt_p).sum())
+    err = float((s_tau_k - s_tau_p).abs().max())
+    log(f"[B4 sampled_threshold] rows={rows} tau/count mismatches={mism} "
+        f"(tolerance 0: bitwise); rows over k: {int((s_cnt_k > k).sum())}")
+    if mism:
+        raise AssertionError(f"B4 disagrees with its plain version on {mism} values")
+    iters = selection.DEFAULT_REFINE_ITERS
+    b_ms, b_by = bound(rows * cols * 4 + rows * 16, rows * cols * (iters + 4))
+    results.append(dict(
+        kernel=sampled_threshold.KERNEL, max_abs_err=err,
+        ms=time_ms(lambda: sampled_threshold.sampled_threshold(mag, lo, hi, k=k), 5),
+        plain_ms=time_ms(lambda: sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k), 2),
+        library_ms=time_ms(lambda: torch.topk(mag, k, dim=-1).values[:, -1], 2),
+        bound_ms=b_ms, bound_by=b_by))
+
+    # B2: the engine's mid-gap tau and per-row quantizer params (the engine
+    # repeats one fit per bucket over its rows; here each row has its own)
+    below = torch.where(mag < s_tau_k, mag, 0.0).amax(dim=-1, keepdim=True)
+    tau = 0.5 * (s_tau_k + below)
+    del mag
+    quant = fit_quantizer(torch.minimum(re.amin(dim=-1), im.amin(dim=-1)),
+                          torch.maximum(re.amax(dim=-1), im.amax(dim=-1)),
+                          RangeQuantConfig(8, 3))
+    eps_rows, p_rows = quant.eps, quant.p_codes
+    out_k = fused_compress.fused_compress(re, im, w, eps_rows, p_rows, tau, k_keep=k)
+    out_p = fused_compress.fused_compress_plain(re, im, w, eps_rows, p_rows, tau, k_keep=k)
+    torch.cuda.synchronize()
+    code_mism = int((out_k[0] != out_p[0]).sum() + (out_k[1] != out_p[1]).sum())
+    idx_mism = int((out_k[2] != out_p[2]).sum())
+    err = float(max((out_k[0].int() - out_p[0].int()).abs().max(),
+                    (out_k[1].int() - out_p[1].int()).abs().max()))
+    log(f"[B2 fused_compress] rows={rows} code mismatches={code_mism} of "
+        f"{2 * out_k[0].numel()}, index mismatches={idx_mism} (tolerance 0: bitwise)")
+    if code_mism or idx_mism:
+        raise AssertionError(f"B2 disagrees with its plain version: codes {code_mism}, "
+                             f"indices {idx_mism}")
+    k_pad = fused_compress.pad_k(k)
+    b_ms, b_by = bound(rows * cols * 8 + cols * 4 + rows * 16 + rows * k_pad * 6,
+                       rows * cols * 6 + 2 * rows * k * 30)
+    results.append(dict(
+        kernel=fused_compress.KERNEL, max_abs_err=err,
+        ms=time_ms(lambda: fused_compress.fused_compress(re, im, w, eps_rows, p_rows, tau,
+                                                         k_keep=k), 5),
+        plain_ms=time_ms(lambda: fused_compress.fused_compress_plain(
+            re, im, w, eps_rows, p_rows, tau, k_keep=k), 2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    del re, im
+
+    # B3 on the payload B2 produced, as the engine slices it
+    rec = out_k[0][:, :k].contiguous()
+    imc = out_k[1][:, :k].contiguous()
+    idx16 = out_k[2][:, :k].to(torch.int16).contiguous()
+    del out_k, out_p
+    y_k = fused_decompress.fused_decompress(rec, imc, idx16, eps_rows, p_rows)
+    y_p = fused_decompress.fused_decompress_plain(rec, imc, idx16, eps_rows, p_rows)
+    torch.cuda.synchronize()
+    row_err = (y_k - y_p).abs().amax(dim=-1)
+    row_max = y_p.abs().amax(dim=-1)
+    ratio = float((row_err / torch.clamp_min(row_max, 1e-30)).max())
+    err = float(row_err.max())
+    log(f"[B3 fused_decompress] rows={rows} max abs err={err:.3e}, worst row "
+        f"err/max|x|={ratio:.3e} (tolerance 2e-6)")
+    if not ratio <= 2e-6:
+        raise AssertionError(f"B3 disagrees with its plain version: {ratio:.3e} > 2e-6")
+    del y_k, y_p
+    b_ms, b_by = bound(rows * k * 4 + rows * 8 + rows * chunk * 4,
+                       rows * 2 * k * 30, rows * 5 * chunk * 12)
+    results.append(dict(
+        kernel=fused_decompress.KERNEL, max_abs_err=err,
+        ms=time_ms(lambda: fused_decompress.fused_decompress(rec, imc, idx16, eps_rows,
+                                                             p_rows), 5),
+        plain_ms=time_ms(lambda: fused_decompress.fused_decompress_plain(
+            rec, imc, idx16, eps_rows, p_rows), 2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    for r in results:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+        log(f"[{r['kernel'].name}] kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} "
+            f"library_ms={lib} bound_ms={r['bound_ms']:.3f} ({r['bound_by']})")
+    return results
+
+
+def engine_phase(dev) -> None:
+    """cuda vs reference backend on a small ragged 3-bucket layout."""
+    from repro_torch.comms import bucketing
+    from repro_torch.core.compressor import FFTCompressor, FFTCompressorConfig
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = 5 * 4096 + 1234
+    flat = torch.randn((n,), generator=gen, device=dev) * 0.05
+    layout = bucketing.build_layout(n, 2 * 4096 * 4)
+    stacked = bucketing.stack_buckets(flat, layout)
+    out = {}
+    for backend in ("reference", "cuda"):
+        comp = FFTCompressor(FFTCompressorConfig(backend=backend, selector="sampled"))
+        payload = comp.compress_stacked(stacked, layout.sizes())
+        out[backend] = (payload, comp.decompress_stacked(payload))
+    (p_r, y_r), (p_c, y_c) = out["reference"], out["cuda"]
+    same = all(torch.equal(a, b) for a, b in ((p_r.re, p_c.re), (p_r.im, p_c.im),
+                                               (p_r.idx, p_c.idx), (p_r.quant.eps, p_c.quant.eps),
+                                               (p_r.quant.p_codes, p_c.quant.p_codes)))
+    err = float((y_r - y_c).abs().max() / y_r.abs().max())
+    log(f"[engine] cuda vs reference: payload bitwise equal={same}, "
+        f"roundtrip rel err={err:.3e} (tolerance 2e-6)")
+    if not same or not err <= 2e-6:
+        raise AssertionError("cuda and reference backends disagree")
+
+
+def _busy_us(spans, start: float, end: float) -> float:
+    """Length of the union of ``spans`` (device intervals, us) inside
+    ``[start, end)``."""
+    busy, reach = 0.0, start
+    for s0, s1 in sorted((max(a, start), min(b, end)) for a, b in spans if a < end and b > start):
+        if s1 > reach:
+            busy += s1 - max(s0, reach)
+            reach = s1
+    return busy
+
+
+def _print_profile(prof, label: str) -> None:
+    """Device time by kernel and by the PyTorch op that launched it, and per
+    step (the loop's ``train_step`` ranges) the device's busy share of that
+    step's own wall time."""
+    def dev_us(e):  # the attribute's name before torch 2.4 was self_cuda_time_total
+        value = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if value is None else value
+
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = prof.events()
+    # device work only: kernels and copies, not the device-side copies of
+    # record_function ranges
+    spans = [(e.time_range.start, e.time_range.end) for e in raw
+             if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+             and e.name != "train_step"]
+    steps = sorted((e.time_range.start, e.time_range.end) for e in raw
+                   if e.name == "train_step" and e.device_type != cuda)
+    if not spans or not steps:
+        raise AssertionError(f"{label} profile: no device activity or no step ranges traced")
+    for i, (t0, t1) in enumerate(steps):
+        busy = _busy_us(spans, t0, t1)
+        log(f"[{label} profile step {i}] wall {(t1 - t0) / 1e3:.1f} ms, device busy "
+            f"{busy / 1e3:.1f} ms ({100 * busy / (t1 - t0):.1f}%)")
+    if len(steps) > 1:
+        wall = sum(t1 - t0 for t0, t1 in steps[1:])
+        busy = sum(_busy_us(spans, t0, t1) for t0, t1 in steps[1:])
+        log(f"[{label} profile steady steps] wall {wall / 1e3:.1f} ms, device busy "
+            f"{busy / 1e3:.1f} ms ({100 * busy / wall:.1f}%)")
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == cuda and e.key != "train_step"]
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU and dev_us(e) > 0]
+    for kind, rows in (("kernel", kernels), ("op", ops)):
+        for e in sorted(rows, key=lambda e: -dev_us(e))[:20]:
+            log(f"[{label} profile {kind}] {dev_us(e) / 1e3:9.2f} ms  x{e.count:<5d} "
+                f"{e.key[:90]}")
+
+
+def train_phase(extra_args, counted, label: str, profile: bool = False) -> dict:
+    """Drive the training CLI with the kernels' counts set to 0 just before;
+    returns each kernel's launches in that run."""
+    import contextlib
+
+    from repro_torch.launch import train as train_cli
+
+    for kern in counted:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                               torch.profiler.ProfilerActivity.CUDA])
+            if profile else contextlib.nullcontext())
+    t0 = time.perf_counter()
+    with prof:
+        result = train_cli.main(TRAIN_ARGS + extra_args)
+    wall = time.perf_counter() - t0
+    if profile:
+        _print_profile(prof, label)
+    launches = {kern.name: kern.launches for kern in counted}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    history = result["history"]
+    losses = [row["loss"] for row in history]
+    for row in history:
+        log(f"[{label}] step {row['step']}: loss={row['loss']:.4f} "
+            f"step_ms={row['dt'] * 1e3:.1f} skipped={row['skipped']}")
+    log(f"[{label}] wall={wall:.1f}s peak_memory={peak_gb:.2f} GB launches={launches}")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    if any(row["skipped"] for row in history):
+        raise AssertionError(f"{label}: the guard skipped a step")
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", type=int, default=None,
+                    help="kernel-phase rows (default: the main path's)")
+    ap.add_argument("--skip-train", action="store_true")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the training phase with torch.profiler")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch.kernels import all_kernels, build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    log(smi)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    ptxas = {}
+    build.build([k.source for k in kernels], log=ptxas)
+    log(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f}s")
+    for source, text in ptxas.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas {source}] {line.strip()}")
+
+    rows = args.rows or main_path_rows()
+    results = kernel_phase(rows, dev)
+    torch.cuda.empty_cache()
+    engine_phase(dev)
+
+    launches = {k.name: None for k in kernels}
+    if not args.skip_train:
+        main_counts = train_phase([], kernels, "train", profile=args.profile)
+        for name in ("fused_compress", "fused_decompress", "sampled_threshold"):
+            if main_counts[name] <= 0:
+                raise AssertionError(f"main path never launched {name}")
+            launches[name] = main_counts[name]
+        torch.cuda.empty_cache()
+        bisect_counts = train_phase(["--selector", "bisect", "--steps", "1"], kernels,
+                                    "train-bisect")
+        if bisect_counts["topk_threshold"] <= 0:
+            raise AssertionError("the bisect path never launched topk_threshold")
+        launches["topk_threshold"] = bisect_counts["topk_threshold"]
+
+    line = {"kernels": []}
+    for r in results:
+        kern = r["kernel"]
+        line["kernels"].append({
+            "name": kern.name, "route": "cuda", "source": kern.source_path,
+            "replaces": kern.replaces, "launches": launches[kern.name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

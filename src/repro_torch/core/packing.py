@@ -1,0 +1,12 @@
+"""Index-payload packing (port of ``repro.core.packing.pack_by_indices``)."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["pack_by_indices"]
+
+
+def pack_by_indices(x2d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather per-row kept values: (..., n), (..., k) -> (..., k)."""
+    return torch.gather(x2d, -1, idx.long())

@@ -1,0 +1,105 @@
+"""B2: fused threshold + pack + quantize (port of
+``repro.kernels.fused_compress.fused_compress_pallas``).
+
+Per row of rfft spectrum planes: the Hermitian-weighted magnitude
+``sqrt(re^2 + im^2) * w``, the mask ``mag >= tau`` (the caller's per-row
+tau), index-ascending compaction of the kept bins into
+``k_pad = ceil128(k_keep)`` slots, and range-quant encode of re and im with
+scalar or per-row quantizer params.  Slots never filled hold code 0 at
+index 0.  The reference kernel's in-kernel bisection (``tau=None``) is not
+ported: the engine always passes the threshold kernel's mid-gap tau.  The CUDA kernel is ``csrc/fused_compress.cu``; codes and
+indices are bitwise equal to the plain version on the same input.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _checks
+from repro_torch.kernels.build import Kernel, ptr
+from repro_torch.kernels.range_quant import encode_math
+
+__all__ = ["KERNEL", "K_TILE", "pad_k", "fused_compress", "fused_compress_plain"]
+
+K_TILE = 128
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = Kernel(
+    "fused_compress", "fused_compress.cu",
+    replaces="src/repro/kernels/fused_compress.py:168",
+    entry="fused_compress",
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+)
+
+
+def pad_k(k: int) -> int:
+    """Payload width: the keep count rounded up to the 128-slot tile."""
+    return ((k + K_TILE - 1) // K_TILE) * K_TILE
+
+
+def _row_params(eps, p_codes, n_bits: int, rows: int, device):
+    """(eps, P, n_neg) as float32 ``(rows,)`` vectors; n_neg = 2**N - 1 - P
+    (exact in float32, as the reference's integer difference)."""
+    eps, p = _checks.row_params(eps, p_codes, rows, device)
+    return eps, p, float((1 << n_bits) - 1) - p
+
+
+def fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
+                         n_bits: int = 8, m_bits: int = 3):
+    """Plain PyTorch version: (re_codes, im_codes, idx i32, tau (rows,1))."""
+    rows, cols = re2d.shape
+    k = pad_k(k_keep)
+    eps_r, p_r, n_neg_r = (v[:, None] for v in _row_params(eps, p_codes, n_bits, rows,
+                                                           re2d.device))
+    mag = torch.sqrt(re2d * re2d + im2d * im2d) * weights.reshape(1, -1)
+    tau = tau.reshape(rows, 1).float()
+    mask = mag >= tau
+    pos = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
+    r_i, c_i = torch.nonzero(mask & (pos < k), as_tuple=True)
+    slot = pos[r_i, c_i].long()
+    out_dtype = torch.uint8 if n_bits <= 8 else torch.uint16
+    m_scale = float(1 << m_bits)
+    codes = []
+    for plane in (re2d, im2d):
+        c = encode_math(plane[r_i, c_i], eps_r[r_i, 0], p_r[r_i, 0], n_neg_r[r_i, 0], m_scale)
+        out = torch.zeros((rows, k), dtype=out_dtype, device=re2d.device)
+        out[r_i, slot] = c.to(out_dtype)
+        codes.append(out)
+    idx = torch.zeros((rows, k), dtype=torch.int32, device=re2d.device)
+    idx[r_i, slot] = c_i.to(torch.int32)
+    return codes[0], codes[1], idx, tau
+
+
+def fused_compress(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
+                   n_bits: int = 8, m_bits: int = 3):
+    """(rows, cols) spectrum planes and per-row ``tau`` -> (re_codes,
+    im_codes, idx i32, tau (rows, 1)).
+
+    Codes are uint8 for ``n_bits <= 8``, else uint16; the payload width is
+    ``pad_k(k_keep)``.  ``eps``/``p_codes`` are scalars (one fit) or
+    ``(rows,)`` vectors (one fit per row).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if _checks.on_cpu(re2d):
+        return fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, k_keep=k_keep,
+                                    n_bits=n_bits, m_bits=m_bits)
+    rows, cols = re2d.shape
+    dev = re2d.device
+    _checks.require("re", re2d, torch.float32)
+    _checks.require("im", im2d, torch.float32, shape=(rows, cols), device=dev)
+    w = weights.reshape(cols)
+    _checks.require("weights", w, torch.float32, device=dev)
+    tau = tau.reshape(rows).float().contiguous()
+    _checks.require("tau", tau, torch.float32, device=dev)
+    eps_r, p_r, n_neg_r = _row_params(eps, p_codes, n_bits, rows, dev)
+    k = pad_k(k_keep)
+    out_dtype = torch.uint8 if n_bits <= 8 else torch.uint16
+    rec = torch.empty((rows, k), dtype=out_dtype, device=dev)
+    imc = torch.empty((rows, k), dtype=out_dtype, device=dev)
+    idx = torch.empty((rows, k), dtype=torch.int32, device=dev)
+    if rows:
+        KERNEL.launch(dev, ptr(re2d), ptr(im2d), ptr(w), ptr(tau), ptr(eps_r), ptr(p_r),
+                      ptr(n_neg_r), rows, cols, k, float(1 << m_bits), rec.element_size(),
+                      ptr(rec), ptr(imc), ptr(idx))
+    return rec, imc, idx, tau.reshape(rows, 1)

@@ -1,0 +1,156 @@
+"""Training CLI of the port (same flags and defaults as ``repro.launch.train``).
+
+The ported path is compressed data-parallel training with the ``fft``
+reducer over the ``sequenced`` transport:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b \\
+      --n-layers 4 --steps 3 --batch 4 --seq 512 --mode compressed_dp \\
+      --reducer fft --transport sequenced --bucket-mb 64 --error-feedback \\
+      --backend auto --selector auto
+
+It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
+GPU.  ``--n-layers`` cuts the depth at full width (a port-only flag).  Flags
+and values the port does not run yet raise with a pointer to ROADMAP.md.
+Under ``torchrun`` (or any launcher that sets the ``torch.distributed``
+environment) each process trains one worker of the data-parallel group.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs, device as device_mod
+from repro_torch.comms.reducers import ReducerConfig
+from repro_torch.data import SyntheticConfig, SyntheticStream
+from repro_torch.models import build
+from repro_torch.optim import OptConfig, lr_schedules
+from repro_torch.train import TrainLoopConfig, init_state, train_loop
+from repro_torch.train.step import StepConfig
+
+ARCH_CHOICES = ("gemma2_2b", "internlm2_20b", "qwen1_5_110b", "phi3_medium_14b",
+                "mixtral_8x22b", "qwen3_moe_235b_a22b", "hymba_1_5b", "xlstm_1_3b",
+                "seamless_m4t_large_v2", "llama3_2_vision_11b")
+
+
+def _not_ported(ap, what: str):
+    ap.error(f"{what} is not ported to the PyTorch package yet; see ROADMAP.md")
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma2_2b", choices=ARCH_CHOICES)
+    ap.add_argument("--reduced", action="store_true", help="smoke-size config")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers at full width")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mode", default="pjit", choices=["pjit", "compressed_dp", "hierarchical"])
+    ap.add_argument("--reducer", default="fft",
+                    choices=["fft", "timedomain", "terngrad", "qsgd", "dense"])
+    ap.add_argument("--theta", type=float, default=0.7)
+    ap.add_argument("--theta-schedule", default="constant",
+                    choices=["constant", "step", "thm35"])
+    ap.add_argument("--error-feedback", action="store_true")
+    ap.add_argument("--bucket-mb", type=float, default=None)
+    ap.add_argument("--transport", default="allgather",
+                    choices=["allgather", "sequenced", "psum", "hierarchical",
+                             "reduce_scatter", "auto"])
+    ap.add_argument("--backend", default="auto", choices=["reference", "cuda", "auto"])
+    ap.add_argument("--no-stacked", action="store_true")
+    ap.add_argument("--schedule", default="stacked", choices=["stacked", "streamed", "auto"])
+    ap.add_argument("--stream-groups", type=int, default=None)
+    ap.add_argument("--selector", default="auto", choices=["sort", "sampled", "bisect", "auto"])
+    ap.add_argument("--sample-rate", type=float, default=1.0 / 64.0)
+    ap.add_argument("--calibrate", action="store_true")
+    ap.add_argument("--calibration-path", default=None)
+    ap.add_argument("--publish-dir", default=None)
+    ap.add_argument("--publish-every", type=int, default=1)
+    ap.add_argument("--publish-theta", type=float, default=0.0)
+    ap.add_argument("--publish-capacity", type=int, default=64)
+    ap.add_argument("--publish-snapshot-every", type=int, default=16)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--mesh", default="local", choices=["local", "production", "multi_pod"])
+    ap.add_argument("--nodes", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu; without a GPU the default raises")
+    return ap
+
+
+def _check_ported(ap, args) -> None:
+    if args.mode != "compressed_dp":
+        _not_ported(ap, f"--mode {args.mode}")
+    if args.reducer != "fft":
+        _not_ported(ap, f"--reducer {args.reducer}")
+    if args.transport != "sequenced":
+        _not_ported(ap, f"--transport {args.transport}")
+    if args.theta_schedule != "constant":
+        _not_ported(ap, f"--theta-schedule {args.theta_schedule}")
+    if args.schedule != "stacked" or args.stream_groups is not None:
+        _not_ported(ap, "streamed dispatch (--schedule/--stream-groups)")
+    for flag, value in (("--no-stacked", args.no_stacked), ("--calibrate", args.calibrate),
+                        ("--calibration-path", args.calibration_path),
+                        ("--publish-dir", args.publish_dir), ("--ckpt-dir", args.ckpt_dir),
+                        ("--nodes", args.nodes)):
+        if value:
+            _not_ported(ap, flag)
+    if args.mesh != "local":
+        _not_ported(ap, f"--mesh {args.mesh}")
+
+
+def quantize_theta(theta: float, granularity: float = 0.05) -> float:
+    """Snap theta to the reference's grid (``core.schedules.quantize_theta``)."""
+    return min(0.95, max(0.0, round(theta / granularity) * granularity))
+
+
+def main(argv=None):
+    ap = _parser()
+    args = ap.parse_args(argv)
+    _check_ported(ap, args)
+    dev = device_mod.resolve(args.device)
+    group = None
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    if dist.is_initialized() and dev.type == "cuda":
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+
+    cfg = configs.get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = build(cfg, device=dev, generator=gen)
+
+    theta = quantize_theta(args.theta)
+    reducer = ReducerConfig(
+        kind=args.reducer, theta=theta, error_feedback=args.error_feedback,
+        bucket_bytes=int(args.bucket_mb * (1 << 20)) if args.bucket_mb else None,
+        transport=args.transport, backend=args.backend, selector=args.selector,
+        sample_rate=args.sample_rate)
+    step_cfg = StepConfig(mode=args.mode, reducer=reducer)
+    opt_cfg = OptConfig(kind="adamw", lr=args.lr)
+    stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                             global_batch=args.batch, seed=args.seed),
+                             device=dev)
+    state = init_state(model, opt_cfg, error_feedback=args.error_feedback)
+    loop_cfg = TrainLoopConfig(
+        total_steps=args.steps, log_every=max(1, args.steps // 20),
+        lr_schedule=lr_schedules.warmup_cosine(max(2, args.steps // 10), args.steps))
+    result = train_loop(model, opt_cfg, step_cfg, state, stream, loop_cfg, group=group)
+    for row in result["history"]:
+        print({k: (round(v, 4) if isinstance(v, float) else v) for k, v in row.items()})
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,178 @@
+"""Port parity of the four hot-path kernels: each plain PyTorch version (what
+a kernel wrapper runs on a CPU tensor) against the reference's Pallas kernel
+in interpret mode, on the same inputs, at <= 16 rows.
+
+Tolerances:
+* B1 ``topk_threshold``, B4 ``sampled_threshold``: bitwise tau and count --
+  compare, count and halve only.
+* B2 ``fused_compress``: bitwise codes, indices and tau, given the same
+  spectrum planes, weights, tau and quantizer params.
+* B3 ``fused_decompress``: max abs error <= 2e-6 * max|x| per row -- the
+  reference's 4-step matmul FFT and ``torch.fft.irfft`` are both fp32 FFTs
+  that sum in different orders (the reference module's stated tolerance).
+
+The CUDA kernels themselves are held against these plain versions on the
+card by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import fft as jfft
+from repro.core.quantizer import RangeQuantConfig as JRQ, fit_quantizer as jfit
+from repro.kernels import (fused_compress as jfc, fused_decompress as jfd,
+                           sampled_threshold as jst, topk_threshold as jtt)
+from repro_torch.core import fft as tfft
+from repro_torch.kernels import (fused_compress as tfc, fused_decompress as tfd,
+                                 sampled_threshold as tst, topk_threshold as ttt)
+
+
+def _spectrum(rows, chunk, seed, scale=0.05):
+    """rfft planes of gaussian chunks (tie-free magnitudes), as numpy."""
+    x = np.random.default_rng(seed).standard_normal((rows, chunk)).astype(np.float32) * scale
+    z = np.fft.rfft(x.astype(np.float64), axis=-1)
+    return z.real.astype(np.float32), z.imag.astype(np.float32)
+
+
+def _mag(re, im, w):
+    return (np.sqrt(re * re + im * im) * w).astype(np.float32)
+
+
+def _np(t):
+    return np.asarray(t)
+
+
+@pytest.mark.parametrize("rows,cols,k", [(4, 2049, 615), (8, 512, 100), (3, 513, 129)])
+def test_topk_threshold_plain_vs_pallas_bitwise(rows, cols, k):
+    mag = np.abs(np.random.default_rng(k).standard_normal((rows, cols))).astype(np.float32)
+    jt, jc = jtt.threshold_pallas(jnp.asarray(mag), k=k, interpret=True)
+    tt, tc = ttt.threshold(torch.from_numpy(mag), k=k)
+    np.testing.assert_array_equal(_np(jt), tt.numpy())
+    np.testing.assert_array_equal(_np(jc), tc.numpy())
+
+
+@pytest.mark.parametrize("k", [615, 200])
+def test_sampled_threshold_plain_vs_pallas_bitwise(k):
+    re, im = _spectrum(6, 4096, k)
+    mag = _mag(re, im, _np(jfft.hermitian_weights(4096)))
+    jt, jc = jst.sampled_select(jnp.asarray(mag), k=k, interpret=True)
+    tt, tc = tst.sampled_select(torch.from_numpy(mag), k=k)
+    np.testing.assert_array_equal(_np(jt), tt.numpy())
+    np.testing.assert_array_equal(_np(jc), tc.numpy())
+    # a bracket that violates the invariant on purpose falls back in both
+    lo = np.full((6, 1), 1e9, np.float32)
+    hi = np.zeros((6, 1), np.float32)
+    jt, jc = jst.sampled_threshold_pallas(jnp.asarray(mag), jnp.asarray(lo), jnp.asarray(hi),
+                                          k=k, interpret=True)
+    tt, tc = tst.sampled_threshold(torch.from_numpy(mag), torch.from_numpy(lo),
+                                   torch.from_numpy(hi), k=k)
+    np.testing.assert_array_equal(_np(jt), tt.numpy())
+    np.testing.assert_array_equal(_np(jc), tc.numpy())
+
+
+def _fused_compress_both(re, im, w, eps, p, tau, k_keep, n_bits=8, m_bits=3):
+    j = jfc.fused_compress_pallas(
+        jnp.asarray(re), jnp.asarray(im), jnp.asarray(w), jnp.asarray(eps), jnp.asarray(p),
+        jnp.asarray(tau), k_keep=k_keep, n_bits=n_bits, m_bits=m_bits, interpret=True)
+    t = tfc.fused_compress(
+        torch.from_numpy(re), torch.from_numpy(im), torch.from_numpy(w),
+        torch.from_numpy(np.asarray(eps)), torch.from_numpy(np.asarray(p)),
+        torch.from_numpy(tau), k_keep=k_keep, n_bits=n_bits, m_bits=m_bits)
+    return j, t
+
+
+@pytest.mark.parametrize("k_keep", [127, 128, 129])
+def test_fused_compress_plain_vs_pallas_at_tile_boundary(k_keep):
+    """The bisection threshold's tau, scalar params, a 1024-chunk plane."""
+    re, im = _spectrum(3, 1024, k_keep)
+    w = _np(jfft.hermitian_weights(1024))
+    q = jfit(-2.0, 2.0, JRQ(8, 3))
+    eps, p = np.float32(q.eps), np.int32(q.p_codes)
+    tau = ttt.threshold(torch.from_numpy(_mag(re, im, w)), k=k_keep)[0].numpy()
+    j, t = _fused_compress_both(re, im, w, eps, p, tau, k_keep)
+    assert t[0].shape == (3, tfc.pad_k(k_keep)) and t[0].dtype == torch.uint8
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(_np(a), b.numpy())
+    assert not np.any(t[0].numpy()[:, k_keep:]) and not np.any(t[2].numpy()[:, k_keep:])
+
+
+@pytest.mark.parametrize("n_bits,m_bits", [(8, 3), (4, 2)])
+def test_fused_compress_plain_vs_pallas_per_row_params(n_bits, m_bits):
+    """The engine's call: given mid-gap tau, one fit per row, 2049 bins."""
+    rows, k = 8, 615
+    re, im = _spectrum(rows, 4096, n_bits)
+    w = _np(jfft.hermitian_weights(4096))
+    mag = _mag(re, im, w)
+    tau_k, _ = ttt.threshold(torch.from_numpy(mag), k=k)
+    tau_k = tau_k.numpy()
+    below = np.where(mag < tau_k, mag, 0.0).max(axis=-1, keepdims=True)
+    tau = (np.float32(0.5) * (tau_k + below)).astype(np.float32)
+    fits = [jfit(float(min(re[r].min(), im[r].min())), float(max(re[r].max(), im[r].max())),
+                 JRQ(n_bits, m_bits)) for r in range(rows)]
+    eps = np.array([np.float32(f.eps) for f in fits], np.float32)
+    p = np.array([np.int32(f.p_codes) for f in fits], np.int32)
+    j, t = _fused_compress_both(re, im, w, eps, p, tau, k, n_bits, m_bits)
+    for a, b in zip(j, t):
+        np.testing.assert_array_equal(_np(a), b.numpy())
+
+
+def test_fused_decompress_plain_vs_pallas():
+    rows, k = 8, 615
+    re, im = _spectrum(rows, 4096, 11)
+    w = _np(jfft.hermitian_weights(4096))
+    fits = [jfit(float(min(re[r].min(), im[r].min())), float(max(re[r].max(), im[r].max())),
+                 JRQ(8, 3)) for r in range(rows)]
+    eps = np.array([np.float32(f.eps) for f in fits], np.float32)
+    p = np.array([np.int32(f.p_codes) for f in fits], np.int32)
+    tau = ttt.threshold(torch.from_numpy(_mag(re, im, w)), k=k)[0]
+    rec, imc, idx, _ = (x.numpy() for x in tfc.fused_compress(
+        torch.from_numpy(re), torch.from_numpy(im), torch.from_numpy(w),
+        torch.from_numpy(eps), torch.from_numpy(p), tau, k_keep=k))
+    rec, imc, idx16 = rec[:, :k], imc[:, :k], idx[:, :k].astype(np.int16)
+    y_j = _np(jfd.fused_decompress_pallas(jnp.asarray(rec), jnp.asarray(imc),
+                                          jnp.asarray(idx16), jnp.asarray(eps),
+                                          jnp.asarray(p), m_bits=3, interpret=True))
+    y_t = tfd.fused_decompress(torch.from_numpy(rec), torch.from_numpy(imc),
+                               torch.from_numpy(idx16), torch.from_numpy(eps),
+                               torch.from_numpy(p), m_bits=3).numpy()
+    assert y_t.shape == (rows, 4096) and y_t.dtype == np.float32
+    err = np.abs(y_j - y_t).max(axis=-1)
+    assert np.all(err <= 2e-6 * np.abs(y_j).max(axis=-1)), err
+    # scalar params and uint16 codes (a 12-bit fit) take the same path
+    q = jfit(-2.0, 2.0, JRQ(12, 7))
+    codes = np.random.default_rng(1).integers(0, 4096, (2, 130)).astype(np.uint16)
+    bins = np.random.default_rng(2).permutation(2049)[:260].reshape(2, 130).astype(np.int32)
+    y_j = _np(jfd.fused_decompress_pallas(jnp.asarray(codes), jnp.asarray(codes[::-1].copy()),
+                                          jnp.asarray(bins), q.eps, q.p_codes, m_bits=7,
+                                          interpret=True))
+    y_t = tfd.fused_decompress(torch.from_numpy(codes.astype(np.int32)).to(torch.uint16),
+                               torch.from_numpy(codes[::-1].astype(np.int32)).to(torch.uint16),
+                               torch.from_numpy(bins), torch.tensor(np.float32(q.eps)),
+                               torch.tensor(np.int32(q.p_codes)), m_bits=7).numpy()
+    err = np.abs(y_j - y_t).max(axis=-1)
+    assert np.all(err <= 2e-6 * np.abs(y_j).max(axis=-1)), err
+
+
+def test_kernel_wrappers_count_only_launches():
+    """On the CPU the wrappers run the plain versions and launch nothing."""
+    mag = torch.rand((2, 300))
+    before = ttt.KERNEL.launches
+    ttt.threshold(mag, k=10)
+    assert ttt.KERNEL.launches == before
+
+
+def test_fft_helpers_match():
+    """Weights exactly; the chunked transforms within fp32 FFT tolerance
+    (XLA's and torch's FFTs agree to ~1e-6 relative, not bitwise)."""
+    np.testing.assert_array_equal(_np(jfft.hermitian_weights(4096)),
+                                  tfft.hermitian_weights(4096).numpy())
+    x = np.random.default_rng(0).standard_normal(3 * 1024 + 100).astype(np.float32)
+    jz, jn = jfft.chunked_rfft(jnp.asarray(x), 1024)
+    tz, tn = tfft.chunked_rfft(torch.from_numpy(x), 1024)
+    assert tn == jn == x.size and tz.dtype == torch.complex64
+    np.testing.assert_allclose(tz.numpy(), _np(jz), atol=1e-4)
+    y = tfft.chunked_irfft(tz, tn, 1024).numpy()
+    np.testing.assert_allclose(y, _np(jfft.chunked_irfft(jz, jn, 1024)), atol=1e-5)
+    np.testing.assert_allclose(y, x, atol=1e-5)
