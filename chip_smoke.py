@@ -6,23 +6,33 @@ Phases (any failure exits nonzero; the last line is printed only on success):
 
 1. the card's name and power limit; build every kernel from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once);
-2. each kernel (B1..B4) on the card at the main path's shapes -- the rows
+2. each kernel (B1..B7) on the card at the main path's shapes -- the rows
    that gemma2_2b at full width and 4 layers gives the 64 MB bucketed
    exchange -- against its plain PyTorch version on the same inputs, with
    its time, the plain version's time, the library yardstick's time where
    one PyTorch call computes the same function, and the bound;
 3. the engine's cuda and reference backends on a small ragged layout (codes,
    fits and reconstructions agree);
-4. the port's training CLI in-process: gemma2_2b full width, 4 layers,
+4. the kernel-composed pipeline ``ops.compress_chunks`` ->
+   ``decompress_chunks`` (B7, B1, B6, B5) on a gradient the size of
+   gemma2_2b at 4 layers, against ``FFTCompressor`` with the same fixed
+   quantizer range on the reference backend;
+5. the port's training CLI in-process: gemma2_2b full width, 4 layers,
    3 compressed_dp EF steps (sequenced transport, 64 MB buckets,
-   backend auto, selector auto), with the kernels' launch counts;
-5. one step of the same with ``--selector bisect`` (B1's path).
+   backend auto, selector auto), with the kernels' launch counts; one step
+   of the same with ``--selector bisect`` (B1's path); 3 steps with
+   ``--transport allgather`` (one monolithic payload); 3 steps with
+   ``--no-stacked`` (the per-bucket loop);
+6. 3 steps each through the Python API (ReducerConfig -> StepConfig ->
+   train_loop) on the cuda backend's per-stage routes: ``quantize=False``
+   (B6 pack) and ``chunk=2048`` (B5 decode).
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
-package.  ``--rows`` and ``--skip-train`` shorten a run while a kernel is
-being brought up; ``--profile`` traces the training phase with
-``torch.profiler`` and prints device time by kernel, by op and per step.
+package.  ``--rows`` and ``--skip-train`` (which skips phases 4 to 6)
+shorten a run while a kernel is being brought up; ``--profile`` traces the
+first training phase with ``torch.profiler`` and prints device time by
+kernel, by op and per step.
 """
 
 from __future__ import annotations
@@ -43,10 +53,24 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores, an FMA count
 # per clock, at half the FMA-counted rate
 FP32_INSTR_PER_S = FP32_FLOPS_PER_S / 2
 KEEP_THETA = 0.7
-TRAIN_ARGS = ["--arch", "gemma2_2b", "--n-layers", "4", "--steps", "3", "--batch", "4",
-              "--seq", "512", "--mode", "compressed_dp", "--reducer", "fft",
-              "--transport", "sequenced", "--bucket-mb", "64", "--error-feedback",
-              "--backend", "auto", "--selector", "auto"]
+N_LAYERS = 4
+BATCH, SEQ = 4, 512
+BUCKET_MB = 64
+TRAIN_ARGS = ["--arch", "gemma2_2b", "--n-layers", str(N_LAYERS), "--batch", str(BATCH),
+              "--seq", str(SEQ), "--mode", "compressed_dp", "--reducer", "fft",
+              "--error-feedback", "--backend", "auto", "--selector", "auto"]
+SEQUENCED = ["--transport", "sequenced", "--bucket-mb", str(BUCKET_MB)]
+# the kernel-composed pipeline against FFTCompressor: the two differ in the
+# forward FFT (B7 against cuFFT, ~1e-6 relative), which moves a few codes
+# across a quantizer bin edge and swaps a few bins across the kept-set
+# threshold.  The kept set may differ on at most 1% of chunks and the codes
+# on at most 0.5% of the other chunks' slots (as tests/test_torch_ops.py
+# holds the plain versions to the reference); chunks whose kept set and
+# codes agree must reconstruct within the reference pipeline's own 1e-5
+# (tests/test_kernels.py), and the whole buffer within relative L2 1e-3.
+OPS_RANGE = (-3.0, 3.0)
+OPS_MAX_SET_ROWS, OPS_MAX_CODE_SLOTS = 0.01, 0.005
+OPS_ROW_ATOL, OPS_MAX_REL_L2 = 1e-5, 1e-3
 
 
 def log(msg: str) -> None:
@@ -77,16 +101,37 @@ def bound(n_bytes: float, n_instr: float, n_flops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main_path_rows() -> int:
-    """Chunk rows one exchange compresses for gemma2_2b, 4 layers, 64 MB."""
+def model_config():
+    """gemma2_2b at full width, cut to N_LAYERS layers."""
     import dataclasses
 
     from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config("gemma2_2b"), n_layers=N_LAYERS)
+
+
+def main_path_rows() -> int:
+    """Chunk rows one exchange compresses for gemma2_2b, 4 layers, 64 MB."""
     from repro_torch.comms.bucketing import build_layout
 
-    cfg = dataclasses.replace(configs.get_config("gemma2_2b"), n_layers=4)
-    layout = build_layout(cfg.param_count(), 64 << 20)
+    layout = build_layout(model_config().param_count(), int(BUCKET_MB * (1 << 20)))
     return layout.n_buckets * layout.max_chunks
+
+
+def log_result(r) -> None:
+    lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+    log(f"[{r['kernel'].name}] kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} "
+        f"library_ms={lib} bound_ms={r['bound_ms']:.3f} ({r['bound_by']})")
+
+
+def check_bitwise(label: str, pairs) -> None:
+    """Each (got, want) pair of tensors must be equal; logs the counts."""
+    pairs = list(pairs)
+    mism = sum(int((a != b).sum()) for a, b in pairs)
+    total = sum(a.numel() for a, _ in pairs)
+    log(f"[{label}] mismatches={mism} of {total} (tolerance 0: bitwise)")
+    if mism:
+        raise AssertionError(f"{label} disagrees with its plain version on {mism} values")
 
 
 def kernel_phase(rows: int, dev) -> list:
@@ -208,10 +253,126 @@ def kernel_phase(rows: int, dev) -> list:
             rec, imc, idx16, eps_rows, p_rows), 2),
         library_ms=None, bound_ms=b_ms, bound_by=b_by))
     for r in results:
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
-        log(f"[{r['kernel'].name}] kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} "
-            f"library_ms={lib} bound_ms={r['bound_ms']:.3f} ({r['bound_by']})")
+        log_result(r)
     return results
+
+
+def standalone_phase(rows: int, dev) -> list:
+    """B6 pack/unpack and B5 encode/decode at ``rows`` rows, as the
+    kernel-composed pipeline calls them (k = pad_k(615) = 640 slots,
+    unpack width 2560), against their plain versions: bitwise."""
+    from repro_torch.core import fft as cfft
+    from repro_torch.core import sparsify
+    from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
+    from repro_torch.kernels import ops, pack, range_quant, topk_threshold
+
+    chunk, cols = 4096, 2049
+    k = sparsify.keep_count(cols, KEEP_THETA)
+    k_pad = ops.pad_k(k)
+    cols_pad = cols + (-cols) % pack.F_TILE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    freqs = torch.fft.rfft(torch.randn((rows, chunk), generator=gen, device=dev) * 1e-3, dim=-1)
+    re, im = freqs.real.contiguous(), freqs.imag.contiguous()
+    del freqs
+    mag = torch.sqrt(re * re + im * im) * cfft.hermitian_weights(chunk, dev)
+    tau, _ = topk_threshold.threshold(mag, k=k)
+    mag[0] = 0.0  # an all-zero row: tau 0 keeps all 2049 columns, cut at k_pad
+    tau[0] = 0.0
+    tau[1] = 0.0  # a row whose count (2049) exceeds k_pad
+    results = []
+
+    # B6a
+    vals, idx = pack.pack(mag, tau, k=k_pad)
+    check_bitwise("B6a pack", zip((vals, idx), pack.pack_plain(mag, tau, k=k_pad)))
+    n_bytes = rows * cols * 4 + rows * 4 + rows * k_pad * 8
+    b_ms, b_by = bound(n_bytes, rows * cols * 2)
+    results.append(dict(
+        kernel=pack.PACK_KERNEL, max_abs_err=0.0,
+        ms=time_ms(lambda: pack.pack(mag, tau, k=k_pad), 5),
+        plain_ms=time_ms(lambda: pack.pack_plain(mag, tau, k=k_pad), 2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    del mag
+
+    # B6b on the pair B6a produced
+    dense = pack.unpack(vals, idx, cols=cols_pad)
+    check_bitwise("B6b unpack", [(dense, pack.unpack_plain(vals, idx, cols=cols_pad))])
+    del dense
+    b_ms, b_by = bound(rows * k_pad * 8 + rows * cols_pad * 4, rows * k_pad)
+    results.append(dict(
+        kernel=pack.UNPACK_KERNEL, max_abs_err=0.0,
+        ms=time_ms(lambda: pack.unpack(vals, idx, cols=cols_pad), 5),
+        plain_ms=time_ms(lambda: pack.unpack_plain(vals, idx, cols=cols_pad), 2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+    # B5a/B5b on the gathered real parts, one fit per row
+    valid = vals != 0
+    x = torch.gather(re, -1, idx.long()) * valid
+    del re, im, vals, idx, valid
+    q = fit_quantizer(x.amin(dim=-1), x.amax(dim=-1), RangeQuantConfig(8, 3))
+    codes = range_quant.encode(x, q.eps, q.p_codes)
+    check_bitwise("B5a encode", [(codes, range_quant.encode_plain(x, q.eps, q.p_codes))])
+    b_ms, b_by = bound(rows * k_pad * 5 + rows * 12, rows * k_pad * 30)
+    results.append(dict(
+        kernel=range_quant.ENCODE_KERNEL, max_abs_err=0.0,
+        ms=time_ms(lambda: range_quant.encode(x, q.eps, q.p_codes), 5),
+        plain_ms=time_ms(lambda: range_quant.encode_plain(x, q.eps, q.p_codes), 2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    y = range_quant.decode(codes, q.eps, q.p_codes)
+    check_bitwise("B5b decode", [(y, range_quant.decode_plain(codes, q.eps, q.p_codes))])
+    b_ms, b_by = bound(rows * k_pad * 5 + rows * 8, rows * k_pad * 20)
+    results.append(dict(
+        kernel=range_quant.DECODE_KERNEL, max_abs_err=0.0,
+        ms=time_ms(lambda: range_quant.decode(codes, q.eps, q.p_codes), 5),
+        plain_ms=time_ms(lambda: range_quant.decode_plain(codes, q.eps, q.p_codes), 2),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    for r in results:
+        log_result(r)
+    return results
+
+
+def fft_phase(rows: int, dev, stretch: int = 32768) -> dict:
+    """B7 forward and inverse at ``rows`` rows against the plain four-step
+    version, compared stretch by stretch (``stretch`` rows at a time, every
+    row covered; the plain version's intermediates would not fit at once
+    beside the rest): max abs error <= 2e-6 * max|X| per row and plane."""
+    from repro_torch.kernels import fft4step
+
+    chunk = fft4step.CHUNK
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x_re = torch.randn((rows, chunk), generator=gen, device=dev) * 1e-2
+    x_im = torch.randn((rows, chunk), generator=gen, device=dev) * 1e-2
+    errs = {}
+    for inverse in (False, True):
+        y_re, y_im = fft4step.fft4096(x_re, x_im, inverse=inverse)
+        worst, err = 0.0, 0.0
+        for lo in range(0, rows, stretch):
+            hi = min(rows, lo + stretch)
+            w_re, w_im = fft4step.fft4096_plain(x_re[lo:hi], x_im[lo:hi], inverse=inverse)
+            scale = torch.maximum(w_re.abs().amax(-1), w_im.abs().amax(-1))
+            e = torch.maximum((y_re[lo:hi] - w_re).abs().amax(-1),
+                              (y_im[lo:hi] - w_im).abs().amax(-1))
+            worst = max(worst, float((e / torch.clamp_min(scale, 1e-30)).max()))
+            err = max(err, float(e.max()))
+        del y_re, y_im
+        name = "inverse" if inverse else "forward"
+        log(f"[B7 fft4096 {name}] rows={rows} (plain compared in stretches of {stretch} "
+            f"rows) max abs err={err:.3e}, worst row err/max|X|={worst:.3e} "
+            "(tolerance 2e-6)")
+        if not worst <= 2e-6:
+            raise AssertionError(f"B7 {name} disagrees with its plain version: {worst:.3e}")
+        errs[name] = err
+    inv_ms = time_ms(lambda: fft4step.fft4096(x_re, x_im, inverse=True), 5)
+    fwd_ms = time_ms(lambda: fft4step.fft4096(x_re, x_im, inverse=False), 5)
+    plain_ms = time_ms(lambda: fft4step.fft4096_plain(x_re, x_im, inverse=False), 2)
+    z = torch.complex(x_re, x_im)
+    del x_re, x_im
+    library_ms = time_ms(lambda: torch.fft.fft(z, dim=-1), 2)
+    log(f"[B7 fft4096] forward {fwd_ms:.3f} ms, inverse {inv_ms:.3f} ms per launch")
+    b_ms, b_by = bound(rows * chunk * 16, 0, rows * 5 * chunk * 12)
+    r = dict(kernel=fft4step.KERNEL, max_abs_err=max(errs.values()), ms=fwd_ms,
+             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    log_result(r)
+    return r
 
 
 def engine_phase(dev) -> None:
@@ -288,12 +449,107 @@ def _print_profile(prof, label: str) -> None:
                 f"{e.key[:90]}")
 
 
-def train_phase(extra_args, counted, label: str, profile: bool = False) -> dict:
-    """Drive the training CLI with the kernels' counts set to 0 just before;
-    returns each kernel's launches in that run."""
-    import contextlib
+def ops_phase(dev, counted) -> dict:
+    """The kernel-composed pipeline on a gradient the size of gemma2_2b at
+    4 layers (220,038 chunks of 4096), with the kernels' counts set to 0
+    just before; held against FFTCompressor(range_mode="fixed") on the
+    reference backend.  Returns each kernel's launches in that run."""
+    from repro_torch.core import fft as cfft
+    from repro_torch.core import sparsify
+    from repro_torch.core.compressor import FFTCompressor, FFTCompressorConfig
+    from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
+    from repro_torch.kernels import ops
 
-    from repro_torch.launch import train as train_cli
+    n = model_config().param_count()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g = torch.randn((n,), generator=gen, device=dev) * 0.05
+    x2d, _ = cfft.pad_to_chunks(g, 4096)
+    k = sparsify.keep_count(ops.RFFT_BINS, KEEP_THETA)
+    q = fit_quantizer(*OPS_RANGE, RangeQuantConfig(8, 3), device=dev)
+    for kern in counted:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    re_c, im_c, idx, _ = ops.compress_chunks(x2d, k, q)
+    del x2d
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g_hat = ops.decompress_chunks(re_c, im_c, idx, q, n)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {kern.name: kern.launches for kern in counted}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[ops] {-(-n // 4096)} chunks: compress_chunks {1e3 * (t1 - t0):.1f} ms, "
+        f"decompress_chunks {1e3 * (t2 - t1):.1f} ms, peak_memory={peak_gb:.2f} GB "
+        f"launches={launches}")
+    comp = FFTCompressor(FFTCompressorConfig(theta=KEEP_THETA, range_mode="fixed",
+                                             fixed_range=OPS_RANGE))
+    payload = comp.compress(g)
+    ref = comp.decompress(payload)
+    # the reference packs magnitude-descending (sort selector), the pipeline
+    # index-ascending: compare kept sets and codes in index order
+    ref_idx, order = torch.sort(payload.idx.long(), dim=-1)
+    same_set = (ref_idx == idx[:, :k].long()).all(dim=-1)
+    code_diff = torch.zeros_like(ref_idx, dtype=torch.bool)
+    for ref_c, ops_c in ((payload.re, re_c), (payload.im, im_c)):
+        code_diff |= torch.gather(ref_c, -1, order) != ops_c[:, :k]
+    del payload, ref_idx, order, re_c, im_c, idx
+    set_rows = float(1.0 - same_set.float().mean())
+    code_slots = float(code_diff[same_set].float().mean())
+    agree = same_set & ~code_diff.any(dim=-1)
+    diff = g_hat - ref
+    rel = float(diff.norm() / ref.norm())
+    row_err = cfft.pad_to_chunks(diff.abs(), 4096)[0].amax(dim=-1)
+    agree_err = float(row_err[agree].max())
+    log(f"[ops] against FFTCompressor(range_mode='fixed', backend='reference'): kept set "
+        f"differs on {100 * set_rows:.4f}% of chunks (tolerance {100 * OPS_MAX_SET_ROWS}%), "
+        f"codes on {100 * code_slots:.4f}% of the other chunks' slots (tolerance "
+        f"{100 * OPS_MAX_CODE_SLOTS}%); chunks that agree fully "
+        f"{100 * float(agree.float().mean()):.3f}%, their max abs err {agree_err:.3e} "
+        f"(tolerance {OPS_ROW_ATOL}); rel L2 {rel:.3e} (tolerance {OPS_MAX_REL_L2}), max "
+        f"abs {float(row_err.max()):.3e}; reconstruction rel L2 to the gradient "
+        f"{float((ref - g).norm() / g.norm()):.4f}")
+    if not (set_rows <= OPS_MAX_SET_ROWS and code_slots <= OPS_MAX_CODE_SLOTS
+            and agree_err <= OPS_ROW_ATOL and rel <= OPS_MAX_REL_L2):
+        raise AssertionError("the kernel-composed pipeline disagrees with FFTCompressor")
+    for name in ("fft4096", "topk_threshold", "pack", "range_quant_encode",
+                 "range_quant_decode", "unpack"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the ops pipeline never launched {name}")
+    return launches
+
+
+def api_train(dev, steps: int, **reducer_kwargs):
+    """Training through the port's Python API, built as the CLI builds it:
+    ReducerConfig -> StepConfig -> train_loop (sequenced, 64 MB buckets,
+    EF, selector auto)."""
+    from repro_torch.comms.reducers import ReducerConfig
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, init_state, train_loop
+    from repro_torch.train.step import StepConfig
+
+    cfg = model_config()
+    model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    reducer = ReducerConfig(kind="fft", theta=KEEP_THETA, error_feedback=True,
+                            bucket_bytes=int(BUCKET_MB * (1 << 20)), transport="sequenced",
+                            selector="auto", **reducer_kwargs)
+    opt = OptConfig(kind="adamw", lr=3e-4)
+    stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                             global_batch=BATCH, seed=0), device=dev)
+    state = init_state(model, opt, error_feedback=True)
+    return train_loop(model, opt, StepConfig(mode="compressed_dp", reducer=reducer), state,
+                      stream, TrainLoopConfig(total_steps=steps, log_every=1))
+
+
+def train_phase(run, counted, label: str, must_launch, profile: bool = False) -> dict:
+    """Run one training phase (``run()`` returns the loop's result) with the
+    kernels' counts set to 0 just before; checks finite losses, no skipped
+    step and a launch of each kernel in ``must_launch``; returns each
+    kernel's launches in that run."""
+    import contextlib
 
     for kern in counted:
         kern.launches = 0
@@ -303,13 +559,14 @@ def train_phase(extra_args, counted, label: str, profile: bool = False) -> dict:
             if profile else contextlib.nullcontext())
     t0 = time.perf_counter()
     with prof:
-        result = train_cli.main(TRAIN_ARGS + extra_args)
+        result = run()
     wall = time.perf_counter() - t0
     if profile:
         _print_profile(prof, label)
     launches = {kern.name: kern.launches for kern in counted}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     history = result["history"]
+    del result
     losses = [row["loss"] for row in history]
     for row in history:
         log(f"[{label}] step {row['step']}: loss={row['loss']:.4f} "
@@ -319,6 +576,10 @@ def train_phase(extra_args, counted, label: str, profile: bool = False) -> dict:
         raise AssertionError(f"{label}: non-finite loss {losses}")
     if any(row["skipped"] for row in history):
         raise AssertionError(f"{label}: the guard skipped a step")
+    for name in must_launch:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label} never launched {name}")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -326,9 +587,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=None,
                     help="kernel-phase rows (default: the main path's)")
-    ap.add_argument("--skip-train", action="store_true")
+    ap.add_argument("--skip-train", action="store_true",
+                    help="skip the ops and training phases")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the training phase with torch.profiler")
+                    help="trace the first training phase with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -336,6 +598,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch.kernels import all_kernels, build
+    from repro_torch.launch import train as train_cli
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -345,10 +608,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = all_kernels()
+    sources = sorted({k.source for k in kernels})
     t0 = time.perf_counter()
     ptxas = {}
-    build.build([k.source for k in kernels], log=ptxas)
-    log(f"[build] {len(kernels)} kernels in {time.perf_counter() - t0:.1f}s")
+    build.build(sources, log=ptxas)
+    log(f"[build] {len(kernels)} kernels from {len(sources)} sources in "
+        f"{time.perf_counter() - t0:.1f}s")
     for source, text in ptxas.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -357,21 +622,38 @@ def main() -> int:
     rows = args.rows or main_path_rows()
     results = kernel_phase(rows, dev)
     torch.cuda.empty_cache()
+    results += standalone_phase(rows, dev)
+    torch.cuda.empty_cache()
+    results.append(fft_phase(rows, dev))
+    torch.cuda.empty_cache()
     engine_phase(dev)
 
     launches = {k.name: None for k in kernels}
     if not args.skip_train:
-        main_counts = train_phase([], kernels, "train", profile=args.profile)
-        for name in ("fused_compress", "fused_decompress", "sampled_threshold"):
-            if main_counts[name] <= 0:
-                raise AssertionError(f"main path never launched {name}")
-            launches[name] = main_counts[name]
+        ops_counts = ops_phase(dev, kernels)
+        for name in ("fft4096", "pack", "unpack", "range_quant_encode", "range_quant_decode"):
+            launches[name] = ops_counts[name]
         torch.cuda.empty_cache()
-        bisect_counts = train_phase(["--selector", "bisect", "--steps", "1"], kernels,
-                                    "train-bisect")
-        if bisect_counts["topk_threshold"] <= 0:
-            raise AssertionError("the bisect path never launched topk_threshold")
+
+        def cli(*extra):
+            return lambda: train_cli.main(TRAIN_ARGS + list(extra))
+
+        fused = ("fused_compress", "fused_decompress", "sampled_threshold")
+        main_counts = train_phase(cli(*SEQUENCED, "--steps", "3"), kernels, "train", fused,
+                                  profile=args.profile)
+        for name in fused:
+            launches[name] = main_counts[name]
+        bisect_counts = train_phase(cli(*SEQUENCED, "--selector", "bisect", "--steps", "1"),
+                                    kernels, "train-bisect", ("topk_threshold",))
         launches["topk_threshold"] = bisect_counts["topk_threshold"]
+        train_phase(cli("--transport", "allgather", "--steps", "3"), kernels,
+                    "train-allgather", fused)
+        train_phase(cli(*SEQUENCED, "--no-stacked", "--steps", "3"), kernels,
+                    "train-no-stacked", fused)
+        train_phase(lambda: api_train(dev, 3, backend="cuda", quantize=False), kernels,
+                    "train-api-unquantized", ("pack",))
+        train_phase(lambda: api_train(dev, 3, backend="cuda", chunk=2048), kernels,
+                    "train-api-chunk2048", ("fused_compress", "range_quant_decode"))
 
     line = {"kernels": []}
     for r in results:

@@ -1,6 +1,7 @@
 """Deterministic, chunk-aligned bucketing of the flat gradient space (port of
 ``repro.comms.bucketing``: ``BucketLayout``, ``build_layout``,
-``stack_buckets``, ``unstack_buckets``).
+``split_buckets``, ``concat_buckets``, ``stack_buckets``,
+``unstack_buckets``).
 
 ``[0, total)`` is cut into size-targeted buckets whose interior boundaries
 are multiples of the FFT chunk, so per-chunk selection is the same at any
@@ -11,13 +12,14 @@ bucket size and unpadding is exact.  The layout is a pure function of
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import fft as cfft
 
-__all__ = ["BucketLayout", "build_layout", "stack_buckets", "unstack_buckets"]
+__all__ = ["BucketLayout", "build_layout", "split_buckets", "concat_buckets",
+           "stack_buckets", "unstack_buckets"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +82,21 @@ def build_layout(total: int, bucket_bytes: Optional[int], chunk: int = cfft.DEFA
         boundaries.pop()
     boundaries.append(total)
     return BucketLayout(total, tuple(boundaries), chunk)
+
+
+def split_buckets(flat: torch.Tensor, layout: BucketLayout) -> List[torch.Tensor]:
+    """Views of the flat buffer, one per bucket (the per-bucket loop's input)."""
+    if flat.shape[0] != layout.total:
+        raise ValueError(f"flat has {flat.shape[0]} elems, layout {layout.total}")
+    return [flat[lo:hi] for lo, hi in zip(layout.boundaries, layout.boundaries[1:])]
+
+
+def concat_buckets(parts: Sequence[torch.Tensor], layout: BucketLayout) -> torch.Tensor:
+    """Inverse of :func:`split_buckets`; checks the sizes match the layout."""
+    sizes = tuple(int(p.shape[0]) for p in parts)
+    if sizes != layout.sizes():
+        raise ValueError(f"part sizes {sizes} != layout sizes {layout.sizes()}")
+    return parts[0] if len(parts) == 1 else torch.cat(list(parts))
 
 
 def stack_buckets(flat: torch.Tensor, layout: BucketLayout) -> torch.Tensor:

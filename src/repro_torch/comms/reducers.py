@@ -75,10 +75,15 @@ class ReducerConfig:
     m_bits: int = 3
     chunk: int = 4096
     quantize: bool = True
+    range_mode: str = "auto"  # "fixed": every fit uses fixed_range
+    fixed_range: Tuple[float, float] = (-1.0, 1.0)
     error_feedback: bool = False
     bucket_bytes: Optional[int] = None  # None: one monolithic bucket
-    transport: str = "allgather"
+    transport: str = "allgather"  # allgather | sequenced (the ported ones)
     backend: str = "reference"
+    # batched bucket executor: every bucket in one batched pass and one
+    # StackedPayload per exchange; False runs the per-bucket loop
+    stacked: bool = True
     selector: str = "sort"
     sample_rate: float = 1.0 / 64.0
     tau_refine_iters: int = 16
@@ -99,7 +104,8 @@ class ReducerConfig:
     def compressor_config(self) -> FFTCompressorConfig:
         return FFTCompressorConfig(
             theta=self.theta, n_bits=self.n_bits, m_bits=self.m_bits, chunk=self.chunk,
-            quantize=self.quantize, backend=self.backend, selector=self.selector,
+            quantize=self.quantize, range_mode=self.range_mode, fixed_range=self.fixed_range,
+            backend=self.backend, selector=self.selector,
             sample_rate=self.sample_rate, tau_refine_iters=self.tau_refine_iters)
 
     def layout_for(self, total: int) -> bucketing.BucketLayout:
@@ -125,7 +131,7 @@ def make_reducer(config: ReducerConfig, group=None):
 
     def _run(flat, local: bool):
         return transport.run(flat, comp=comp, layout=config.layout_for(flat.shape[0]),
-                             local=local, group=group)
+                             local=local, group=group, stacked=config.stacked)
 
     def compressed_reduce(grads):
         flat, specs = flatten_tree(grads)

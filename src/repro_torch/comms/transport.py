@@ -1,26 +1,35 @@
 """Exchange strategies for compressed gradient buckets (port of
-``repro.comms.transport``: ``Transport.run(layout=...)`` and the
-``sequenced`` transport).
+``repro.comms.transport``: ``Transport.run(layout=...)``, the ``allgather``
+and ``sequenced`` transports, and the per-bucket loop).
 
 ``run(flat, comp=..., layout=..., group=...)`` with ``group=None`` and no
 ``torch.distributed`` process group is a one-worker exchange (the worker
 axis has length 1); with ``local=True`` it is the local compress ->
-decompress roundtrip that error feedback accumulates against.
+decompress roundtrip that error feedback accumulates against, at the
+transport's own granularity.
 
-The ``sequenced`` transport compresses every bucket in one batched pass
-(``compress_stacked``) and all_gathers the ``StackedPayload`` one plane at a
-time (``torch.distributed.all_gather_into_tensor``).  Each worker's payload
-is dequantized and scattered into its spectrum (``decompress_spectrum``),
-the spectra are averaged in worker order by a left-to-right fold, and one
-irfft per chunk row returns to the time domain (FFT linearity).
+Every exchange all_gathers payloads one plane at a time
+(``torch.distributed.all_gather_into_tensor``), dequantizes and scatters
+each worker's payload into its spectrum (``decompress_spectrum``), averages
+the spectra in worker order by a left-to-right fold, and returns to the
+time domain with one irfft per chunk row (FFT linearity).
 
-The ``allgather``, ``psum``, ``hierarchical`` and ``reduce_scatter``
-transports, the per-bucket loop and the streamed ``plan=`` dispatch are not
-ported yet.
+* ``allgather`` -- ONE monolithic payload of the whole buffer, one
+  quantizer fit over all of it (the reference CLI's default).
+* ``sequenced`` -- per-bucket quantizer fits.  ``stacked=True`` compresses
+  every bucket in one batched pass (``compress_stacked``) and gathers the
+  one ``StackedPayload``; ``stacked=False`` is the per-bucket loop, one
+  payload and one gather per bucket.  Both give the same mean; the loop is
+  slower (one round of launches per bucket) but holds one bucket's spectrum
+  at a time, so it peaks lower in device memory.
+
+The ``psum``, ``hierarchical`` and ``reduce_scatter`` transports and the
+streamed ``plan=`` dispatch are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List
 
 import torch
@@ -30,11 +39,11 @@ from repro_torch.comms import bucketing
 from repro_torch.core import fft as cfft
 from repro_torch.core.compressor import StackedPayload
 
-__all__ = ["Transport", "SequencedTransport", "get_transport", "TRANSPORT_NAMES",
-           "PORTED_TRANSPORTS"]
+__all__ = ["Transport", "AllGatherTransport", "SequencedTransport", "get_transport",
+           "TRANSPORT_NAMES", "PORTED_TRANSPORTS"]
 
 TRANSPORT_NAMES = ("allgather", "sequenced", "psum", "hierarchical", "reduce_scatter")
-PORTED_TRANSPORTS = ("sequenced",)
+PORTED_TRANSPORTS = ("allgather", "sequenced")
 
 
 def _compress_stacked(flat: torch.Tensor, layout, comp) -> StackedPayload:
@@ -69,9 +78,10 @@ def _gather_plane(t: torch.Tensor, world: int, group) -> torch.Tensor:
     return out.view(src.dtype).reshape((world,) + tuple(src.shape))
 
 
-def all_gather_payload(payload: StackedPayload, group=None) -> List[StackedPayload]:
-    """The payloads of every worker, in rank order (one all_gather per
-    plane and per fit leaf); ``[payload]`` when there is one worker."""
+def all_gather_payload(payload, group=None) -> list:
+    """The payloads (``FFTPayload`` or ``StackedPayload``) of every worker,
+    in rank order (one all_gather per plane and per fit leaf);
+    ``[payload]`` when there is one worker."""
     world = _world(group)
     if world == 1:
         return [payload]
@@ -84,40 +94,85 @@ def all_gather_payload(payload: StackedPayload, group=None) -> List[StackedPaylo
     for w in range(world):
         if payload.quant is not None:
             quant = type(payload.quant)(payload.quant.config, *(leaf[w] for leaf in leaves))
-        out.append(StackedPayload(planes[0][w], planes[1][w], planes[2][w], quant,
-                                  payload.sizes, payload.chunk))
+        out.append(dataclasses.replace(payload, re=planes[0][w], im=planes[1][w],
+                                       idx=planes[2][w], quant=quant))
     return out
 
 
+def _gather_mean_payload(payload, comp, group) -> torch.Tensor:
+    """All_gather one monolithic payload -> the flat mean reconstruction:
+    the worker-ordered mean of the decompressed spectra, one irfft."""
+    spectra = [comp.decompress_spectrum(p) for p in all_gather_payload(payload, group)]
+    mean = _ordered_worker_mean(spectra)
+    del spectra
+    return cfft.chunked_irfft(mean, payload.orig_len, payload.chunk)
+
+
 class Transport:
-    """Exchange interface; :meth:`run` is the single public entry point."""
+    """Exchange interface; :meth:`run` is the single public entry point.
+    Subclasses implement the flat hooks (whole buffer + bucket layout) and
+    the per-bucket loop hooks."""
 
     name = "base"
 
-    def run(self, flat: torch.Tensor, *, comp, layout, local: bool = False,
-            group=None) -> torch.Tensor:
+    def run(self, flat: torch.Tensor, *, comp, layout, local: bool = False, group=None,
+            stacked: bool = True) -> torch.Tensor:
         """The cross-worker mean of ``flat`` over ``group`` (the default
         process group, or one worker when none is initialized), or with
         ``local=True`` this worker's compress -> decompress reconstruction.
-        Returns a flat tensor shaped like ``flat``."""
+        ``stacked`` picks the batched single-collective path (default) or
+        the per-bucket loop.  Returns a flat tensor shaped like ``flat``."""
         if local:
-            return self._roundtrip_flat(flat, layout, comp)
-        return self._exchange_flat(flat, layout, comp, group)
+            return self._roundtrip_flat(flat, layout, comp, stacked)
+        return self._exchange_flat(flat, layout, comp, group, stacked)
 
-    def _exchange_flat(self, flat, layout, comp, group) -> torch.Tensor:
+    # -- per-bucket loop hooks ----------------------------------------------
+
+    def _exchange_buckets(self, buckets, comp, group) -> List[torch.Tensor]:
         raise NotImplementedError
 
-    def _roundtrip_flat(self, flat, layout, comp) -> torch.Tensor:
-        raise NotImplementedError
+    def _roundtrip_buckets(self, buckets, comp) -> List[torch.Tensor]:
+        return [comp.decompress(p) for p in comp.compress_buckets(buckets)]
+
+    # -- flat hooks: the per-bucket loop unless a transport overrides them --
+
+    def _exchange_flat(self, flat, layout, comp, group, stacked: bool = True) -> torch.Tensor:
+        del stacked  # the loop ignores the flag
+        buckets = bucketing.split_buckets(flat, layout)
+        return bucketing.concat_buckets(self._exchange_buckets(buckets, comp, group), layout)
+
+    def _roundtrip_flat(self, flat, layout, comp, stacked: bool = True) -> torch.Tensor:
+        del stacked
+        buckets = bucketing.split_buckets(flat, layout)
+        return bucketing.concat_buckets(self._roundtrip_buckets(buckets, comp), layout)
+
+
+class AllGatherTransport(Transport):
+    """ONE monolithic payload all_gather, one global quantizer fit; the
+    bucket layout and ``stacked`` play no part."""
+
+    name = "allgather"
+
+    def _exchange_flat(self, flat, layout, comp, group, stacked=True):
+        return _gather_mean_payload(comp.compress(flat), comp, group)
+
+    def _roundtrip_flat(self, flat, layout, comp, stacked=True):
+        return comp.decompress(comp.compress(flat))
 
 
 class SequencedTransport(Transport):
-    """One all_gather of the whole exchange's ``StackedPayload`` (one
-    collective per plane), per-bucket quantizer ranges."""
+    """Bucketed all_gather with per-bucket quantizer ranges: ONE gather of
+    the whole exchange's ``StackedPayload`` (stacked), or one per bucket
+    (the loop)."""
 
     name = "sequenced"
 
-    def _exchange_flat(self, flat, layout, comp, group):
+    def _exchange_buckets(self, buckets, comp, group):
+        return [_gather_mean_payload(p, comp, group) for p in comp.compress_buckets(buckets)]
+
+    def _exchange_flat(self, flat, layout, comp, group, stacked=True):
+        if not stacked:
+            return super()._exchange_flat(flat, layout, comp, group, stacked)
         payload = _compress_stacked(flat, layout, comp)
         gathered = all_gather_payload(payload, group)
         del payload
@@ -126,12 +181,14 @@ class SequencedTransport(Transport):
         del spectra
         return bucketing.unstack_buckets(cfft.irfft_rows(mean, layout.chunk), layout)
 
-    def _roundtrip_flat(self, flat, layout, comp):
+    def _roundtrip_flat(self, flat, layout, comp, stacked=True):
+        if not stacked:
+            return super()._roundtrip_flat(flat, layout, comp, stacked)
         payload = _compress_stacked(flat, layout, comp)
         return bucketing.unstack_buckets(comp.decompress_stacked(payload), layout)
 
 
-_TRANSPORTS = {"sequenced": SequencedTransport()}
+_TRANSPORTS = {t.name: t for t in (AllGatherTransport(), SequencedTransport())}
 
 
 def get_transport(name: str) -> Transport:

@@ -1,15 +1,19 @@
-"""The compressor protocol and payloads (port of ``repro.core.compressor``,
-restricted to the stacked bucket executor and ``decompress_spectrum``).
+"""The compressor protocol and payloads (port of ``repro.core.compressor``:
+``FFTCompressor`` and its payloads).
 
     gradient --rFFT--> spectrum --theta-drop--> sparse --range-quant--> codes
              --pack--> (values, indices) payload --> wire
 
 Stage execution is delegated to an engine backend (``kernels/engine.py``):
 ``reference`` (plain PyTorch ops), ``cuda`` (the hand-written kernels), or
-``auto`` (``cuda`` whenever the config is kernel-eligible).  Every backend
-emits the same payload layout.  The monolithic ``compress``/``decompress``
-entry points, the per-bucket loop and ``TimeDomainCompressor`` are not
-ported yet (ROADMAP).
+``auto`` (``cuda`` for a CUDA tensor; on the CPU ``cuda``'s plain
+versions where the config is kernel-eligible, else ``reference``).  Every
+backend emits the same payload layout.  The entry points are the monolithic
+``compress``/``decompress`` (one quantizer fit for the whole buffer), the
+per-bucket loop ``compress_buckets`` (one fit per bucket) and the stacked
+bucket executor ``compress_stacked``/``decompress_stacked`` (one fit per
+bucket, one batched pass).  ``TimeDomainCompressor`` and the other
+baselines are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -94,6 +98,8 @@ class FFTCompressorConfig:
     m_bits: int = 3
     chunk: int = cfft.DEFAULT_CHUNK
     quantize: bool = True
+    range_mode: str = "auto"  # "auto": per-call min/max; "fixed": use fixed_range
+    fixed_range: Tuple[float, float] = (-1.0, 1.0)  # paper: [-1,1] AlexNet, [-6,6] ResNet
     index_bits: int = 16
     backend: str = "reference"  # reference | cuda | auto (kernels/engine.py)
     selector: str = "sort"  # sort | sampled | bisect | auto (core/selection.py)
@@ -126,11 +132,23 @@ class FFTCompressor:
     """The paper's pipeline; owns the config and delegates stage execution
     to the engine backend named by ``config.backend``."""
 
-    def __init__(self, config: FFTCompressorConfig = FFTCompressorConfig()):
+    def __init__(self, config: Optional[FFTCompressorConfig] = None):
         from repro_torch.kernels import engine
 
-        self.config = config
-        self.backend = engine.get_backend(config.backend)
+        self.config = config if config is not None else FFTCompressorConfig()
+        self.backend = engine.get_backend(self.config.backend)
+
+    def compress(self, x_flat: torch.Tensor) -> FFTPayload:
+        """One monolithic payload of the whole flat buffer (one fit)."""
+        return self.backend.compress(self.config, x_flat)
+
+    def decompress(self, payload: FFTPayload) -> torch.Tensor:
+        """Inverse of :meth:`compress` -> flat f32 of ``payload.orig_len``."""
+        return self.backend.decompress(payload)
+
+    def compress_buckets(self, bucket_flats) -> list:
+        """Per-bucket loop: one payload, and one quantizer fit, per bucket."""
+        return self.backend.compress_buckets(self.config, bucket_flats)
 
     def compress_stacked(self, stacked: torch.Tensor, sizes) -> StackedPayload:
         """Compress every bucket row of a ``(n_buckets, padded_size)`` matrix
@@ -145,3 +163,9 @@ class FFTCompressor:
     def decompress_spectrum(self, payload) -> torch.Tensor:
         """Payload -> dense complex spectrum ``(..., chunk//2+1)``."""
         return self.backend.decompress_spectrum(payload)
+
+    def wire_bits(self, n: int) -> int:
+        """Static wire estimate of one monolithic payload of ``n`` values."""
+        from repro_torch.kernels import engine
+
+        return engine.wire_bits(self.config, n)

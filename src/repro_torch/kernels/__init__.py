@@ -1,5 +1,6 @@
 """The port's kernels: hand-written CUDA for Hopper (``csrc/``), each beside
-a plain PyTorch version of the same function, plus the compressor engine.
+a plain PyTorch version of the same function, plus the compressor engine
+and the kernel-composed pipeline (``ops``).
 
 Every wrapper picks by the device of its input: a CPU tensor goes to the
 plain version, a CUDA tensor to the kernel (or the wrapper raises).
@@ -12,9 +13,11 @@ __all__ = ["all_kernels"]
 
 
 def all_kernels():
-    """The four hot-path kernels, B1..B4, as ``build.Kernel`` records."""
-    from repro_torch.kernels import (fused_compress, fused_decompress,
-                                     sampled_threshold, topk_threshold)
+    """Every kernel, B1..B7, as ``build.Kernel`` records (one per TPU
+    ``pallas_call``; B5 and B6 have two entries in one source each)."""
+    from repro_torch.kernels import (fft4step, fused_compress, fused_decompress, pack,
+                                     range_quant, sampled_threshold, topk_threshold)
 
-    return [topk_threshold.KERNEL, fused_compress.KERNEL,
-            fused_decompress.KERNEL, sampled_threshold.KERNEL]
+    return [topk_threshold.KERNEL, fused_compress.KERNEL, fused_decompress.KERNEL,
+            sampled_threshold.KERNEL, range_quant.ENCODE_KERNEL, range_quant.DECODE_KERNEL,
+            pack.PACK_KERNEL, pack.UNPACK_KERNEL, fft4step.KERNEL]

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["on_cpu", "require", "row_params"]
+__all__ = ["on_cpu", "require", "row_params", "encode_row_params", "code_dtype"]
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -38,3 +38,16 @@ def row_params(eps, p_codes, rows: int, device):
     if eps.numel() == 1:
         eps, p = eps.expand(rows), p.expand(rows)
     return eps.contiguous(), p.contiguous()
+
+
+def encode_row_params(eps, p_codes, n_bits: int, rows: int, device):
+    """(eps, P, n_neg) as float32 ``(rows,)`` vectors for the encoders;
+    n_neg = 2**N - 1 - P (exact in float32, as the reference's integer
+    difference)."""
+    eps, p = row_params(eps, p_codes, rows, device)
+    return eps, p, float((1 << n_bits) - 1) - p
+
+
+def code_dtype(n_bits: int) -> torch.dtype:
+    """Code plane type: uint8 up to 8 bits, else uint16."""
+    return torch.uint8 if n_bits <= 8 else torch.uint16

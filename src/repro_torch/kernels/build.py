@@ -36,7 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_HEADERS = ("common.cuh", "range_quant.cuh", "threshold.cuh")
+_HEADERS = ("common.cuh", "fft4096.cuh", "range_quant.cuh", "threshold.cuh")
 
 
 def nvcc_path() -> str:
@@ -72,7 +72,7 @@ def build(sources: Iterable[str], log: Optional[Dict[str, str]] = None) -> Dict[
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     t0 = time.perf_counter()
-    for source in sources:
+    for source in dict.fromkeys(sources):  # one nvcc per source, however often named
         target = _library_path(source)
         if target.exists():
             continue

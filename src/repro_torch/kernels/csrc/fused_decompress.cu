@@ -24,12 +24,10 @@
 // 2048-entry table the wrapper passes in), no tensor cores and no TF32.
 // Output order is bit-reversed, undone on the write.  Tolerance against the
 // plain version (cuFFT irfft): max abs error <= 2e-6 * max|x| per row.
+#include "fft4096.cuh"
 #include "range_quant.cuh"
 
 namespace repro {
-
-constexpr int kN = 4096;
-constexpr int kHalfN = kN / 2;
 
 template <typename CodeT, typename IdxT>
 __global__ void __launch_bounds__(kThreads)
@@ -37,10 +35,10 @@ fused_decompress_kernel(const CodeT* __restrict__ rec, const CodeT* __restrict__
                         const IdxT* __restrict__ idx, const float* __restrict__ eps,
                         const float* __restrict__ p_codes, int k, float m_scale,
                         const float2* __restrict__ twiddle, float* __restrict__ out) {
-  __shared__ float2 spec[kN];
+  __shared__ float2 spec[kFftN];
   const size_t row = blockIdx.x;
 
-  for (int i = threadIdx.x; i < kN; i += kThreads) spec[i] = make_float2(0.0f, 0.0f);
+  for (int i = threadIdx.x; i < kFftN; i += kThreads) spec[i] = make_float2(0.0f, 0.0f);
   __syncthreads();
 
   const float e = eps[row];
@@ -52,38 +50,21 @@ fused_decompress_kernel(const CodeT* __restrict__ rec, const CodeT* __restrict__
     const float vr = decode_math(static_cast<float>(rec_row[s]), e, p, m_scale);
     const float vi = decode_math(static_cast<float>(imc_row[s]), e, p, m_scale);
     const int b = static_cast<int>(idx_row[s]);
-    if (b < 0 || b > kHalfN) continue;  // a corrupt index adds nothing (as XLA drops it)
+    if (b < 0 || b > kFftHalf) continue;  // a corrupt index adds nothing (as XLA drops it)
     atomicAdd(&spec[b].x, vr);
     atomicAdd(&spec[b].y, vi);
-    if (b >= 1 && b <= kHalfN - 1) {  // DC and Nyquist are their own mirrors
-      atomicAdd(&spec[kN - b].x, vr);
-      atomicAdd(&spec[kN - b].y, -vi);
+    if (b >= 1 && b <= kFftHalf - 1) {  // DC and Nyquist are their own mirrors
+      atomicAdd(&spec[kFftN - b].x, vr);
+      atomicAdd(&spec[kFftN - b].y, -vi);
     }
   }
   __syncthreads();
 
-  // decimation in frequency: span ``half`` halves each stage; the twiddle
-  // of position ``pos`` is exp(+2*pi*i * pos * stride / 4096)
-  for (int half = kHalfN, stride = 1; half >= 1; half >>= 1, stride <<= 1) {
-    for (int bf = threadIdx.x; bf < kHalfN; bf += kThreads) {
-      const int pos = bf & (half - 1);
-      const int i = 2 * bf - pos;  // group * 2 * half + pos
-      const int j = i + half;
-      const float2 u = spec[i];
-      const float2 v = spec[j];
-      const float2 tw = twiddle[pos * stride];
-      const float dx = u.x - v.x;
-      const float dy = u.y - v.y;
-      spec[i] = make_float2(u.x + v.x, u.y + v.y);
-      spec[j] = make_float2(dx * tw.x - dy * tw.y, dx * tw.y + dy * tw.x);
-    }
-    __syncthreads();
-  }
+  fft4096_dif</*kInverse=*/true>(spec, twiddle);
 
-  float* out_row = out + row * kN;
-  const float scale = 1.0f / kN;
-  for (int n = threadIdx.x; n < kN; n += kThreads)
-    out_row[n] = spec[__brev(static_cast<unsigned>(n)) >> (32 - 12)].x * scale;
+  float* out_row = out + row * kFftN;
+  const float scale = 1.0f / kFftN;
+  for (int n = threadIdx.x; n < kFftN; n += kThreads) out_row[n] = spec[fft4096_bitrev(n)].x * scale;
 }
 
 template <typename CodeT, typename IdxT>

@@ -1,34 +1,49 @@
 """Compressor engine: stage-execution backends (port of
-``repro.kernels.engine``, the stacked entry points).
+``repro.kernels.engine``).
+
+Every backend implements the compressor's entry points: ``compress`` /
+``decompress`` (one monolithic payload, one quantizer fit),
+``compress_buckets`` (the per-bucket loop), ``compress_stacked`` /
+``decompress_stacked`` (every bucket in one batched pass, one fit per
+bucket) and ``decompress_spectrum``.
 
 * ``reference`` -- plain PyTorch ops: rfft -> selector -> gather ->
-  range-quant encode, one bucket at a time; packs magnitude-descending under
-  the ``sort`` selector and index-ascending under the threshold selectors.
+  range-quant encode (one bucket at a time in ``compress_stacked``); packs
+  magnitude-descending under the ``sort`` selector and index-ascending under
+  the threshold selectors.
 * ``cuda``      -- the hand-written kernels, mirroring the reference's
   ``PallasBackend`` line for line: ``torch.fft.rfft`` for the forward
   transform (as the reference keeps XLA's rfft), the threshold kernel (B4
   under ``sampled``, B1 under ``sort``/``bisect``), the mid-gap tau and the
-  masked per-bucket fit as plain ops, then ONE fused compress launch (B2)
-  over every bucket row; the local roundtrip decompresses with ONE fused
-  decompress launch (B3).
-* ``auto``      -- ``cuda`` whenever ``kernel_eligibility`` holds, else
-  ``reference``.
+  range fit as plain ops, then ONE fused compress launch (B2) over every
+  chunk row; decompress is ONE fused decompress launch (B3).  Where the
+  config does not fuse end to end it degrades stage by stage: with
+  ``quantize=False`` compress runs the threshold kernel, the pack kernel
+  (B6) and a gather; a quantized payload chunked at other than 4096 decodes
+  with the range-quant kernel (B5) and then scatters and irffts as plain
+  ops.
+* ``auto``      -- ``cuda`` for every input on a CUDA device (it degrades
+  stage by stage where the config does not fuse, so nothing on the card
+  runs as plain ops); on the CPU, compress takes ``cuda`` (the kernels'
+  plain versions) where ``kernel_eligibility`` holds and ``reference``
+  otherwise, and decompress takes ``reference``.
 
-The engine picks by eligibility; each kernel wrapper picks by device (a CPU
-tensor runs the kernel's plain version, a CUDA tensor the kernel), so the
-``cuda`` backend runs on the CPU through the plain versions in the tests.
+Each kernel wrapper picks by device (a CPU tensor runs the kernel's plain
+version, a CUDA tensor the kernel), so the ``cuda`` backend runs on the CPU
+through the plain versions in the tests.
 ``decompress_spectrum`` is shared by every backend and stays plain.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.core import fft as cfft
 from repro_torch.core import packing, selection, sparsify
 from repro_torch.core.compressor import (
+    FFTPayload,
     StackedPayload,
     stack_bucket_quant,
     valid_chunk_mask,
@@ -39,8 +54,8 @@ from repro_torch.core.quantizer import (
     encode as q_encode,
     fit_quantizer,
 )
-from repro_torch.kernels import (fused_compress, fused_decompress, sampled_threshold,
-                                 topk_threshold)
+from repro_torch.kernels import (fused_compress, fused_decompress, ops, range_quant,
+                                 sampled_threshold, topk_threshold)
 
 __all__ = [
     "BACKEND_NAMES",
@@ -89,6 +104,44 @@ def _kernel_tau(cfg, mag2d, k: int, sel: str):
     return topk_threshold.threshold(mag2d, k=k)
 
 
+def _mid_gap_tau(cfg, mag2d, k: int, sel: str):
+    """One threshold-kernel pass defines the kept set; its tau moves to the
+    middle of the gap to the largest dropped magnitude, where an ulp of
+    recompute noise inside the fused kernel cannot flip a comparison."""
+    tau_k, _ = _kernel_tau(cfg, mag2d, k, sel)
+    below = torch.where(mag2d < tau_k, mag2d, 0.0).amax(dim=-1, keepdim=True)
+    return 0.5 * (tau_k + below)
+
+
+def _pack_unquantized(cfg, re, im, mag, k: int, sel: str):
+    """The per-stage route for ``quantize=False``: the threshold kernel, the
+    pack kernel (B6) on the magnitudes, and a gather of re and im at the
+    packed indices -> (re_k, im_k, idx int16), each ``(rows, k)``."""
+    tau, _ = _kernel_tau(cfg, mag, k, sel)
+    mvals, idx = ops.pack_threshold(mag, tau, k)  # width pad_k(k)
+    valid = mvals != 0
+    bins = idx.long()
+    re_k = torch.gather(re, -1, bins) * valid
+    im_k = torch.gather(im, -1, bins) * valid
+    return re_k[:, :k], im_k[:, :k], idx[:, :k].to(torch.int16)
+
+
+def _masked_range(mask, re, im, dims):
+    """(lo, hi) of re and im over ``mask``, reduced over ``dims``."""
+    lo = torch.minimum(torch.where(mask, re, torch.inf).amin(dim=dims),
+                       torch.where(mask, im, torch.inf).amin(dim=dims))
+    hi = torch.maximum(torch.where(mask, re, -torch.inf).amax(dim=dims),
+                       torch.where(mask, im, -torch.inf).amax(dim=dims))
+    return lo, hi
+
+
+def _bucket_rows(quant, n_buckets: int, c_max: int):
+    """Per-bucket (eps, P) -> per-row vectors (each bucket's fit repeated
+    over its chunk rows)."""
+    return (quant.eps.reshape(n_buckets).repeat_interleave(c_max),
+            quant.p_codes.reshape(n_buckets).repeat_interleave(c_max))
+
+
 def _scatter_spectrum(idx, kept_re, kept_im, f_bins: int) -> torch.Tensor:
     """Additive scatter of kept coefficients into dense complex rows
     ``(..., f_bins)``; polymorphic over the leading axes.  Padding slots
@@ -129,6 +182,13 @@ class CompressorBackend:
 
     name = "base"
 
+    def compress(self, cfg, x_flat: torch.Tensor) -> FFTPayload:
+        raise NotImplementedError
+
+    def compress_buckets(self, cfg, bucket_flats: Sequence[torch.Tensor]) -> list:
+        """Per-bucket loop: each bucket fits its OWN quantizer range."""
+        return [self.compress(cfg, b) for b in bucket_flats]
+
     def compress_stacked(self, cfg, stacked: torch.Tensor, sizes) -> StackedPayload:
         raise NotImplementedError
 
@@ -140,16 +200,66 @@ class CompressorBackend:
             re, im = q_decode(re, payload.quant), q_decode(im, payload.quant)
         return _scatter_spectrum(payload.idx, re, im, payload.chunk // 2 + 1)
 
+    def decompress(self, payload: FFTPayload) -> torch.Tensor:
+        """FFTPayload -> flat f32 of ``payload.orig_len``."""
+        return cfft.chunked_irfft(self.decompress_spectrum(payload), payload.orig_len,
+                                  payload.chunk)
+
     def decompress_stacked(self, payload: StackedPayload) -> torch.Tensor:
         """StackedPayload -> ``(n_buckets, padded_size)`` time domain."""
         return cfft.irfft_rows(self.decompress_spectrum(payload), payload.chunk)
 
 
 class ReferenceBackend(CompressorBackend):
-    """Plain ops, one bucket at a time; per-bucket quantizer ranges mask the
-    zero-padding chunks out."""
+    """Plain ops; per-bucket quantizer ranges mask the zero-padding chunks
+    out of ``compress_stacked``."""
 
     name = "reference"
+
+    def compress(self, cfg, x_flat):
+        freqs, n = cfft.chunked_rfft(x_flat, cfg.chunk)
+        k = _keep_k(cfg)
+        w = cfft.hermitian_weights(cfg.chunk, x_flat.device)
+        re_p, im_p = freqs.real.contiguous(), freqs.imag.contiguous()
+        mag = _weighted_magnitude(re_p, im_p, w)
+        sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
+        if sel == "sort":
+            idx = sparsify.topk_select(mag, k)
+            tau = None
+        else:
+            # threshold selector: tau + one count-and-compact pass; slots
+            # come out index-ascending (the cuda backend's order)
+            tau = _selector_tau(cfg, mag, k, sel)
+            idx = selection.count_compact(mag, tau, k)
+        re = packing.pack_by_indices(re_p, idx)
+        im = packing.pack_by_indices(im_p, idx)
+        quant = None
+        if cfg.quantize:
+            if tau is None:
+                quant = self._fit(cfg, re, im)
+            else:
+                # fit over the PRE-truncation tau mask -- the set the cuda
+                # backend fits over, so codes agree under every selector
+                quant = self._fit_masked(cfg, re_p, im_p, mag >= tau)
+            re, im = q_encode(re, quant), q_encode(im, quant)
+        return FFTPayload(re, im, idx.to(torch.int16), quant, n, cfg.chunk)
+
+    def _fit(self, cfg, re, im):
+        if cfg.range_mode == "fixed":
+            lo, hi = cfg.fixed_range
+            return fit_quantizer(lo, hi, _qcfg(cfg), device=re.device)
+        lo = torch.minimum(re.amin(), im.amin())
+        hi = torch.maximum(re.amax(), im.amax())
+        return fit_quantizer(lo, hi, _qcfg(cfg))
+
+    def _fit_masked(self, cfg, re_p, im_p, mask):
+        """Range fit over masked spectrum planes -- expression for
+        expression the cuda backend's fit."""
+        if cfg.range_mode == "fixed":
+            lo, hi = cfg.fixed_range
+            return fit_quantizer(lo, hi, _qcfg(cfg), device=re_p.device)
+        lo, hi = _masked_range(mask, re_p, im_p, None)
+        return fit_quantizer(lo, hi, _qcfg(cfg))
 
     def compress_stacked(self, cfg, stacked, sizes):
         sizes = tuple(int(s) for s in sizes)
@@ -174,19 +284,14 @@ class ReferenceBackend(CompressorBackend):
             re = packing.pack_by_indices(re_p, idx)
             im = packing.pack_by_indices(im_p, idx)
             if cfg.quantize:
-                if tau is None:
-                    valid = (rows < c_b)[:, None]
-                    lo = torch.minimum(torch.where(valid, re, torch.inf).amin(),
-                                       torch.where(valid, im, torch.inf).amin())
-                    hi = torch.maximum(torch.where(valid, re, -torch.inf).amax(),
-                                       torch.where(valid, im, -torch.inf).amax())
+                if cfg.range_mode == "fixed":
+                    lo, hi = cfg.fixed_range
+                elif tau is None:
+                    lo, hi = _masked_range((rows < c_b)[:, None], re, im, None)
                 else:
                     # pre-truncation tau mask, padding rows excluded
-                    m = (mag >= tau) & (rows < c_b)[:, None]
-                    lo = torch.minimum(torch.where(m, re_p, torch.inf).amin(),
-                                       torch.where(m, im_p, torch.inf).amin())
-                    hi = torch.maximum(torch.where(m, re_p, -torch.inf).amax(),
-                                       torch.where(m, im_p, -torch.inf).amax())
+                    lo, hi = _masked_range((mag >= tau) & (rows < c_b)[:, None], re_p, im_p,
+                                           None)
                 quant = fit_quantizer(lo, hi, _qcfg(cfg), device=stacked.device)
                 re, im = q_encode(re, quant), q_encode(im, quant)
                 quants.append(quant)
@@ -205,59 +310,82 @@ class ReferenceBackend(CompressorBackend):
 
 class CudaBackend(CompressorBackend):
     """The hand-written kernels on the hot stages (mirrors the reference's
-    ``PallasBackend.compress_stacked`` / ``decompress_stacked``).
+    ``PallasBackend``), per-stage kernels where the config does not fuse.
 
-    compress:   rfft -> threshold kernel -> mid-gap tau -> masked per-bucket
-                fit -> ONE fused compress launch over every bucket row ->
-                slice the 128-slot padding down to the keep count.
-    decompress: ONE fused decompress launch (quantized, 4096-pt chunks)."""
+    compress:   rfft -> threshold kernel -> mid-gap tau -> range fit -> ONE
+                fused compress launch over every chunk row -> slice the
+                128-slot padding down to the keep count.  ``quantize=False``:
+                threshold kernel -> pack kernel -> gather.
+    decompress: ONE fused decompress launch (quantized, 4096-pt chunks);
+                otherwise the range-quant decode kernel (quantized) and the
+                shared scatter + irfft."""
 
     name = "cuda"
 
+    @staticmethod
+    def _planes(x2d):
+        """rfft of (rows, chunk) -> contiguous re, im planes."""
+        freqs = torch.fft.rfft(x2d, dim=-1)
+        return freqs.real.contiguous(), freqs.imag.contiguous()
+
+    def compress(self, cfg, x_flat):
+        x2d, n = cfft.pad_to_chunks(x_flat.float(), cfg.chunk)
+        re, im = self._planes(x2d)
+        del x2d
+        k = _keep_k(cfg)
+        w = cfft.hermitian_weights(cfg.chunk, x_flat.device)
+        mag = _weighted_magnitude(re, im, w)
+        sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
+        if not cfg.quantize:
+            return FFTPayload(*_pack_unquantized(cfg, re, im, mag, k, sel), None, n, cfg.chunk)
+        tau = _mid_gap_tau(cfg, mag, k, sel)
+        if cfg.range_mode == "fixed":
+            lo, hi = cfg.fixed_range
+        else:
+            lo, hi = _masked_range(mag >= tau, re, im, None)
+        del mag
+        quant = fit_quantizer(lo, hi, _qcfg(cfg), device=re.device)
+        rec, imc, idx, _ = fused_compress.fused_compress(
+            re, im, w, quant.eps, quant.p_codes, tau, k_keep=k, n_bits=cfg.n_bits,
+            m_bits=cfg.m_bits)
+        return FFTPayload(rec[:, :k].contiguous(), imc[:, :k].contiguous(),
+                          idx[:, :k].to(torch.int16), quant, n, cfg.chunk)
+
     def compress_stacked(self, cfg, stacked, sizes):
-        eligible, reason = kernel_eligibility(cfg)
-        if not eligible:
-            raise NotImplementedError(
-                f"cuda backend: {reason}; the per-stage kernels this needs (B5 "
-                "range-quant, B6 pack) are not ported yet (ROADMAP.md queue 2) -- "
-                "use backend='auto' or 'reference'")
         sizes = tuple(int(s) for s in sizes)
         n_buckets, padded = stacked.shape
         c_max = padded // cfg.chunk
         rows = n_buckets * c_max
-        x2d = stacked.reshape(rows, cfg.chunk).float()
-        freqs = torch.fft.rfft(x2d, dim=-1)
-        re = freqs.real.contiguous()
-        im = freqs.imag.contiguous()
-        del freqs
+        re, im = self._planes(stacked.reshape(rows, cfg.chunk).float())
         k = _keep_k(cfg)
         w = cfft.hermitian_weights(cfg.chunk, stacked.device)
         mag = _weighted_magnitude(re, im, w)
         sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
+        if not cfg.quantize:
+            re_k, im_k, idx = _pack_unquantized(cfg, re, im, mag, k, sel)
+            return StackedPayload(re_k.reshape(n_buckets, c_max, k),
+                                  im_k.reshape(n_buckets, c_max, k),
+                                  idx.reshape(n_buckets, c_max, k), None, sizes, cfg.chunk)
 
-        # one threshold pass defines the kept set; its tau moves to the
-        # middle of the gap to the largest dropped magnitude, where an ulp of
-        # recompute noise inside the fused kernel cannot flip a comparison
-        tau_k, _ = _kernel_tau(cfg, mag, k, sel)
-        below = torch.where(mag < tau_k, mag, 0.0).amax(dim=-1, keepdim=True)
-        tau = 0.5 * (tau_k + below)
-        # per-bucket fit over the kept set; padding rows (all-zero chunks:
-        # tau 0, mask all-true) are excluded
-        mask = (mag >= tau) & valid_chunk_mask(
-            sizes, c_max, cfg.chunk, stacked.device).reshape(rows, 1)
+        # the same one-threshold / mid-gap-tau contract as compress, over
+        # every bucket's chunk rows in one threshold-kernel launch
+        tau = _mid_gap_tau(cfg, mag, k, sel)
+        if cfg.range_mode == "fixed":
+            lo = torch.full((n_buckets,), cfg.fixed_range[0], device=stacked.device)
+            hi = torch.full((n_buckets,), cfg.fixed_range[1], device=stacked.device)
+        else:
+            # per-bucket fit over the kept set; padding rows (all-zero
+            # chunks: tau 0, mask all-true) are excluded
+            mask = (mag >= tau) & valid_chunk_mask(
+                sizes, c_max, cfg.chunk, stacked.device).reshape(rows, 1)
+            lo, hi = _masked_range(mask.reshape(n_buckets, c_max, -1),
+                                   re.reshape(n_buckets, c_max, -1),
+                                   im.reshape(n_buckets, c_max, -1), (1, 2))
+            del mask
         del mag
-        m3 = mask.reshape(n_buckets, c_max, -1)
-        re3 = re.reshape(n_buckets, c_max, -1)
-        im3 = im.reshape(n_buckets, c_max, -1)
-        lo = torch.minimum(torch.where(m3, re3, torch.inf).amin(dim=(1, 2)),
-                           torch.where(m3, im3, torch.inf).amin(dim=(1, 2)))
-        hi = torch.maximum(torch.where(m3, re3, -torch.inf).amax(dim=(1, 2)),
-                           torch.where(m3, im3, -torch.inf).amax(dim=(1, 2)))
-        del mask, m3
         quant = stack_bucket_quant(fit_quantizer(lo, hi, _qcfg(cfg)))
         # per-bucket params -> per-row vectors for the single fused launch
-        eps_rows = quant.eps.reshape(n_buckets).repeat_interleave(c_max)
-        p_rows = quant.p_codes.reshape(n_buckets).repeat_interleave(c_max)
+        eps_rows, p_rows = _bucket_rows(quant, n_buckets, c_max)
         rec, imc, idx, _ = fused_compress.fused_compress(
             re, im, w, eps_rows, p_rows, tau, k_keep=k, n_bits=cfg.n_bits, m_bits=cfg.m_bits)
         return StackedPayload(
@@ -266,28 +394,45 @@ class CudaBackend(CompressorBackend):
             idx[:, :k].to(torch.int16).reshape(n_buckets, c_max, k),
             quant, sizes, cfg.chunk)
 
+    def decompress(self, payload: FFTPayload) -> torch.Tensor:
+        if payload.quant is not None and payload.chunk == KERNEL_CHUNK:
+            x2d = fused_decompress.fused_decompress(
+                payload.re.contiguous(), payload.im.contiguous(), payload.idx.contiguous(),
+                payload.quant.eps, payload.quant.p_codes, m_bits=payload.quant.config.m_bits)
+            return x2d.reshape(-1)[: payload.orig_len]
+        if payload.quant is not None:
+            payload = FFTPayload(ops.quant_decode(payload.re, payload.quant),
+                                 ops.quant_decode(payload.im, payload.quant),
+                                 payload.idx, None, payload.orig_len, payload.chunk)
+        return super().decompress(payload)
+
     def decompress_stacked(self, payload: StackedPayload) -> torch.Tensor:
         if payload.quant is None:
             return super().decompress_stacked(payload)
-        if payload.chunk != KERNEL_CHUNK:
-            raise NotImplementedError(
-                f"cuda backend: chunk={payload.chunk} != {KERNEL_CHUNK} needs the "
-                "standalone range-quant decode kernel (B5), not ported yet "
-                "(ROADMAP.md queue 2) -- use backend='auto' or 'reference'")
         n_buckets, c_max, k = payload.re.shape
         rows = n_buckets * c_max
-        eps_rows = payload.quant.eps.reshape(n_buckets).repeat_interleave(c_max)
-        p_rows = payload.quant.p_codes.reshape(n_buckets).repeat_interleave(c_max)
-        x2d = fused_decompress.fused_decompress(
-            payload.re.reshape(rows, k).contiguous(), payload.im.reshape(rows, k).contiguous(),
-            payload.idx.reshape(rows, k).contiguous(), eps_rows, p_rows,
-            m_bits=payload.quant.config.m_bits)
-        return x2d.reshape(n_buckets, c_max * KERNEL_CHUNK)
+        eps_rows, p_rows = _bucket_rows(payload.quant, n_buckets, c_max)
+        qcfg = payload.quant.config
+        if payload.chunk == KERNEL_CHUNK:
+            x2d = fused_decompress.fused_decompress(
+                payload.re.reshape(rows, k).contiguous(),
+                payload.im.reshape(rows, k).contiguous(),
+                payload.idx.reshape(rows, k).contiguous(), eps_rows, p_rows,
+                m_bits=qcfg.m_bits)
+            return x2d.reshape(n_buckets, c_max * KERNEL_CHUNK)
+        re, im = (range_quant.decode(plane.reshape(rows, k).contiguous(), eps_rows, p_rows,
+                                     n_bits=qcfg.n_bits, m_bits=qcfg.m_bits)
+                  .reshape(n_buckets, c_max, k) for plane in (payload.re, payload.im))
+        return super().decompress_stacked(
+            StackedPayload(re, im, payload.idx, None, payload.sizes, payload.chunk))
 
 
 class AutoBackend(CompressorBackend):
-    """``cuda`` when the config (or payload) fits the fused kernels end to
-    end, ``reference`` otherwise."""
+    """``cuda`` for every input on a CUDA device: it runs the fused kernels
+    where the config fuses and degrades stage by stage where it does not
+    (payloads carry no backend tag).  On the CPU, compress runs ``cuda``'s
+    plain versions where the config fuses and ``reference`` otherwise;
+    decompress runs ``reference``."""
 
     name = "auto"
 
@@ -295,15 +440,25 @@ class AutoBackend(CompressorBackend):
         self._reference = ReferenceBackend()
         self._cuda = CudaBackend()
 
+    def _pick(self, cfg, x) -> CompressorBackend:
+        if x.device.type == "cuda" or kernel_eligibility(cfg)[0]:
+            return self._cuda
+        return self._reference
+
+    def _pick_payload(self, payload) -> CompressorBackend:
+        return self._cuda if payload.re.device.type == "cuda" else self._reference
+
+    def compress(self, cfg, x_flat):
+        return self._pick(cfg, x_flat).compress(cfg, x_flat)
+
     def compress_stacked(self, cfg, stacked, sizes):
-        eligible, _ = kernel_eligibility(cfg)
-        backend = self._cuda if eligible else self._reference
-        return backend.compress_stacked(cfg, stacked, sizes)
+        return self._pick(cfg, stacked).compress_stacked(cfg, stacked, sizes)
+
+    def decompress(self, payload):
+        return self._pick_payload(payload).decompress(payload)
 
     def decompress_stacked(self, payload):
-        if payload.quant is not None and payload.chunk == KERNEL_CHUNK:
-            return self._cuda.decompress_stacked(payload)
-        return self._reference.decompress_stacked(payload)
+        return self._pick_payload(payload).decompress_stacked(payload)
 
 
 _BACKENDS = {"reference": ReferenceBackend(), "cuda": CudaBackend(), "auto": AutoBackend()}

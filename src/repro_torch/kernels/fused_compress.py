@@ -39,27 +39,20 @@ def pad_k(k: int) -> int:
     return ((k + K_TILE - 1) // K_TILE) * K_TILE
 
 
-def _row_params(eps, p_codes, n_bits: int, rows: int, device):
-    """(eps, P, n_neg) as float32 ``(rows,)`` vectors; n_neg = 2**N - 1 - P
-    (exact in float32, as the reference's integer difference)."""
-    eps, p = _checks.row_params(eps, p_codes, rows, device)
-    return eps, p, float((1 << n_bits) - 1) - p
-
-
 def fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
                          n_bits: int = 8, m_bits: int = 3):
     """Plain PyTorch version: (re_codes, im_codes, idx i32, tau (rows,1))."""
     rows, cols = re2d.shape
     k = pad_k(k_keep)
-    eps_r, p_r, n_neg_r = (v[:, None] for v in _row_params(eps, p_codes, n_bits, rows,
-                                                           re2d.device))
+    eps_r, p_r, n_neg_r = (v[:, None] for v in _checks.encode_row_params(
+        eps, p_codes, n_bits, rows, re2d.device))
     mag = torch.sqrt(re2d * re2d + im2d * im2d) * weights.reshape(1, -1)
     tau = tau.reshape(rows, 1).float()
     mask = mag >= tau
     pos = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
     r_i, c_i = torch.nonzero(mask & (pos < k), as_tuple=True)
     slot = pos[r_i, c_i].long()
-    out_dtype = torch.uint8 if n_bits <= 8 else torch.uint16
+    out_dtype = _checks.code_dtype(n_bits)
     m_scale = float(1 << m_bits)
     codes = []
     for plane in (re2d, im2d):
@@ -92,9 +85,9 @@ def fused_compress(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
     _checks.require("weights", w, torch.float32, device=dev)
     tau = tau.reshape(rows).float().contiguous()
     _checks.require("tau", tau, torch.float32, device=dev)
-    eps_r, p_r, n_neg_r = _row_params(eps, p_codes, n_bits, rows, dev)
+    eps_r, p_r, n_neg_r = _checks.encode_row_params(eps, p_codes, n_bits, rows, dev)
     k = pad_k(k_keep)
-    out_dtype = torch.uint8 if n_bits <= 8 else torch.uint16
+    out_dtype = _checks.code_dtype(n_bits)
     rec = torch.empty((rows, k), dtype=out_dtype, device=dev)
     imc = torch.empty((rows, k), dtype=out_dtype, device=dev)
     idx = torch.empty((rows, k), dtype=torch.int32, device=dev)

@@ -10,25 +10,22 @@ index 0) decode to 0.0 and add nothing, so any payload width works.
 
 The CUDA kernel is ``csrc/fused_decompress.cu``; it agrees with the plain
 version within 2e-6 * max|x| per row (both are fp32 FFTs, summed in
-different orders).  The standalone 4096-point FFT kernel of the reference
-(``fft4step``, B7) is not ported; this kernel carries its own radix-2 FFT.
+different orders).  Its FFT stages are B7's (``csrc/fft4096.cuh``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
-import numpy as np
 import torch
 
-from repro_torch.kernels import _checks
+from repro_torch.kernels import _checks, fft4step
 from repro_torch.kernels.build import Kernel, ptr
 from repro_torch.kernels.range_quant import decode_math
 
 __all__ = ["KERNEL", "CHUNK", "fused_decompress", "fused_decompress_plain"]
 
-CHUNK = 4096
+CHUNK = fft4step.CHUNK
 _BINS = CHUNK // 2 + 1
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -38,17 +35,6 @@ KERNEL = Kernel(
     entry="fused_decompress",
     argtypes=[_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P, _P, _P],
 )
-
-_TWIDDLES: Dict[torch.device, torch.Tensor] = {}
-
-
-def _twiddles(device) -> torch.Tensor:
-    """exp(+2*pi*i*m/4096) for m < 2048, computed in double, as float pairs."""
-    if device not in _TWIDDLES:
-        ang = 2.0 * np.pi * np.arange(CHUNK // 2, dtype=np.float64) / CHUNK
-        tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-        _TWIDDLES[device] = torch.from_numpy(tw).to(device)
-    return _TWIDDLES[device]
 
 
 def fused_decompress_plain(re_codes, im_codes, idx, eps, p_codes, *, m_bits: int = 3):
@@ -87,5 +73,5 @@ def fused_decompress(re_codes, im_codes, idx, eps, p_codes, *, m_bits: int = 3):
     if rows:
         KERNEL.launch(dev, ptr(re_codes), ptr(im_codes), ptr(idx), ptr(eps_r), ptr(p_r), rows, k,
                       float(1 << m_bits), re_codes.element_size(), idx.element_size(),
-                      ptr(_twiddles(dev)), ptr(out))
+                      ptr(fft4step.twiddles(dev)), ptr(out))
     return out

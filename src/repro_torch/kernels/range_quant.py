@@ -1,24 +1,48 @@
-"""Range-quant encode/decode math on float-carried planes (port of
-``repro.kernels.range_quant.encode_math`` / ``decode_math``).
+"""B5: range-quant encode/decode (port of ``repro.kernels.range_quant``:
+``encode_math`` / ``decode_math`` and the kernels ``encode_pallas`` /
+``decode_pallas``).
 
-These are the plain PyTorch versions of the arithmetic the fused compress
-and decompress kernels run in registers; ``csrc/range_quant.cuh`` holds the
-same expressions as CUDA ``__device__`` functions, op for op, so the kernels
-and these functions agree bitwise on the same device.  Parameters (eps, P,
-n_neg) are float32 tensors that broadcast against the plane (scalars, or
-``(rows, 1)`` columns for one fit per row).
+``encode_math`` / ``decode_math`` are the arithmetic on float-carried
+planes; the fused compress and decompress kernels run it in registers, and
+``csrc/range_quant.cuh`` holds the same expressions as CUDA ``__device__``
+functions, op for op, so the kernels and these functions agree bitwise on
+the same device.  Their parameters (eps, P, n_neg) are float32 tensors that
+broadcast against the plane (scalars, or ``(rows, 1)`` columns for one fit
+per row).
 
-The standalone encode/decode kernels (``encode_pallas`` / ``decode_pallas``)
-are not ported yet (ROADMAP queue 2, B5).
+:func:`encode` and :func:`decode` are the standalone kernels
+(``csrc/range_quant.cu``): a ``(rows, cols)`` plane with one fit for the
+whole plane (scalars) or one per row (``(rows,)`` vectors); codes are uint8
+for ``n_bits <= 8``, else uint16.  Their plain versions are the math above
+with the dtype casts, and kernel and plain version are bitwise equal.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core.quantizer import exp2, log2
+from repro_torch.kernels import _checks
+from repro_torch.kernels.build import Kernel, ptr
 
-__all__ = ["encode_math", "decode_math"]
+__all__ = ["ENCODE_KERNEL", "DECODE_KERNEL", "encode_math", "decode_math", "encode",
+           "encode_plain", "decode", "decode_plain"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENCODE_KERNEL = Kernel(
+    "range_quant_encode", "range_quant.cu",
+    replaces="src/repro/kernels/range_quant.py:151",
+    entry="range_quant_encode",
+    argtypes=[_P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
+)
+DECODE_KERNEL = Kernel(
+    "range_quant_decode", "range_quant.cu",
+    replaces="src/repro/kernels/range_quant.py:187",
+    entry="range_quant_decode",
+    argtypes=[_P, _P, _P, _I, _I, _F, _I, _P, _P],
+)
 
 
 def encode_math(x, eps, p_codes, n_neg, m_scale: float) -> torch.Tensor:
@@ -58,3 +82,50 @@ def decode_math(c, eps, p_codes, m_scale: float) -> torch.Tensor:
     mag = eps * exp2(q) * (1.0 + r / m_scale)
     val = torch.where(is_pos, mag, -mag)
     return torch.where(is_zero, torch.zeros_like(val), val)
+
+
+def encode_plain(x2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
+    """Plain PyTorch version of :func:`encode`."""
+    rows = x2d.shape[0]
+    eps_r, p_r, n_neg_r = (v[:, None] for v in _checks.encode_row_params(
+        eps, p_codes, n_bits, rows, x2d.device))
+    codes = encode_math(x2d.float(), eps_r, p_r, n_neg_r, float(1 << m_bits))
+    return codes.to(_checks.code_dtype(n_bits))
+
+
+def encode(x2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
+    """f32 ``(rows, cols)`` -> uint8/uint16 codes.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if _checks.on_cpu(x2d):
+        return encode_plain(x2d, eps, p_codes, n_bits=n_bits, m_bits=m_bits)
+    rows, cols = x2d.shape
+    _checks.require("x", x2d, torch.float32)
+    eps_r, p_r, n_neg_r = _checks.encode_row_params(eps, p_codes, n_bits, rows, x2d.device)
+    codes = torch.empty((rows, cols), dtype=_checks.code_dtype(n_bits), device=x2d.device)
+    if codes.numel():
+        ENCODE_KERNEL.launch(x2d.device, ptr(x2d), ptr(eps_r), ptr(p_r), ptr(n_neg_r), rows,
+                             cols, float(1 << m_bits), codes.element_size(), ptr(codes))
+    return codes
+
+
+def decode_plain(codes2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
+    """Plain PyTorch version of :func:`decode`."""
+    del n_bits  # the code type carries it
+    eps_r, p_r = (v[:, None] for v in _checks.row_params(eps, p_codes, codes2d.shape[0],
+                                                          codes2d.device))
+    return decode_math(codes2d.float(), eps_r, p_r, float(1 << m_bits))
+
+
+def decode(codes2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
+    """uint8/uint16 codes ``(rows, cols)`` -> f32.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if _checks.on_cpu(codes2d):
+        return decode_plain(codes2d, eps, p_codes, n_bits=n_bits, m_bits=m_bits)
+    rows, cols = codes2d.shape
+    _checks.require("codes", codes2d, _checks.code_dtype(n_bits))
+    eps_r, p_r = _checks.row_params(eps, p_codes, rows, codes2d.device)
+    out = torch.empty((rows, cols), dtype=torch.float32, device=codes2d.device)
+    if out.numel():
+        DECODE_KERNEL.launch(codes2d.device, ptr(codes2d), ptr(eps_r), ptr(p_r), rows, cols,
+                             float(1 << m_bits), codes2d.element_size(), ptr(out))
+    return out

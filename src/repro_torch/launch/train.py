@@ -1,7 +1,9 @@
 """Training CLI of the port (same flags and defaults as ``repro.launch.train``).
 
 The ported path is compressed data-parallel training with the ``fft``
-reducer over the ``sequenced`` transport:
+reducer over the ``allgather`` transport (the default: one monolithic
+payload) or the ``sequenced`` one (bucketed; ``--no-stacked`` runs its
+per-bucket loop instead of the batched executor):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b \\
       --n-layers 4 --steps 3 --batch 4 --seq 512 --mode compressed_dp \\
@@ -90,13 +92,13 @@ def _check_ported(ap, args) -> None:
         _not_ported(ap, f"--mode {args.mode}")
     if args.reducer != "fft":
         _not_ported(ap, f"--reducer {args.reducer}")
-    if args.transport != "sequenced":
+    if args.transport not in ("allgather", "sequenced"):
         _not_ported(ap, f"--transport {args.transport}")
     if args.theta_schedule != "constant":
         _not_ported(ap, f"--theta-schedule {args.theta_schedule}")
     if args.schedule != "stacked" or args.stream_groups is not None:
         _not_ported(ap, "streamed dispatch (--schedule/--stream-groups)")
-    for flag, value in (("--no-stacked", args.no_stacked), ("--calibrate", args.calibrate),
+    for flag, value in (("--calibrate", args.calibrate),
                         ("--calibration-path", args.calibration_path),
                         ("--publish-dir", args.publish_dir), ("--ckpt-dir", args.ckpt_dir),
                         ("--nodes", args.nodes)):
@@ -135,8 +137,8 @@ def main(argv=None):
     reducer = ReducerConfig(
         kind=args.reducer, theta=theta, error_feedback=args.error_feedback,
         bucket_bytes=int(args.bucket_mb * (1 << 20)) if args.bucket_mb else None,
-        transport=args.transport, backend=args.backend, selector=args.selector,
-        sample_rate=args.sample_rate)
+        transport=args.transport, backend=args.backend, stacked=not args.no_stacked,
+        selector=args.selector, sample_rate=args.sample_rate)
     step_cfg = StepConfig(mode=args.mode, reducer=reducer)
     opt_cfg = OptConfig(kind="adamw", lr=args.lr)
     stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,

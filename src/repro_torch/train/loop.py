@@ -3,7 +3,11 @@ checkpointing, fault injection, publishing or the degradation ladder, which
 are not ported yet).
 
 Each step takes the stream's batch (this worker's rows of it when a process
-group is initialized) and the LR schedule's multiplier for that step.
+group is initialized) and trains at the optimizer's base LR.
+``TrainLoopConfig.lr_schedule`` is accepted and ignored: the reference loop
+computes the schedule but its step takes no LR multiplier, so the reference
+CLI trains at the base LR (ROADMAP, known faults of the reference), and the
+port keeps its trajectory.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ __all__ = ["TrainLoopConfig", "train_loop"]
 class TrainLoopConfig:
     total_steps: int = 100
     log_every: int = 10
-    lr_schedule: Optional[Callable[[int], float]] = None  # -> multiplier
+    lr_schedule: Optional[Callable[[int], float]] = None  # accepted, ignored
 
 
 def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
@@ -38,14 +42,13 @@ def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
     device = next(model.parameters()).device
     history: List[Dict] = []
     for step in range(state["step"], loop_cfg.total_steps):
-        lr_scale = loop_cfg.lr_schedule(step) if loop_cfg.lr_schedule else 1.0
         batch = stream.batch_at(step, host_index=rank, num_hosts=world)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         # one profiler range per step, so a trace splits device time by step
         with torch.profiler.record_function("train_step"):
-            metrics = step_fn(state, batch, lr_scale)
+            metrics = step_fn(state, batch)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         metrics.update(step=step, dt=time.perf_counter() - t0)

@@ -44,3 +44,17 @@ def test_stack_unstack_equal(total, bucket_bytes):
     ts = tb.stack_buckets(torch.from_numpy(flat), tl)
     np.testing.assert_array_equal(js, ts.numpy())
     np.testing.assert_array_equal(tb.unstack_buckets(ts, tl).numpy(), flat)
+
+
+@pytest.mark.parametrize("total,bucket_bytes", [(3 * 4096 + 517, 4096 * 4), (4096 * 7, None)])
+def test_split_and_concat_buckets_match_reference(total, bucket_bytes):
+    x = np.random.default_rng(total).standard_normal(total).astype(np.float32)
+    jl, tl = jb.build_layout(total, bucket_bytes), tb.build_layout(total, bucket_bytes)
+    jparts = jb.split_buckets(jnp.asarray(x), jl)
+    tparts = tb.split_buckets(torch.from_numpy(x), tl)
+    assert len(tparts) == len(jparts) == tl.n_buckets
+    for a, b in zip(jparts, tparts):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    np.testing.assert_array_equal(tb.concat_buckets(tparts, tl).numpy(), x)
+    with pytest.raises(ValueError, match="layout sizes"):
+        tb.concat_buckets(tparts[:-1] + [tparts[-1][:-1]], tl)

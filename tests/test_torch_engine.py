@@ -60,14 +60,14 @@ def _payload_to_torch(p):
                              q, tuple(p.sizes), p.chunk)
 
 
-def _compress_both(port_backend, ref_backend, selector, n_bits=8, seed=0):
+def _compress_both(port_backend, ref_backend, selector, n_bits=8, seed=0, **kw):
     flat = _flat(seed)
     jl, tl = jb.build_layout(N, BUCKET_BYTES), tb.build_layout(N, BUCKET_BYTES)
     assert tl.n_buckets == 3 and not tl.uniform
     jcomp = jc.FFTCompressor(jc.FFTCompressorConfig(backend=ref_backend, selector=selector,
-                                                    n_bits=n_bits))
+                                                    n_bits=n_bits, **kw))
     tcomp = tc.FFTCompressor(tc.FFTCompressorConfig(backend=port_backend, selector=selector,
-                                                    n_bits=n_bits))
+                                                    n_bits=n_bits, **kw))
     jp = jcomp.compress_stacked(jb.stack_buckets(jnp.asarray(flat), jl), jl.sizes())
     tp = tcomp.compress_stacked(tb.stack_buckets(torch.from_numpy(flat), tl), tl.sizes())
     return jcomp, tcomp, jp, tp
@@ -96,6 +96,21 @@ def _assert_payload_parity(jp, tp):
 def test_compress_stacked_parity(xla_rfft, port, ref, selector):
     _, _, jp, tp = _compress_both(port, ref, selector)
     _assert_payload_parity(jp, tp)
+
+
+@pytest.mark.parametrize("port,ref,selector", [
+    ("reference", "reference", "sort"),
+    ("reference", "reference", "sampled"),
+    ("cuda", "pallas", "bisect"),
+])
+def test_compress_stacked_fixed_range_parity(xla_rfft, port, ref, selector):
+    """range_mode="fixed": every bucket takes the one fixed fit, so eps and
+    P repeat over the buckets and codes past the range saturate."""
+    _, _, jp, tp = _compress_both(port, ref, selector, seed=5, range_mode="fixed",
+                                  fixed_range=(-2.0, 2.0))
+    _assert_payload_parity(jp, tp)
+    eps = tp.quant.eps.reshape(-1)
+    assert eps.shape == (3,) and bool((eps == eps[0]).all())
 
 
 def test_compress_stacked_parity_4bit(xla_rfft):
@@ -145,13 +160,21 @@ def test_engine_eligibility_and_fallbacks():
         tcfg = tc.FFTCompressorConfig(**kw)
         assert te.kernel_eligibility(tcfg)[0] == je.kernel_eligibility(jcfg)[0]
         assert te.wire_bits(tcfg, 10 ** 6) == je.wire_bits(jcfg, 10 ** 6)
-    # auto falls back to the reference backend where the kernels do not fit
+    # on the CPU, auto compresses with the reference backend where the
+    # kernels do not fuse; the cuda backend runs them stage by stage (B5
+    # decode at chunk 1024) and gives the same payload
     cfg = tc.FFTCompressorConfig(backend="auto", chunk=1024, selector="sampled")
     flat = torch.from_numpy(_flat(4))
     layout = tb.build_layout(N, BUCKET_BYTES, chunk=1024)
-    out = tc.FFTCompressor(cfg).compress_stacked(tb.stack_buckets(flat, layout),
-                                                 layout.sizes())
+    stacked = tb.stack_buckets(flat, layout)
+    out = tc.FFTCompressor(cfg).compress_stacked(stacked, layout.sizes())
     assert out.re.shape[-1] == 154
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.FFTCompressor(dataclasses.replace(cfg, backend="cuda")).compress_stacked(
-            tb.stack_buckets(flat, layout), layout.sizes())
+    cuda = tc.FFTCompressor(dataclasses.replace(cfg, backend="cuda"))
+    got = cuda.compress_stacked(stacked, layout.sizes())
+    for a, b in ((got.re, out.re), (got.im, out.im), (got.idx, out.idx),
+                 (got.quant.eps, out.quant.eps), (got.quant.p_codes, out.quant.p_codes)):
+        assert torch.equal(a, b)
+    y_ref = tc.FFTCompressor(cfg).decompress_stacked(out)
+    y = cuda.decompress_stacked(got).reshape(-1, 1024)
+    err = (y - y_ref.reshape(-1, 1024)).abs().amax(-1)
+    assert bool((err <= 2e-6 * y_ref.reshape(-1, 1024).abs().amax(-1)).all())

@@ -18,7 +18,12 @@ about 6e-2 relative error in the exchanged gradient.  So, after 2 steps:
   signs in the two packages moves 2 * lr apart; the updates must agree in
   sign on >= 95% of weights (measured 97%) and never differ by more than
   5 * lr;
-* the 2-worker exchange (no model, so no bf16): relative L2 error <= 1e-3.
+* the 2-worker exchange (no model, so no bf16): relative L2 error <= 1e-3;
+* the training loop under a warmup-cosine LR schedule: the parameter
+  updates after 3 steps agree in sign on >= 95% of weights and their L2
+  norms agree within 10% (a loop that applied the schedule's warmup,
+  1/3 and 2/3 of the base LR in the first two steps, moves the weights
+  about a third less).
 """
 
 import dataclasses
@@ -47,6 +52,7 @@ from repro_torch.models import LM
 from repro_torch.optim import OptConfig as TOpt
 from repro_torch.train import StepConfig as TStep, build_train_step as t_build
 from repro_torch.train import init_state as t_init_state
+from repro_torch.train import TrainLoopConfig as TLoop, train_loop as t_train_loop
 
 BUCKET_BYTES = 16 * 4096 * 4  # reduced gemma2 (164,416 params) -> 3 buckets
 
@@ -219,3 +225,59 @@ def test_cli_trains_two_gloo_workers_in_lockstep(tmp_path):
     assert histories[0] == histories[1]
     assert [row["step"] for row in histories[0]] == [0, 1]
     assert all(np.isfinite(row["loss"]) and row["skipped"] == 0.0 for row in histories[0])
+
+
+class _Tokens:
+    """A stream of fixed token batches for either package."""
+
+    def __init__(self, batches, wrap):
+        self.batches, self.wrap = batches, wrap
+
+    def batch_at(self, step, host_index=0, num_hosts=1):
+        toks = self.batches[step % len(self.batches)]
+        return {"tokens": self.wrap(toks[:, :-1]), "targets": self.wrap(toks[:, 1:])}
+
+
+def test_train_loop_trains_at_base_lr_like_reference():
+    """Both loops evaluate a warmup-cosine schedule and train at the base
+    LR (the reference step takes no LR multiplier)."""
+    from repro.optim import lr_schedules as j_sched
+    from repro.train.loop import TrainLoopConfig as JLoop, train_loop as j_train_loop
+    from repro_torch.optim import lr_schedules as t_sched
+
+    steps = 3
+    jcfg = registry.get_config("gemma2_2b").reduced()
+    jmodel = registry.build(jcfg)
+    opt = dict(kind="adamw", lr=1e-3)
+    red = dict(kind="fft", theta=0.7, bucket_bytes=BUCKET_BYTES, transport="sequenced",
+               selector="sort", backend="reference")
+    jstate = j_init_state(jax.random.PRNGKey(2), jmodel, JOpt(**opt))
+    params0 = jax.tree_util.tree_map(np.asarray, jstate["params"])
+    rng = np.random.default_rng(1)
+    batches = [rng.integers(0, 256, (2, 33)).astype(np.int32) for _ in range(steps)]
+    mesh = compat.make_auto_mesh((1,), ("data",))
+    with compat.set_mesh(mesh):
+        jout = j_train_loop(
+            jmodel, JOpt(**opt),
+            JStep(mode="compressed_dp", reducer=JRC(axis="data", **red)), mesh, jstate,
+            _Tokens(batches, jnp.asarray),
+            JLoop(total_steps=steps, log_every=1, lr_schedule=j_sched.warmup_cosine(3, steps)))
+
+    tmodel = LM(configs.get_config("gemma2_2b").reduced(), device="cpu")
+    tmodel.load_state_dict(convert.params_from_jax(params0))
+    tout = t_train_loop(
+        tmodel, TOpt(**opt), TStep(reducer=TRC(**red)), t_init_state(tmodel, TOpt(**opt)),
+        _Tokens(batches, lambda t: torch.from_numpy(t).long()),
+        TLoop(total_steps=steps, log_every=1, lr_schedule=t_sched.warmup_cosine(3, steps)))
+    assert [row["step"] for row in tout["history"]] == list(range(steps))
+    for jrow, trow in zip(jout["history"], tout["history"]):
+        assert abs(trow["loss"] - jrow["loss"]) <= 1e-2 * abs(jrow["loss"])
+
+    def flat(tree):
+        return np.concatenate([np.ravel(x) for x in jax.tree_util.tree_leaves(tree)])
+
+    upd_j = flat(jax.tree_util.tree_map(np.asarray, jout["state"]["params"])) - flat(params0)
+    upd_t = flat(convert.params_to_jax(tmodel.state_dict())) - flat(params0)
+    assert np.mean(np.sign(upd_t) == np.sign(upd_j)) >= 0.95
+    ratio = np.linalg.norm(upd_t) / np.linalg.norm(upd_j)
+    assert 0.9 <= ratio <= 1.1, ratio
