@@ -71,6 +71,16 @@ SEQUENCED = ["--transport", "sequenced", "--bucket-mb", str(BUCKET_MB)]
 OPS_RANGE = (-3.0, 3.0)
 OPS_MAX_SET_ROWS, OPS_MAX_CODE_SLOTS = 0.01, 0.005
 OPS_ROW_ATOL, OPS_MAX_REL_L2 = 1e-5, 1e-3
+# No single PyTorch call computes B3's function (library_ms is null); its
+# transform alone has one, printed beside it as fft_library_ms
+B3_FFT_LIBRARY = "transform only: torch.fft.irfft of the (rows, 2049) spectrum"
+# the FFT kernels' register budget: 3 CTAs of 256 threads on an SM's 65,536
+FFT_SOURCES, FFT_MIN_CTAS = ("fft4096.cu", "fused_decompress.cu"), 3
+
+
+# each training phase's mean steady step (ms, steps after the first) and the
+# ops phase's compress + decompress (ms), printed together at the end
+PHASE_MS = {}
 
 
 def log(msg: str) -> None:
@@ -120,8 +130,9 @@ def main_path_rows() -> int:
 
 def log_result(r) -> None:
     lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+    extra = "".join(f" {key}={r[key]:.3f}" for key in ("inverse_ms", "fft_library_ms") if key in r)
     log(f"[{r['kernel'].name}] kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} "
-        f"library_ms={lib} bound_ms={r['bound_ms']:.3f} ({r['bound_by']})")
+        f"library_ms={lib} bound_ms={r['bound_ms']:.3f} ({r['bound_by']}){extra}")
 
 
 def check_bitwise(label: str, pairs) -> None:
@@ -132,6 +143,27 @@ def check_bitwise(label: str, pairs) -> None:
     log(f"[{label}] mismatches={mism} of {total} (tolerance 0: bitwise)")
     if mism:
         raise AssertionError(f"{label} disagrees with its plain version on {mism} values")
+
+
+def check_fft_ptxas(ptxas) -> None:
+    """B7 and B3 must not spill and must fit FFT_MIN_CTAS CTAs of 256
+    threads per SM by registers (allocated in units of 8 a thread); read off
+    the ptxas output of a fresh build."""
+    import re
+
+    for source in FFT_SOURCES:
+        text = ptxas.get(source)
+        if text is None:
+            log(f"[ptxas {source}] library reused from an earlier build: not rechecked")
+            continue
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
+        ctas = 65536 // (256 * (-(-max(regs, default=255) // 8) * 8))
+        log(f"[ptxas {source}] at most {max(regs, default=0)} registers a thread: {ctas} CTAs "
+            f"of 256 threads per SM; spill bytes {sum(spills)} (limits: >= {FFT_MIN_CTAS} "
+            "CTAs, 0 spills)")
+        if not regs or sum(spills) or ctas < FFT_MIN_CTAS:
+            raise AssertionError(f"{source}: spills or too many registers")
 
 
 def kernel_phase(rows: int, dev) -> list:
@@ -224,9 +256,11 @@ def kernel_phase(rows: int, dev) -> list:
         plain_ms=time_ms(lambda: fused_compress.fused_compress_plain(
             re, im, w, eps_rows, p_rows, tau, k_keep=k), 2),
         library_ms=None, bound_ms=b_ms, bound_by=b_by))
-    del re, im
 
-    # B3 on the payload B2 produced, as the engine slices it
+    # B3 on the payload B2 produced, as the engine slices it; its transform
+    # alone is timed as cuFFT's irfft of the (rows, 2049) spectrum
+    spec = torch.complex(re, im)
+    del re, im
     rec = out_k[0][:, :k].contiguous()
     imc = out_k[1][:, :k].contiguous()
     idx16 = out_k[2][:, :k].to(torch.int16).contiguous()
@@ -251,7 +285,10 @@ def kernel_phase(rows: int, dev) -> list:
                                                              p_rows), 5),
         plain_ms=time_ms(lambda: fused_decompress.fused_decompress_plain(
             rec, imc, idx16, eps_rows, p_rows), 2),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        fft_library_ms=time_ms(lambda: torch.fft.irfft(spec, n=chunk, dim=-1), 2),
+        fft_library_covers=B3_FFT_LIBRARY))
+    del spec
     for r in results:
         log_result(r)
     return results
@@ -370,7 +407,8 @@ def fft_phase(rows: int, dev, stretch: int = 32768) -> dict:
     log(f"[B7 fft4096] forward {fwd_ms:.3f} ms, inverse {inv_ms:.3f} ms per launch")
     b_ms, b_by = bound(rows * chunk * 16, 0, rows * 5 * chunk * 12)
     r = dict(kernel=fft4step.KERNEL, max_abs_err=max(errs.values()), ms=fwd_ms,
-             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+             plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+             inverse_ms=inv_ms)
     log_result(r)
     return r
 
@@ -480,6 +518,7 @@ def ops_phase(dev, counted) -> dict:
     t2 = time.perf_counter()
     launches = {kern.name: kern.launches for kern in counted}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    PHASE_MS["ops"] = 1e3 * (t2 - t0)
     log(f"[ops] {-(-n // 4096)} chunks: compress_chunks {1e3 * (t1 - t0):.1f} ms, "
         f"decompress_chunks {1e3 * (t2 - t1):.1f} ms, peak_memory={peak_gb:.2f} GB "
         f"launches={launches}")
@@ -571,7 +610,10 @@ def train_phase(run, counted, label: str, must_launch, profile: bool = False) ->
     for row in history:
         log(f"[{label}] step {row['step']}: loss={row['loss']:.4f} "
             f"step_ms={row['dt'] * 1e3:.1f} skipped={row['skipped']}")
-    log(f"[{label}] wall={wall:.1f}s peak_memory={peak_gb:.2f} GB launches={launches}")
+    steady = [row["dt"] * 1e3 for row in history[1:]] or [row["dt"] * 1e3 for row in history]
+    PHASE_MS[label] = sum(steady) / max(len(steady), 1)
+    log(f"[{label}] wall={wall:.1f}s peak_memory={peak_gb:.2f} GB launches={launches} "
+        f"steady step ms={PHASE_MS[label]:.1f}")
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: non-finite loss {losses}")
     if any(row["skipped"] for row in history):
@@ -618,6 +660,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {source}] {line.strip()}")
+    check_fft_ptxas(ptxas)
 
     rows = args.rows or main_path_rows()
     results = kernel_phase(rows, dev)
@@ -655,6 +698,8 @@ def main() -> int:
         train_phase(lambda: api_train(dev, 3, backend="cuda", chunk=2048), kernels,
                     "train-api-chunk2048", ("fused_compress", "range_quant_decode"))
 
+    if PHASE_MS:
+        log("[phase ms] " + ", ".join(f"{k}={v:.1f}" for k, v in PHASE_MS.items()))
     line = {"kernels": []}
     for r in results:
         kern = r["kernel"]
@@ -663,7 +708,9 @@ def main() -> int:
             "replaces": kern.replaces, "launches": launches[kern.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **{key: r[key] for key in ("inverse_ms", "fft_library_ms", "fft_library_covers")
+               if key in r}})
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,46 @@
-// The 4096-point complex FFT stages shared by B3 (fused_decompress.cu, the
-// inverse) and B7 (fft4096.cu, forward and inverse): an in-place radix-2
-// decimation-in-frequency FFT over 32 KB of shared memory, run by the
-// block's kThreads threads, in fp32 with twiddles computed in double and
-// rounded to float (a 2048-entry table, exp(+2*pi*i*m/4096), that the
-// wrapper passes in; the forward transform uses its conjugate).  The result
-// is left in bit-reversed order: bin n sits at fft4096_bitrev(n).
+// The 4096-point complex FFT core shared by B7 (fft4096.cu, forward and
+// inverse) and B3 (fused_decompress.cu, the inverse): a register-resident
+// three-pass radix-16 Stockham FFT for one row per CTA of kThreads = 256
+// threads.  tests/test_torch_fft4096_design.py transcribes this file's index
+// arithmetic into numpy (maps, bank conflicts, twiddle exponents, and the
+// walk against np.fft and the reference's Pallas kernel); change the two
+// together.
+//
+// With 4096 = 16 x 16 x 16, n = n0 + 16 n1 + 256 n2, k = k0 + 16 k1 + 256 k2
+// and W = exp(-+2 pi i / 4096) (+ for the inverse), each thread keeps 16
+// complex points in registers through three 16-point DFTs (radix 4 x 4 with
+// constant W16 factors):
+//
+//   pass A  thread t = n0 + 16 n1 loads x[t + 256 m] (m = n2 = 0..15) through
+//           the caller's functor; DFT over n2 -> k0; times W^(t k0); stores
+//           at fft_addr(n0, n1, k0).                            barrier
+//   pass B  thread t = n0 + 16 k0 loads n1 = 0..15 from fft_addr(n0, n1, k0);
+//           DFT over n1 -> k1; times W^(16 n0 k1); stores in place at
+//           fft_addr(n0, k1, k0).                               barrier
+//   pass C  thread t = k0 + 16 k1 loads n0 = 0..15 from fft_addr(n0, k1, k0);
+//           DFT over n0 -> k2; hands X[t + 256 k2] (natural order, scaled by
+//           1/4096 for the inverse) to the caller's store functor.
+//
+// Shared memory is touched twice per point (one exchange after pass A, one
+// after pass B) instead of the twelve stages of a radix-2 FFT, with two block
+// barriers, and device memory is read and written in coalesced 128-byte warp
+// rows in natural order (no bit reversal).
+//
+// Exchange layout: re and im as two unpadded 4096-float planes (32 KB).  The
+// word of (a, b, c) is 32 ((b >> 1) + 8 c) + ((a ^ c) & 15) + 16 ((b ^ c) & 1):
+// an XOR swizzle of the bank, under which every warp's 32 accesses of one
+// instruction in passes A, B and C fall in 32 distinct banks.
+//
+// Twiddles: one table of 4096 + 256 float2, exp(+2 pi i e / 4096) computed in
+// double and rounded to float by the wrapper (fft4step.twiddles()), laid out
+// in the order the passes read it, so each warp's read is one contiguous span
+// through the read-only cache: entry t + 256 k0 holds e = t k0 (pass A),
+// entry 4096 + n0 + 16 k1 holds e = 16 n0 k1 (pass B).  The forward transform
+// negates the imaginary part.  No twiddle is made by repeated multiplication.
+//
+// No tensor cores: a DFT-as-matmul in TF32 keeps 10 mantissa bits, far
+// outside the 2e-6 * max|X| per row that the kernels are held to; 3xTF32
+// would spend ~9 MFLOP per row.  The FFT runs in fp32 on the CUDA cores.
 #pragma once
 
 #include "common.cuh"
@@ -13,33 +49,196 @@ namespace repro {
 
 constexpr int kFftN = 4096;
 constexpr int kFftHalf = kFftN / 2;
-constexpr int kFftLog2 = 12;
+constexpr int kFftRadix = 16;
+static_assert(kThreads * kFftRadix == kFftN, "one row is 256 threads x 16 points");
 
-__device__ __forceinline__ int fft4096_bitrev(int n) {
-  return static_cast<int>(__brev(static_cast<unsigned>(n)) >> (32 - kFftLog2));
+// The exchange buffer: re and im planes, each word at fft_addr().
+struct __align__(16) FftSmem {
+  float re[kFftN];
+  float im[kFftN];
+};
+
+__device__ __forceinline__ int fft_addr(int a, int b, int c) {
+  return ((b >> 1) + 8 * c) * 32 + ((a ^ c) & 15) + 16 * ((b ^ c) & 1);
 }
 
-// Stage s halves the span ``half``; the twiddle of position ``pos`` in its
-// group is exp(sign * 2*pi*i * pos * stride / 4096), sign + for the inverse.
-// Ends with a block barrier, so the caller may read ``spec`` right away.
+// fft_addr() as each pass calls it, with the slot j a compile-time constant,
+// so that a shared access costs at most one XOR besides its immediate offset
+// (the numpy test holds these to fft_addr):
+//   pass A  fft_addr(t & 15, t >> 4, j) = (t ^ (j | (j & 1) << 4)) + 256 j
+//   pass B  fft_addr(t & 15, j, t >> 4) = base[j & 1] + 32 (j >> 1)
+//   pass C  fft_addr(j, t >> 4, t & 15) = base_c ^ j
+__device__ __forceinline__ int fft_addr_a(int t, int j) { return (t ^ (j | (j & 1) << 4)) + 256 * j; }
+
+// Where bin n = n0 + 16 n1 + 256 n2 sits before pass A when the caller
+// builds the row in the exchange buffer itself (B3): the word pass A's
+// thread n0 + 16 n1 reads as slot n2 and then overwrites, so pass A runs in
+// place without a barrier between its loads and its stores.
+__device__ __forceinline__ int fft_input_addr(int n) {
+  return fft_addr(n & 15, (n >> 4) & 15, n >> 8);
+}
+
+// cos(2 pi m / 16), for the in-register DFT's constant factors.
+__host__ __device__ constexpr float cos16(int m) {
+  constexpr float c[16] = {
+      1.0f, 0.92387953251128674f, 0.70710678118654752f, 0.38268343236508977f,
+      0.0f, -0.38268343236508977f, -0.70710678118654752f, -0.92387953251128674f,
+      -1.0f, -0.92387953251128674f, -0.70710678118654752f, -0.38268343236508977f,
+      0.0f, 0.38268343236508977f, 0.70710678118654752f, 0.92387953251128674f};
+  return c[m % 16];
+}
+
+// (xr, xi) *= (wr, wi)
+__device__ __forceinline__ void cmul(float& xr, float& xi, float wr, float wi) {
+  const float r = xr * wr - xi * wi;
+  xi = xr * wi + xi * wr;
+  xr = r;
+}
+
+// 4-point DFT in place on (a, b, c, d) = x0..x3: a, b, c, d <- X0..X3.
 template <bool kInverse>
-__device__ __forceinline__ void fft4096_dif(float2* spec, const float2* __restrict__ twiddle) {
-  for (int half = kFftHalf, stride = 1; half >= 1; half >>= 1, stride <<= 1) {
-    for (int bf = threadIdx.x; bf < kFftHalf; bf += kThreads) {
-      const int pos = bf & (half - 1);
-      const int i = 2 * bf - pos;  // group * 2 * half + pos
-      const int j = i + half;
-      const float2 u = spec[i];
-      const float2 v = spec[j];
-      float2 tw = twiddle[pos * stride];
-      if (!kInverse) tw.y = -tw.y;
-      const float dx = u.x - v.x;
-      const float dy = u.y - v.y;
-      spec[i] = make_float2(u.x + v.x, u.y + v.y);
-      spec[j] = make_float2(dx * tw.x - dy * tw.y, dx * tw.y + dy * tw.x);
-    }
-    __syncthreads();
+__device__ __forceinline__ void dft4(float& ar, float& ai, float& br, float& bi, float& cr,
+                                     float& ci, float& dr, float& di) {
+  const float t0r = ar + cr, t0i = ai + ci, t1r = ar - cr, t1i = ai - ci;
+  const float t2r = br + dr, t2i = bi + di, t3r = br - dr, t3i = bi - di;
+  // t3 * (+-i): W4 = exp(-+2 pi i / 4)
+  const float rr = kInverse ? -t3i : t3i;
+  const float ri = kInverse ? t3r : -t3r;
+  ar = t0r + t2r;
+  ai = t0i + t2i;
+  cr = t0r - t2r;
+  ci = t0i - t2i;
+  br = t1r + rr;
+  bi = t1i + ri;
+  dr = t1r - rr;
+  di = t1i - ri;
+}
+
+// (xr, xi) *= W16^M in the transform's direction.
+template <bool kInverse, int M>
+__device__ __forceinline__ void mul_w16(float& xr, float& xi) {
+  if constexpr (M % 16 == 4) {  // +-i, exact
+    const float r = kInverse ? -xi : xi;
+    xi = kInverse ? xr : -xr;
+    xr = r;
+  } else if constexpr (M % 16 != 0) {
+    constexpr float wr = cos16(M);
+    constexpr float wi = cos16(M + 12);  // sin(x) = cos(x - pi/2)
+    cmul(xr, xi, wr, kInverse ? wi : -wi);
   }
+}
+
+template <bool kInverse, int J>
+__device__ __forceinline__ void dft16_column(float (&re)[16], float (&im)[16]) {
+  dft4<kInverse>(re[J], im[J], re[J + 4], im[J + 4], re[J + 8], im[J + 8], re[J + 12], im[J + 12]);
+  mul_w16<kInverse, J * 1>(re[J + 4], im[J + 4]);
+  mul_w16<kInverse, J * 2>(re[J + 8], im[J + 8]);
+  mul_w16<kInverse, J * 3>(re[J + 12], im[J + 12]);
+}
+
+// 16-point DFT in registers, natural order in and out: X[k] = sum_n x[n]
+// W16^(n k).  n = 4 n1 + n2, k = k1 + 4 k2: DFT4 over n1 for each n2, times
+// W16^(n2 k1), DFT4 over n2 for each k1; the output permutation is a
+// renaming of registers.
+template <bool kInverse>
+__device__ __forceinline__ void dft16(float (&re)[16], float (&im)[16]) {
+  dft16_column<kInverse, 0>(re, im);
+  dft16_column<kInverse, 1>(re, im);
+  dft16_column<kInverse, 2>(re, im);
+  dft16_column<kInverse, 3>(re, im);
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1)
+    dft4<kInverse>(re[4 * k1], im[4 * k1], re[4 * k1 + 1], im[4 * k1 + 1], re[4 * k1 + 2],
+                   im[4 * k1 + 2], re[4 * k1 + 3], im[4 * k1 + 3]);
+  float tr[16], ti[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    tr[i] = re[i];
+    ti[i] = im[i];
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {  // X[k1 + 4 k2] sits at 4 k1 + k2
+    re[k] = tr[4 * (k % 4) + k / 4];
+    im[k] = ti[4 * (k % 4) + k / 4];
+  }
+}
+
+template <bool kInverse>
+__device__ __forceinline__ float2 fft_twiddle(const float2* __restrict__ table, int entry) {
+  float2 w = __ldg(table + entry);
+  if (!kInverse) w.y = -w.y;
+  return w;
+}
+
+// One row: ``load(m)`` returns x[threadIdx.x + 256 m] as (re, im), m = 0..15
+// (it may read ``s`` itself only at fft_input_addr() of that point);
+// ``store(k, re, im)`` receives X[threadIdx.x + 256 k], k = 0..15, scaled by
+// 1/4096 for the inverse.  Every thread of the CTA must call it; pass C still
+// reads ``s``, so a caller that reuses it must pass a barrier first.
+template <bool kInverse, typename Load, typename Store>
+__device__ __forceinline__ void fft4096_row(FftSmem& s, const float2* __restrict__ twiddle,
+                                            Load load, Store store) {
+  const int t = threadIdx.x;
+  const int lo = t & 15;
+  const int hi = t >> 4;
+  float re[16], im[16];
+
+  // pass A: t = n0 + 16 n1 (lo = n0, hi = n1)
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const float2 v = load(m);
+    re[m] = v.x;
+    im[m] = v.y;
+  }
+  dft16<kInverse>(re, im);
+#pragma unroll
+  for (int k0 = 1; k0 < 16; ++k0) {
+    const float2 w = fft_twiddle<kInverse>(twiddle, t + kThreads * k0);
+    cmul(re[k0], im[k0], w.x, w.y);
+  }
+#pragma unroll
+  for (int k0 = 0; k0 < 16; ++k0) {
+    const int a = fft_addr_a(t, k0);
+    s.re[a] = re[k0];
+    s.im[a] = im[k0];
+  }
+  __syncthreads();
+
+  // pass B: t = n0 + 16 k0 (lo = n0, hi = k0), in place
+  const int base_b0 = 256 * hi + (((lo ^ hi) & 15) | (hi & 1) << 4);
+  const int base_b[2] = {base_b0, base_b0 ^ 16};
+#pragma unroll
+  for (int n1 = 0; n1 < 16; ++n1) {
+    const int a = base_b[n1 & 1] + 32 * (n1 >> 1);
+    re[n1] = s.re[a];
+    im[n1] = s.im[a];
+  }
+  dft16<kInverse>(re, im);
+#pragma unroll
+  for (int k1 = 1; k1 < 16; ++k1) {
+    const float2 w = fft_twiddle<kInverse>(twiddle, kFftN + lo + 16 * k1);
+    cmul(re[k1], im[k1], w.x, w.y);
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 16; ++k1) {
+    const int a = base_b[k1 & 1] + 32 * (k1 >> 1);
+    s.re[a] = re[k1];
+    s.im[a] = im[k1];
+  }
+  __syncthreads();
+
+  // pass C: t = k0 + 16 k1 (lo = k0, hi = k1)
+  const int base_c = (32 * (hi >> 1) + 256 * lo + 16 * ((hi ^ lo) & 1)) | lo;
+#pragma unroll
+  for (int n0 = 0; n0 < 16; ++n0) {
+    const int a = base_c ^ n0;
+    re[n0] = s.re[a];
+    im[n0] = s.im[a];
+  }
+  dft16<kInverse>(re, im);
+  const float scale = kInverse ? 1.0f / kFftN : 1.0f;
+#pragma unroll
+  for (int k2 = 0; k2 < 16; ++k2) store(k2, re[k2] * scale, im[k2] * scale);
 }
 
 }  // namespace repro

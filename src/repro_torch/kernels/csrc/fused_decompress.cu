@@ -7,64 +7,104 @@
 // mirror at 4096 - i for interior bins 1..2047), run an inverse 4096-point
 // DFT scaled by 1/4096 and keep the real part.  The TPU kernel builds the
 // scatter and the transform out of one-hot and 64x64 DFT matmuls for its
-// matrix unit; on this card a shared-memory scatter and a radix-2 FFT do the
-// same work with far fewer operations.
+// matrix unit; on this card a shared-memory scatter and an FFT on the CUDA
+// cores do the same work with far fewer operations.
 //
 // Bound on this card: read the payload (2 code planes + the index plane:
 // 4 B per slot at uint8 codes and int16 indices, 2.5 KB per row at k = 615)
 // and write 4096 floats (16 KB per row): about 4.2 GB at 221,184 rows, so
-// about 1.25 ms at 3.35 TB/s.  The FFT's 12 stages of 2048 butterflies
-// (about 0.25 MFLOP per row) stay far below the fp32 rate.
+// about 1.25 ms at 3.35 TB/s.  The transform's 0.25 MFLOP per row stays
+// below it.
 //
-// Design: one CTA of 256 threads per row.  The spectrum lives in 32 KB of
-// shared memory as float2; the scatter uses shared-memory atomics (every
-// kept bin is distinct, and padding slots add +0.0, so the sum is exact in
-// any order); the transform is an in-place decimation-in-frequency radix-2
-// FFT in fp32 with twiddles computed in double and rounded to float (a
-// 2048-entry table the wrapper passes in), no tensor cores and no TF32.
-// Output order is bit-reversed, undone on the write.  Tolerance against the
-// plain version (cuFFT irfft): max abs error <= 2e-6 * max|x| per row.
+// Design: one CTA of 256 threads per row.  The spectrum is built in the
+// 32 KB exchange buffer of fft4096.cuh, zeroed, with each bin at the word
+// that the core's first pass reads (fft_input_addr): shared-memory atomics
+// add each kept coefficient and its mirror (every kept bin is distinct and
+// padding slots add +0.0, so the sum is exact in any order; DC and Nyquist
+// once; an index outside [0, 2048] adds nothing).  Then the core's three
+// radix-16 passes run the inverse with the row in registers, the first in
+// place in the buffer, and the last writes the real part straight to device
+// memory in natural order.  __launch_bounds__(256, 3), as B7.  No tensor
+// cores: TF32 cannot hold the tolerance (fft4096.cuh).  Tolerance against
+// the plain version (cuFFT irfft): max abs error <= 2e-6 * max|x| per row.
 #include "fft4096.cuh"
 #include "range_quant.cuh"
 
 namespace repro {
 
+constexpr int kDecompressMinBlocks = 4;  // CTAs per SM that the register budget must allow
+constexpr int kPrefetch = 3;  // payload slots per thread loaded ahead of the zeroing
+
 template <typename CodeT, typename IdxT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kDecompressMinBlocks)
 fused_decompress_kernel(const CodeT* __restrict__ rec, const CodeT* __restrict__ imc,
                         const IdxT* __restrict__ idx, const float* __restrict__ eps,
                         const float* __restrict__ p_codes, int k, float m_scale,
                         const float2* __restrict__ twiddle, float* __restrict__ out) {
-  __shared__ float2 spec[kFftN];
+  // 8-bit codes decode through a 256-entry table of decode_math (bitwise the
+  // same values); 16-bit codes call decode_math per slot
+  constexpr bool kTable = sizeof(CodeT) == 1;
+  static_assert(kThreads == 256, "one table entry per thread");
+  __shared__ FftSmem s;
+  __shared__ float table[256];  // 8-bit codes: the row's 256 decoded values
   const size_t row = blockIdx.x;
+  const int t = threadIdx.x;
 
-  for (int i = threadIdx.x; i < kFftN; i += kThreads) spec[i] = make_float2(0.0f, 0.0f);
-  __syncthreads();
-
+  // The first kPrefetch slots of each thread (all of them up to k = 768) are
+  // loaded before the zeroing, so their latency hides behind it.
   const float e = eps[row];
   const float p = p_codes[row];
   const CodeT* rec_row = rec + row * k;
   const CodeT* imc_row = imc + row * k;
   const IdxT* idx_row = idx + row * k;
-  for (int s = threadIdx.x; s < k; s += kThreads) {
-    const float vr = decode_math(static_cast<float>(rec_row[s]), e, p, m_scale);
-    const float vi = decode_math(static_cast<float>(imc_row[s]), e, p, m_scale);
-    const int b = static_cast<int>(idx_row[s]);
-    if (b < 0 || b > kFftHalf) continue;  // a corrupt index adds nothing (as XLA drops it)
-    atomicAdd(&spec[b].x, vr);
-    atomicAdd(&spec[b].y, vi);
-    if (b >= 1 && b <= kFftHalf - 1) {  // DC and Nyquist are their own mirrors
-      atomicAdd(&spec[kFftN - b].x, vr);
-      atomicAdd(&spec[kFftN - b].y, -vi);
-    }
+  CodeT pre_re[kPrefetch], pre_im[kPrefetch];
+  int pre_bin[kPrefetch];
+#pragma unroll
+  for (int i = 0; i < kPrefetch; ++i) {
+    const int j = t + kThreads * i;
+    const bool live = j < k;
+    pre_re[i] = live ? rec_row[j] : CodeT(0);
+    pre_im[i] = live ? imc_row[j] : CodeT(0);
+    pre_bin[i] = live ? static_cast<int>(idx_row[j]) : -1;
   }
+
+  float4* zero = reinterpret_cast<float4*>(&s);
+#pragma unroll
+  for (int i = t; i < 2 * kFftN / 4; i += kThreads) zero[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (kTable) table[t] = decode_math(static_cast<float>(t), e, p, m_scale);
   __syncthreads();
 
-  fft4096_dif</*kInverse=*/true>(spec, twiddle);
+  const auto decode = [&](CodeT c) {
+    if constexpr (kTable) return table[c];
+    else return decode_math(static_cast<float>(c), e, p, m_scale);
+  };
+  const auto scatter = [&](CodeT code_re, CodeT code_im, int b) {
+    if (b < 0 || b > kFftHalf) return;  // a corrupt index adds nothing (as XLA drops it)
+    const float vr = decode(code_re);
+    const float vi = decode(code_im);
+    const int a = fft_input_addr(b);
+    atomicAdd(&s.re[a], vr);
+    atomicAdd(&s.im[a], vi);
+    if (b >= 1 && b <= kFftHalf - 1) {  // DC and Nyquist are their own mirrors
+      const int am = fft_input_addr(kFftN - b);
+      atomicAdd(&s.re[am], vr);
+      atomicAdd(&s.im[am], -vi);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kPrefetch; ++i) scatter(pre_re[i], pre_im[i], pre_bin[i]);
+  for (int j = t + kThreads * kPrefetch; j < k; j += kThreads)
+    scatter(rec_row[j], imc_row[j], static_cast<int>(idx_row[j]));
+  __syncthreads();
 
-  float* out_row = out + row * kFftN;
-  const float scale = 1.0f / kFftN;
-  for (int n = threadIdx.x; n < kFftN; n += kThreads) out_row[n] = spec[fft4096_bitrev(n)].x * scale;
+  float* out_row = out + row * kFftN + t;
+  fft4096_row</*kInverse=*/true>(
+      s, twiddle,
+      [&](int m) {  // fft_input_addr(t + 256 m)
+        const int a = fft_addr_a(t, m);
+        return make_float2(s.re[a], s.im[a]);
+      },
+      [&](int k2, float re, float) { out_row[kThreads * k2] = re; });
 }
 
 template <typename CodeT, typename IdxT>
@@ -80,7 +120,8 @@ int launch(const void* rec, const void* imc, const void* idx, const float* eps,
 }  // namespace repro
 
 // code_bytes: 1 (uint8) or 2 (uint16); idx_bytes: 2 (int16) or 4 (int32).
-// twiddle: 2048 float2, exp(+2*pi*i*m/4096) for m < 2048.
+// twiddle: the 4096 + 256 float2 of fft4step.twiddles() (layout in
+// fft4096.cuh).
 REPRO_EXPORT int fused_decompress(const void* rec, const void* imc, const void* idx,
                                   const float* eps, const float* p_codes, int rows, int k,
                                   float m_scale, int code_bytes, int idx_bytes,

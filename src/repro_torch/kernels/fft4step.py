@@ -4,16 +4,18 @@
 :func:`fft4096` maps ``(rows, 4096)`` re/im planes to the re/im planes of
 their DFT, or with ``inverse=True`` of their inverse DFT scaled by 1/4096.
 
-The CUDA kernel is ``csrc/fft4096.cu``, a radix-2 FFT in shared memory
-whose stages B3 shares.  The plain version is the reference's four-step
-math (Bailey: 64-point DFT matmuls along the columns, a twiddle, 64-point
-DFT matmuls along the rows, a transposed read-out) as float32
+The CUDA kernel is ``csrc/fft4096.cu``: three radix-16 passes with the row
+in registers and two exchanges through shared memory (``csrc/fft4096.cuh``,
+whose core B3 shares; ``tests/test_torch_fft4096_design.py`` walks its index
+maps and :func:`twiddles` in numpy).  The plain version is the reference's
+four-step math (Bailey: 64-point DFT matmuls along the columns, a twiddle,
+64-point DFT matmuls along the rows, a transposed read-out) as float32
 ``torch.matmul`` -- run it with TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default), as
 the reference runs ``Precision.HIGHEST``.  Tolerance between the two: max
 abs error <= 2e-6 * max|X| per row and plane -- both are fp32 FFTs that
 round at different places (the four-step sums 64-term dot products; the
-radix-2 rounds once per stage).
+radix-16 kernel rounds once per pass and twiddle).
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ import torch
 from repro_torch.kernels import _checks
 from repro_torch.kernels.build import Kernel, ptr
 
-__all__ = ["KERNEL", "CHUNK", "N1", "fft4096", "fft4096_plain", "twiddles"]
+__all__ = ["KERNEL", "CHUNK", "N1", "RADIX", "fft4096", "fft4096_plain", "twiddles"]
 
 CHUNK = 4096
 N1 = 64  # the four-step's matrix side: 4096 = 64 x 64
+RADIX = 16  # the kernel's passes: 4096 = 16 x 16 x 16, 256 threads x 16 points
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel(
@@ -45,10 +48,21 @@ _TWIDDLES: Dict[torch.device, torch.Tensor] = {}
 
 
 def twiddles(device) -> torch.Tensor:
-    """exp(+2*pi*i*m/4096) for m < 2048, computed in double, as float pairs
-    (the table of the kernels' FFT stages, ``csrc/fft4096.cuh``)."""
+    """The kernels' twiddle table, ``(4096 + 256, 2)`` float32 (re, im) pairs
+    of exp(+2*pi*i*e/4096) computed in double, laid out in the order the
+    CUDA core reads them (``csrc/fft4096.cuh``), so that each warp reads one
+    contiguous span; the forward transform negates the imaginary part:
+
+    * entry ``t + 256*k0`` (thread t < 256, output k0 < 16 of the first
+      pass): e = t*k0;
+    * entry ``4096 + n0 + 16*k1`` (n0, k1 < 16, the second pass): e = 16*n0*k1.
+    """
     if device not in _TWIDDLES:
-        ang = 2.0 * np.pi * np.arange(CHUNK // 2, dtype=np.float64) / CHUNK
+        t = np.arange(CHUNK // RADIX)
+        r = np.arange(RADIX)
+        e = np.concatenate([(r[:, None] * t[None, :]).reshape(-1),  # [k0, t]
+                            (RADIX * r[:, None] * r[None, :]).reshape(-1)])  # [k1, n0]
+        ang = 2.0 * np.pi * (e % CHUNK) / CHUNK
         tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
         _TWIDDLES[device] = torch.from_numpy(tw).to(device)
     return _TWIDDLES[device]

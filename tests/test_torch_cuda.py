@@ -8,6 +8,7 @@ Tolerances as in chip_smoke.py: B1, B4, B2, B5 and B6 bitwise; B3 and B7
 max abs error <= 2e-6 * max|x| per row.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -107,6 +108,82 @@ def test_fft4096_kernel_within_tolerance(planes, inverse):
     scale = torch.maximum(want[0].abs().amax(-1), want[1].abs().amax(-1))
     for a, b in zip(got, want):
         assert bool(((a - b).abs().amax(-1) <= 2e-6 * scale).all())
+
+
+@pytest.mark.parametrize("rows", [1, 3, 133])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft4096_kernel_row_counts(planes, rows, inverse):
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x_re, x_im = (torch.randn((rows, 4096), generator=gen, device="cuda") for _ in range(2))
+    got = fft4step.fft4096(x_re, x_im, inverse=inverse)
+    want = fft4step.fft4096_plain(x_re, x_im, inverse=inverse)
+    scale = torch.maximum(want[0].abs().amax(-1), want[1].abs().amax(-1))
+    for a, b in zip(got, want):
+        assert a.shape == (rows, 4096)
+        assert bool(((a - b).abs().amax(-1) <= 2e-6 * scale).all())
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft4096_kernel_known_answers(planes, inverse):
+    """Unit impulses at n = p and single complex exponentials of frequency
+    f, whose transforms are exact: W^(p k) and 4096 * delta(k - f) (inverse:
+    W^(-p k) / 4096 and delta(k - f))."""
+    shifts = [0, 1, 5, 255, 256, 2048, 4095]
+    n = np.arange(4096)
+    sign = 1.0 if inverse else -1.0
+    x = np.zeros((2 * len(shifts), 4096), np.complex128)
+    want = np.zeros_like(x)
+    for r, p in enumerate(shifts):
+        x[r, p] = 1.0
+        want[r] = np.exp(sign * 2j * np.pi * p * n / 4096)
+        x[len(shifts) + r] = np.exp(-sign * 2j * np.pi * p * n / 4096)
+        want[len(shifts) + r, p] = 4096.0
+    if inverse:
+        want /= 4096.0
+    x_re, x_im = (torch.from_numpy(np.ascontiguousarray(v, np.float32)).cuda()
+                  for v in (x.real, x.imag))
+    got_re, got_im = (v.cpu().numpy() for v in fft4step.fft4096(x_re, x_im, inverse=inverse))
+    err = np.abs(got_re + 1j * got_im - want).max(-1)
+    assert np.all(err <= 2e-6 * np.abs(want).max(-1)), err
+
+
+def _payload(rows, k, code_dtype, idx_dtype, n_bits, seed):
+    """Random codes at k distinct bins per row (numpy, from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([np.sort(rng.choice(2049, k, replace=False)) for _ in range(rows)])
+    codes = rng.integers(0, 1 << n_bits, (2, rows, k))
+    return ([torch.from_numpy(c.astype(code_dtype)).cuda() for c in codes],
+            torch.from_numpy(idx.astype(idx_dtype)).cuda())
+
+
+@pytest.mark.parametrize("case", ["dc_nyquist", "corrupt_index", "k1", "k2049", "u16_i32"])
+def test_fused_decompress_kernel_edge_payloads(planes, case):
+    """B3 against its plain version on payloads that set DC and Nyquist,
+    carry indices outside [0, 2048] (the kernel adds nothing for them; the
+    plain version, whose scatter would fault, gets code 0 at bin 0 there),
+    keep 1 or all 2049 bins, or use uint16 codes with int32 indices."""
+    n_bits, m_bits = (12, 7) if case == "u16_i32" else (8, 3)
+    k = {"k1": 1, "k2049": 2049}.get(case, 615)
+    code_dtype = np.uint16 if case == "u16_i32" else np.uint8
+    idx_dtype = np.int32 if case == "u16_i32" else np.int16
+    (rec, imc), idx = _payload(5, k, code_dtype, idx_dtype, n_bits, seed=k + n_bits)
+    if case == "dc_nyquist":
+        idx[:, 0], idx[:, -1] = 0, 2048
+        rec[:, 0], rec[:, -1] = 200, 77
+    q = fit_quantizer(torch.full((5,), -0.3, device="cuda"),
+                      torch.linspace(0.1, 0.5, 5, device="cuda"), RangeQuantConfig(n_bits, m_bits))
+    plain_rec, plain_imc, plain_idx = rec, imc, idx
+    if case == "corrupt_index":
+        idx[:, 3], idx[:, 10], idx[2, 100] = -1, 3000, 2049
+        bad = (idx < 0) | (idx > 2048)
+        plain_rec, plain_imc = (torch.where(bad, 0, c) for c in (rec, imc))
+        plain_idx = torch.where(bad, 0, idx)
+    got = fused_decompress.fused_decompress(rec, imc, idx, q.eps, q.p_codes, m_bits=m_bits)
+    want = fused_decompress.fused_decompress_plain(plain_rec, plain_imc, plain_idx, q.eps,
+                                                   q.p_codes, m_bits=m_bits)
+    assert got.shape == (5, 4096) and bool(torch.isfinite(got).all())
+    err = (got - want).abs().amax(-1)
+    assert bool((err <= 2e-6 * want.abs().amax(-1)).all()), err
 
 
 @pytest.mark.parametrize("kw,kernel", [(dict(quantize=False), pack.PACK_KERNEL),
