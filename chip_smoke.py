@@ -5,12 +5,16 @@
 Phases (any failure exits nonzero; the last line is printed only on success):
 
 1. the card's name and power limit; build every kernel from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once);
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once); the
+   FFT kernels (B7, B3) must build without spills and within the registers
+   of 3 CTAs per SM;
 2. each kernel (B1..B7) on the card at the main path's shapes -- the rows
    that gemma2_2b at full width and 4 layers gives the 64 MB bucketed
    exchange -- against its plain PyTorch version on the same inputs, with
    its time, the plain version's time, the library yardstick's time where
-   one PyTorch call computes the same function, and the bound;
+   one PyTorch call computes the same function, and the bound; B7's inverse
+   time, and for B3, which no single call computes, cuFFT's irfft of the
+   same spectrum as a yardstick of its transform alone;
 3. the engine's cuda and reference backends on a small ragged layout (codes,
    fits and reconstructions agree);
 4. the kernel-composed pipeline ``ops.compress_chunks`` ->
@@ -27,7 +31,8 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    train_loop) on the cuda backend's per-stage routes: ``quantize=False``
    (B6 pack) and ``chunk=2048`` (B5 decode).
 
-Then one JSON line with every kernel's numbers, and as the last line
+Then each training phase's mean steady step and the ops phase's time, one
+JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package.  ``--rows`` and ``--skip-train`` (which skips phases 4 to 6)
 shorten a run while a kernel is being brought up; ``--profile`` traces the

@@ -13,16 +13,18 @@
 // fp32 rate) stay below it.
 //
 // Design: one CTA of 256 threads per row runs the register-resident
-// three-pass radix-16 core of fft4096.cuh: pass A loads the row straight from
-// device memory (16 coalesced loads per plane and thread), passes A and B
-// exchange through a 32 KB XOR-swizzled shared buffer free of bank
-// conflicts, pass C writes both planes straight to device memory in natural
-// order; twiddles come from the wrapper's double-precision table through the
-// read-only cache.  __launch_bounds__(256, 3): ptxas must fit 85 registers a
-// thread (3 CTAs, 24 warps per SM) with no spill; chip_smoke.py prints its
-// count.  No tensor cores: TF32 cannot hold the tolerance (fft4096.cuh).
-// Tolerance against the plain version (the reference's four-step math as
-// fp32 matmuls): max abs error <= 2e-6 * max|X| per row, both planes.
+// three-pass radix-16 complex core of fft4096.cuh: pass A loads the row
+// straight from device memory (16 coalesced loads per plane and thread),
+// passes A and B exchange through a 32 KB XOR-swizzled shared buffer free of
+// bank conflicts, pass C writes both planes straight to device memory in
+// natural order; twiddles come from the wrapper's double-precision table
+// through the read-only cache.  __launch_bounds__(256, 3): ptxas fits 76-78
+// registers a thread, no spill, so 3 CTAs (24 warps) share an SM; enough
+// loads are in flight to hold device memory near its rate (chip_smoke.py
+// prints and checks the counts).  No tensor cores: TF32's 10 mantissa bits
+// cannot hold the tolerance (fft4096.cuh).  Tolerance against the plain version (the
+// reference's four-step math as fp32 matmuls): max abs error <= 2e-6 *
+// max|X| per row, both planes.
 #include "fft4096.cuh"
 
 namespace repro {
@@ -49,8 +51,8 @@ fft4096_kernel(const float* __restrict__ x_re, const float* __restrict__ x_im,
 
 }  // namespace repro
 
-// Planes are contiguous (rows, 4096) float32.  twiddle: the 4096 + 256
-// float2 of fft4step.twiddles() (layout in fft4096.cuh).
+// Planes are contiguous (rows, 4096) float32.  twiddle: fft4step.twiddles()
+// (layout in fft4096.cuh).
 REPRO_EXPORT int fft4096(const float* x_re, const float* x_im, int rows, int inverse,
                          const void* twiddle, float* y_re, float* y_im, void* stream) {
   using namespace repro;

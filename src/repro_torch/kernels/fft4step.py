@@ -5,9 +5,10 @@
 their DFT, or with ``inverse=True`` of their inverse DFT scaled by 1/4096.
 
 The CUDA kernel is ``csrc/fft4096.cu``: three radix-16 passes with the row
-in registers and two exchanges through shared memory (``csrc/fft4096.cuh``,
-whose core B3 shares; ``tests/test_torch_fft4096_design.py`` walks its index
-maps and :func:`twiddles` in numpy).  The plain version is the reference's
+in registers and two exchanges through shared memory (the complex core of
+``csrc/fft4096.cuh``, beside the real inverse core that B3 runs;
+``tests/test_torch_fft4096_design.py`` walks both cores' index maps and
+:func:`twiddles` in numpy).  The plain version is the reference's
 four-step math (Bailey: 64-point DFT matmuls along the columns, a twiddle,
 64-point DFT matmuls along the rows, a transposed read-out) as float32
 ``torch.matmul`` -- run it with TF32 off
@@ -48,20 +49,22 @@ _TWIDDLES: Dict[torch.device, torch.Tensor] = {}
 
 
 def twiddles(device) -> torch.Tensor:
-    """The kernels' twiddle table, ``(4096 + 256, 2)`` float32 (re, im) pairs
-    of exp(+2*pi*i*e/4096) computed in double, laid out in the order the
-    CUDA core reads them (``csrc/fft4096.cuh``), so that each warp reads one
-    contiguous span; the forward transform negates the imaginary part:
+    """The kernels' twiddle table, ``(4096 + 256 + 2048, 2)`` float32 (re, im)
+    pairs of exp(+2*pi*i*e/4096) computed in double, laid out in the order
+    the CUDA cores read them (``csrc/fft4096.cuh``), so that each warp reads
+    one contiguous span; the forward transform negates the imaginary part:
 
-    * entry ``t + 256*k0`` (thread t < 256, output k0 < 16 of the first
-      pass): e = t*k0;
-    * entry ``4096 + n0 + 16*k1`` (n0, k1 < 16, the second pass): e = 16*n0*k1.
+    * entry ``t + 256*k0`` (thread t < 256, output k0 < 16 of the complex
+      core's first pass): e = t*k0;
+    * entry ``4096 + n0 + 16*k1`` (n0, k1 < 16, its second pass): e = 16*n0*k1;
+    * entry ``4352 + n`` (n < 2048, the real inverse core's input): e = n.
     """
     if device not in _TWIDDLES:
         t = np.arange(CHUNK // RADIX)
         r = np.arange(RADIX)
         e = np.concatenate([(r[:, None] * t[None, :]).reshape(-1),  # [k0, t]
-                            (RADIX * r[:, None] * r[None, :]).reshape(-1)])  # [k1, n0]
+                            (RADIX * r[:, None] * r[None, :]).reshape(-1),  # [k1, n0]
+                            np.arange(CHUNK // 2)])
         ang = 2.0 * np.pi * (e % CHUNK) / CHUNK
         tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
         _TWIDDLES[device] = torch.from_numpy(tw).to(device)

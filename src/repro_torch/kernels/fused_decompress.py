@@ -10,8 +10,9 @@ index 0) decode to 0.0 and add nothing, so any payload width works.
 
 The CUDA kernel is ``csrc/fused_decompress.cu``; it agrees with the plain
 version within 2e-6 * max|x| per row (both are fp32 FFTs, summed in
-different orders).  Its transform is B7's radix-16 core
-(``csrc/fft4096.cuh``), with the same twiddle table.
+different orders).  Its transform is the real inverse core of
+``csrc/fft4096.cuh``: the irfft as one 2048-point complex inverse of the
+packed half spectrum, with B7's twiddle table.
 """
 
 from __future__ import annotations

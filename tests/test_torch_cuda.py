@@ -151,9 +151,8 @@ def _payload(rows, k, code_dtype, idx_dtype, n_bits, seed):
     """Random codes at k distinct bins per row (numpy, from ``seed``)."""
     rng = np.random.default_rng(seed)
     idx = np.stack([np.sort(rng.choice(2049, k, replace=False)) for _ in range(rows)])
-    codes = rng.integers(0, 1 << n_bits, (2, rows, k))
-    return ([torch.from_numpy(c.astype(code_dtype)).cuda() for c in codes],
-            torch.from_numpy(idx.astype(idx_dtype)).cuda())
+    rec, imc = rng.integers(0, 1 << n_bits, (2, rows, k))
+    return rec.astype(code_dtype), imc.astype(code_dtype), idx.astype(idx_dtype)
 
 
 @pytest.mark.parametrize("case", ["dc_nyquist", "corrupt_index", "k1", "k2049", "u16_i32"])
@@ -161,29 +160,42 @@ def test_fused_decompress_kernel_edge_payloads(planes, case):
     """B3 against its plain version on payloads that set DC and Nyquist,
     carry indices outside [0, 2048] (the kernel adds nothing for them; the
     plain version, whose scatter would fault, gets code 0 at bin 0 there),
-    keep 1 or all 2049 bins, or use uint16 codes with int32 indices."""
+    keep 1 or all 2049 bins, or use uint16 codes with int32 indices.  The
+    imaginary codes at DC and Nyquist are 0, as in a real signal's spectrum:
+    cuFFT's C2R, which the plain version calls, does not ignore an imaginary
+    part there, while the kernel, as the reference, keeps the real part of
+    the full inverse, to which it adds nothing (checked on its own)."""
     n_bits, m_bits = (12, 7) if case == "u16_i32" else (8, 3)
     k = {"k1": 1, "k2049": 2049}.get(case, 615)
     code_dtype = np.uint16 if case == "u16_i32" else np.uint8
     idx_dtype = np.int32 if case == "u16_i32" else np.int16
-    (rec, imc), idx = _payload(5, k, code_dtype, idx_dtype, n_bits, seed=k + n_bits)
+    rec, imc, idx = _payload(5, k, code_dtype, idx_dtype, n_bits, seed=k + n_bits)
     if case == "dc_nyquist":
         idx[:, 0], idx[:, -1] = 0, 2048
         rec[:, 0], rec[:, -1] = 200, 77
-    q = fit_quantizer(torch.full((5,), -0.3, device="cuda"),
-                      torch.linspace(0.1, 0.5, 5, device="cuda"), RangeQuantConfig(n_bits, m_bits))
+    dc_nyquist = (idx == 0) | (idx == 2048)
+    imc[dc_nyquist] = 0
     plain_rec, plain_imc, plain_idx = rec, imc, idx
     if case == "corrupt_index":
         idx[:, 3], idx[:, 10], idx[2, 100] = -1, 3000, 2049
         bad = (idx < 0) | (idx > 2048)
-        plain_rec, plain_imc = (torch.where(bad, 0, c) for c in (rec, imc))
-        plain_idx = torch.where(bad, 0, idx)
-    got = fused_decompress.fused_decompress(rec, imc, idx, q.eps, q.p_codes, m_bits=m_bits)
-    want = fused_decompress.fused_decompress_plain(plain_rec, plain_imc, plain_idx, q.eps,
-                                                   q.p_codes, m_bits=m_bits)
+        plain_rec, plain_imc, plain_idx = (np.where(bad, 0, a).astype(a.dtype)
+                                           for a in (rec, imc, idx))
+    q = fit_quantizer(torch.full((5,), -0.3, device="cuda"),
+                      torch.linspace(0.1, 0.5, 5, device="cuda"), RangeQuantConfig(n_bits, m_bits))
+
+    def run(fn, *payload):
+        return fn(*(torch.from_numpy(a).cuda() for a in payload), q.eps, q.p_codes,
+                  m_bits=m_bits)
+
+    got = run(fused_decompress.fused_decompress, rec, imc, idx)
+    want = run(fused_decompress.fused_decompress_plain, plain_rec, plain_imc, plain_idx)
     assert got.shape == (5, 4096) and bool(torch.isfinite(got).all())
     err = (got - want).abs().amax(-1)
     assert bool((err <= 2e-6 * want.abs().amax(-1)).all()), err
+    if case == "dc_nyquist":
+        imc_dc = np.where(dc_nyquist, 99, imc).astype(imc.dtype)
+        assert torch.equal(got, run(fused_decompress.fused_decompress, rec, imc_dc, idx))
 
 
 @pytest.mark.parametrize("kw,kernel", [(dict(quantize=False), pack.PACK_KERNEL),

@@ -22,8 +22,8 @@ B3's payload: k = 615 distinct bins per row (uint8 codes, int16 indices),
 one quantizer fit per row; the imaginary codes at DC and Nyquist are 0, as
 in the spectrum of a real signal (cuFFT's C2R, which the plain version
 calls, does not ignore an imaginary part there).  A tree whose
-``fft4096.cuh`` has no ``fft_addr`` takes the radix-2 kernels' 2048-entry
-twiddle table; the others take ``fft4step.twiddles()``.
+``fft4096.cuh`` has ``fft4096_bitrev`` (the radix-2 kernels) takes their
+2048-entry twiddle table; the others take ``fft4step.twiddles()``.
 """
 
 from __future__ import annotations
@@ -108,9 +108,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rows = args.rows
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    tables = {name: fft4step.twiddles(dev)
-              if "fft_addr" in (Path(src) / "fft4096.cuh").read_text() else radix2_twiddles(dev)
-              for name, src in trees.items()}
+    radix2 = {name for name, src in trees.items()
+              if "fft4096_bitrev" in (Path(src) / "fft4096.cuh").read_text()}
+    tables = {name: radix2_twiddles(dev) if name in radix2 else fft4step.twiddles(dev)
+              for name in trees}
 
     def p(t):
         return ctypes.c_void_p(t.data_ptr())
