@@ -5,16 +5,18 @@
 Phases (any failure exits nonzero; the last line is printed only on success):
 
 1. the card's name and power limit; build every kernel from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once); the
-   FFT kernels (B7, B3) must build without spills and within the registers
-   of 3 CTAs per SM;
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once); B7,
+   B3, B2 and B4 must build without spills and within the registers of the
+   CTAs per SM that PTXAS_LIMITS names;
 2. each kernel (B1..B7) on the card at the main path's shapes -- the rows
    that gemma2_2b at full width and 4 layers gives the 64 MB bucketed
-   exchange -- against its plain PyTorch version on the same inputs, with
+   exchange, the layout's all-zero padding rows among them -- against its
+   plain PyTorch version on the same inputs, with
    its time, the plain version's time, the library yardstick's time where
    one PyTorch call computes the same function, and the bound; B7's inverse
    time, and for B3, which no single call computes, cuFFT's irfft of the
-   same spectrum as a yardstick of its transform alone;
+   same spectrum as a yardstick of its transform alone; B4 and B2 also at
+   the ``chunk=2048`` route's 442,368 rows of 1025 bins, bitwise;
 3. the engine's cuda and reference backends on a small ragged layout (codes,
    fits and reconstructions agree);
 4. the kernel-composed pipeline ``ops.compress_chunks`` ->
@@ -79,8 +81,11 @@ OPS_ROW_ATOL, OPS_MAX_REL_L2 = 1e-5, 1e-3
 # No single PyTorch call computes B3's function (library_ms is null); its
 # transform alone has one, printed beside it as fft_library_ms
 B3_FFT_LIBRARY = "transform only: torch.fft.irfft of the (rows, 2049) spectrum"
-# the FFT kernels' register budget: 3 CTAs of 256 threads on an SM's 65,536
-FFT_SOURCES, FFT_MIN_CTAS = ("fft4096.cu", "fused_decompress.cu"), 3
+# register budgets read off ptxas: per source, (threads per CTA, the fewest
+# CTAs an SM's 65,536 registers must hold) for the kernel with the most
+# registers in the source; none may spill
+PTXAS_LIMITS = {"fft4096.cu": (256, 3), "fused_decompress.cu": (256, 3),
+                "fused_compress.cu": (256, 3), "sampled_threshold.cu": (128, 3)}
 
 
 # each training phase's mean steady step (ms, steps after the first) and the
@@ -125,11 +130,17 @@ def model_config():
     return dataclasses.replace(configs.get_config("gemma2_2b"), n_layers=N_LAYERS)
 
 
-def main_path_rows() -> int:
-    """Chunk rows one exchange compresses for gemma2_2b, 4 layers, 64 MB."""
+def main_path_layout(chunk: int = 4096):
+    """The stacked layout of gemma2_2b, 4 layers, 64 MB buckets, in chunks
+    of ``chunk``."""
     from repro_torch.comms.bucketing import build_layout
 
-    layout = build_layout(model_config().param_count(), int(BUCKET_MB * (1 << 20)))
+    return build_layout(model_config().param_count(), int(BUCKET_MB * (1 << 20)), chunk)
+
+
+def main_path_rows(chunk: int = 4096) -> int:
+    """Chunk rows one exchange compresses (221,184 at 4096, 442,368 at 2048)."""
+    layout = main_path_layout(chunk)
     return layout.n_buckets * layout.max_chunks
 
 
@@ -150,46 +161,80 @@ def check_bitwise(label: str, pairs) -> None:
         raise AssertionError(f"{label} disagrees with its plain version on {mism} values")
 
 
-def check_fft_ptxas(ptxas) -> None:
-    """B7 and B3 must not spill and must fit FFT_MIN_CTAS CTAs of 256
-    threads per SM by registers (allocated in units of 8 a thread); read off
-    the ptxas output of a fresh build."""
+def check_ptxas(ptxas) -> None:
+    """The sources in PTXAS_LIMITS must not spill and must fit their CTAs
+    per SM by registers (allocated in units of 8 a thread); read off the
+    ptxas output of a fresh build."""
     import re
 
-    for source in FFT_SOURCES:
+    for source, (threads, min_ctas) in PTXAS_LIMITS.items():
         text = ptxas.get(source)
         if text is None:
             log(f"[ptxas {source}] library reused from an earlier build: not rechecked")
             continue
         regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
         spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
-        ctas = 65536 // (256 * (-(-max(regs, default=255) // 8) * 8))
+        ctas = 65536 // (threads * (-(-max(regs, default=255) // 8) * 8))
         log(f"[ptxas {source}] at most {max(regs, default=0)} registers a thread: {ctas} CTAs "
-            f"of 256 threads per SM; spill bytes {sum(spills)} (limits: >= {FFT_MIN_CTAS} "
+            f"of {threads} threads per SM; spill bytes {sum(spills)} (limits: >= {min_ctas} "
             "CTAs, 0 spills)")
-        if not regs or sum(spills) or ctas < FFT_MIN_CTAS:
+        if not regs or sum(spills) or ctas < min_ctas:
             raise AssertionError(f"{source}: spills or too many registers")
 
 
-def kernel_phase(rows: int, dev) -> list:
-    """Each kernel against its plain version at ``rows`` rows."""
-    from repro_torch.core import fft as cfft
-    from repro_torch.core import sparsify
-    from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
-    from repro_torch.kernels import (fused_compress, fused_decompress, sampled_threshold,
-                                     topk_threshold)
-    from repro_torch.core import selection
+def padding_rows(rows: int, dev, chunk: int = 4096) -> torch.Tensor:
+    """Indices, below ``rows``, of the all-zero padding rows of the main
+    path's stacked layout (the rows ``valid_chunk_mask`` leaves out)."""
+    from repro_torch.core.compressor import valid_chunk_mask
 
-    chunk, cols = 4096, 2049
-    k = sparsify.keep_count(cols, KEEP_THETA)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    layout = main_path_layout(chunk)
+    valid = valid_chunk_mask(layout.sizes(), layout.max_chunks, layout.chunk, dev).reshape(-1)
+    return torch.nonzero(~valid[:rows]).reshape(-1)
+
+
+def spectrum(rows: int, chunk: int, dev, seed: int = 0):
+    """B2's and B4's inputs as the main path gives them: the rfft of
+    ``rows`` N(0, 1e-6) chunks of ``chunk`` samples, the stacked layout's
+    padding rows (B4's denormal bracket, B2's truncation at k_pad) all
+    zero.  Returns re, im (rows, chunk/2 + 1), the Hermitian weights, the
+    weighted magnitude and the number of zero rows."""
+    from repro_torch.core import fft as cfft
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((rows, chunk), generator=gen, device=dev) * 1e-3
+    zero_rows = padding_rows(rows, dev, chunk)
+    x[zero_rows] = 0.0
     freqs = torch.fft.rfft(x, dim=-1)
     del x
     re, im = freqs.real.contiguous(), freqs.imag.contiguous()
     del freqs
     w = cfft.hermitian_weights(chunk, dev)
-    mag = torch.sqrt(re * re + im * im) * w
+    return re, im, w, torch.sqrt(re * re + im * im) * w, zero_rows.numel()
+
+
+def compress_params(mag, re, im, s_tau):
+    """B2's tau and quantizer fits: the engine's mid-gap tau below B4's
+    threshold ``s_tau``, and one fit per row (the engine repeats one fit per
+    bucket over its rows).  Returns tau (rows, 1), eps, p_codes (rows,)."""
+    from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
+
+    below = torch.where(mag < s_tau, mag, 0.0).amax(dim=-1, keepdim=True)
+    quant = fit_quantizer(torch.minimum(re.amin(dim=-1), im.amin(dim=-1)),
+                          torch.maximum(re.amax(dim=-1), im.amax(dim=-1)),
+                          RangeQuantConfig(8, 3))
+    return 0.5 * (s_tau + below), quant.eps, quant.p_codes
+
+
+def kernel_phase(rows: int, dev) -> list:
+    """Each kernel against its plain version at ``rows`` rows."""
+    from repro_torch.core import selection, sparsify
+    from repro_torch.kernels import (fused_compress, fused_decompress, sampled_threshold,
+                                     topk_threshold)
+
+    chunk, cols = 4096, 2049
+    k = sparsify.keep_count(cols, KEEP_THETA)
+    re, im, w, mag, n_zero = spectrum(rows, chunk, dev)
+    log(f"[kernels] rows={rows}, of which {n_zero} all-zero padding rows")
     results = []
 
     # B1
@@ -230,15 +275,9 @@ def kernel_phase(rows: int, dev) -> list:
         library_ms=time_ms(lambda: torch.topk(mag, k, dim=-1).values[:, -1], 2),
         bound_ms=b_ms, bound_by=b_by))
 
-    # B2: the engine's mid-gap tau and per-row quantizer params (the engine
-    # repeats one fit per bucket over its rows; here each row has its own)
-    below = torch.where(mag < s_tau_k, mag, 0.0).amax(dim=-1, keepdim=True)
-    tau = 0.5 * (s_tau_k + below)
+    # B2: the engine's mid-gap tau, a quantizer fit per row
+    tau, eps_rows, p_rows = compress_params(mag, re, im, s_tau_k)
     del mag
-    quant = fit_quantizer(torch.minimum(re.amin(dim=-1), im.amin(dim=-1)),
-                          torch.maximum(re.amax(dim=-1), im.amax(dim=-1)),
-                          RangeQuantConfig(8, 3))
-    eps_rows, p_rows = quant.eps, quant.p_codes
     out_k = fused_compress.fused_compress(re, im, w, eps_rows, p_rows, tau, k_keep=k)
     out_p = fused_compress.fused_compress_plain(re, im, w, eps_rows, p_rows, tau, k_keep=k)
     torch.cuda.synchronize()
@@ -297,6 +336,37 @@ def kernel_phase(rows: int, dev) -> list:
     for r in results:
         log_result(r)
     return results
+
+
+def chunk2048_phase(rows: int, dev) -> None:
+    """B4 and B2 at the ``chunk=2048`` route's width, 1025 bins (k = 308,
+    k_pad = 384), where each runs code of its own (B2's stretches of 128
+    columns with column 1024 on warp 7's last lane, B4's instantiation for
+    33 values a lane), against their plain versions, bitwise, at that
+    route's ``rows`` with its layout's padding rows all zero."""
+    from repro_torch.core import selection, sparsify
+    from repro_torch.kernels import fused_compress, sampled_threshold
+
+    chunk = 2048
+    cols = chunk // 2 + 1
+    k = sparsify.keep_count(cols, KEEP_THETA)
+    re, im, w, mag, n_zero = spectrum(rows, chunk, dev, seed=5)
+    log(f"[chunk 2048] rows={rows} of {cols} bins, of which {n_zero} all-zero padding "
+        f"rows; k={k}")
+    lo, hi = selection.sample_bracket(selection.strided_sample(mag), k, cols)
+    s_tau, s_cnt = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
+    check_bitwise(f"B4 sampled_threshold, {cols} columns",
+                  zip((s_tau, s_cnt), sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)))
+    b4_ms = time_ms(lambda: sampled_threshold.sampled_threshold(mag, lo, hi, k=k), 5)
+    tau, eps, p_codes = compress_params(mag, re, im, s_tau)
+    del mag, lo, hi
+    got = fused_compress.fused_compress(re, im, w, eps, p_codes, tau, k_keep=k)
+    want = fused_compress.fused_compress_plain(re, im, w, eps, p_codes, tau, k_keep=k)
+    check_bitwise(f"B2 fused_compress, {cols} columns", zip(got[:3], want[:3]))
+    del got, want
+    b2_ms = time_ms(lambda: fused_compress.fused_compress(re, im, w, eps, p_codes, tau,
+                                                          k_keep=k), 5)
+    log(f"[chunk 2048] kernel_ms at {cols} columns: B4 {b4_ms:.3f}, B2 {b2_ms:.3f}")
 
 
 def standalone_phase(rows: int, dev) -> list:
@@ -665,10 +735,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {source}] {line.strip()}")
-    check_fft_ptxas(ptxas)
+    check_ptxas(ptxas)
 
     rows = args.rows or main_path_rows()
     results = kernel_phase(rows, dev)
+    torch.cuda.empty_cache()
+    chunk2048_phase(args.rows or main_path_rows(2048), dev)
     torch.cuda.empty_cache()
     results += standalone_phase(rows, dev)
     torch.cuda.empty_cache()

@@ -1,10 +1,10 @@
-// Value-axis bisection of one row held in registers: the device routine
-// shared by the threshold kernels (topk_threshold.cu, sampled_threshold.cu).
+// Value-axis bisection of one row held in registers: the device routine of
+// the full-range threshold kernel (topk_threshold.cu).
 //
 // Each sweep is one block-wide count of ``mag >= mid``; every thread then
 // updates lo/hi the same way, so the block agrees on the bracket without a
 // broadcast.  The arithmetic is the reference's, op for op
-// (repro/core/selection.py: upper_bracket, bisect_bracket, refine_bracket):
+// (repro/core/selection.py: upper_bracket, bisect_bracket):
 // ``mid = 0.5 * (lo + hi)`` in round-to-nearest, no contraction, so the
 // result is bitwise equal to the plain PyTorch version on the same input.
 #pragma once
@@ -65,18 +65,6 @@ __device__ __forceinline__ float bisect_tau(const float (&v)[ITEMS], int k, int 
                                             int* iscratch, float* fscratch) {
   const float hi = upper_bracket(row_max<ITEMS>(v, fscratch));
   return bisect_bracket<ITEMS>(v, 0.0f, hi, k, iters, iscratch);
-}
-
-// Clamp an estimated (lo, hi) so the invariant holds on the full row, then
-// bisect ``iters`` sweeps.
-template <int ITEMS>
-__device__ __forceinline__ float refine_bracket(const float (&v)[ITEMS], float lo, float hi,
-                                                int k, int iters, int* iscratch,
-                                                float* fscratch) {
-  lo = count_ge<ITEMS>(v, lo, iscratch) >= k ? lo : 0.0f;
-  const float hi_fallback = upper_bracket(row_max<ITEMS>(v, fscratch));
-  hi = count_ge<ITEMS>(v, hi, iscratch) < k ? hi : hi_fallback;
-  return bisect_bracket<ITEMS>(v, lo, hi, k, iters, iscratch);
 }
 
 }  // namespace repro

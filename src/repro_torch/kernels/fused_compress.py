@@ -57,9 +57,10 @@ def fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
     codes = []
     for plane in (re2d, im2d):
         c = encode_math(plane[r_i, c_i], eps_r[r_i, 0], p_r[r_i, 0], n_neg_r[r_i, 0], m_scale)
-        out = torch.zeros((rows, k), dtype=out_dtype, device=re2d.device)
-        out[r_i, slot] = c.to(out_dtype)
-        codes.append(out)
+        # index_put has no uint16 kernel: scatter the converted codes as int32
+        out = torch.zeros((rows, k), dtype=torch.int32, device=re2d.device)
+        out[r_i, slot] = c.to(out_dtype).to(torch.int32)
+        codes.append(out.to(out_dtype))
     idx = torch.zeros((rows, k), dtype=torch.int32, device=re2d.device)
     idx[r_i, slot] = c_i.to(torch.int32)
     return codes[0], codes[1], idx, tau

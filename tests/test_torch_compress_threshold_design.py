@@ -1,0 +1,342 @@
+"""The per-row algorithms of kernels B2 (``csrc/fused_compress.cu``) and B4
+(``csrc/sampled_threshold.cu``), transcribed into numpy and walked on the
+CPU, where no CUDA kernel runs.  Each walk is held bitwise to the plain
+PyTorch version that the kernel's wrapper runs on a CPU tensor, and that the
+kernel is held to on the card.
+
+B2, one CTA of 256 threads (8 warps of 32 lanes) per row:
+
+* phase 1: warp w owns the contiguous columns [w*S, (w+1)*S), S = 32*J,
+  J = cols // 256; lane l holds w*S + 32j + l for j < J.  The tail
+  [8*S, cols) belongs to warp 7, in rounds of 32.  A ballot per item counts
+  the warp's kept bins; a bit per item and lane marks the kept ones;
+* phase 2: an exclusive scan of the 8 warp counts gives each warp its base;
+  the warp walks its items again, a ballot per item ranking each kept bin
+  after the warp's kept bins at lower columns; a kept bin with slot < k_pad
+  goes to shared memory at its slot (the tail after the warp's main items);
+* phase 3: thread t takes the groups of 4 slots g = t, t + 256, ...; slots
+  under min(count, k_pad) are encoded, the rest get code 0 at index 0.
+
+B4, one warp per row: lane l holds the columns l + 32j, j < N (N =
+ceil(cols/32) when that is 8g + 1, else rounded up to a multiple of 8;
+-inf past the row).  One pass counts >= lo and >= hi (packed into one
+integer for one warp sum) and takes the maximum (a NaN of the row, bits and
+all, if there is one); the clamp, then 16 sweeps of mid = 0.5 * (lo + hi)
+in float32, carrying count(>= lo) so the final count needs no pass.  After
+5 sweeps each lane keeps its values in [lo, hi) (at most 8, else the row
+goes on sweeping in full), and the last 11 sweeps count them alone, plus
+count(>= hi).
+
+``csrc/fused_compress.cu`` and ``csrc/sampled_threshold.cu`` name this
+file: they change together.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import selection
+from repro_torch.core import sparsify
+from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
+from repro_torch.kernels import _checks
+from repro_torch.kernels import fused_compress as tfc
+from repro_torch.kernels import sampled_threshold as tst
+from repro_torch.kernels.range_quant import encode_math
+
+WARPS, LANES = 8, 32
+THREADS = WARPS * LANES
+GROUP = 4  # slots a B2 thread encodes and stores at once
+LANE = np.arange(LANES)
+WIDTHS = [2049, 1025, 513, 512, 300, 100]  # main path, chunk 2048, tests, odd tails
+
+
+# ---------------------------------------------------------------- B2
+
+
+def b2_load_map(cols):
+    """Phase 1's loads: a list of (warp, column array of one warp
+    instruction); the tail's rounds (warp 7) last."""
+    j_items = cols // THREADS
+    stretch = LANES * j_items
+    loads = [(w, w * stretch + LANES * j + LANE) for w in range(WARPS) for j in range(j_items)]
+    loads += [(WARPS - 1, t + LANE) for t in range(WARPS * stretch, cols, LANES)]
+    return loads
+
+
+def b2_walk(keep, k_pad):
+    """One row's phases 1-3 as the kernel runs them: (idx (k_pad,) int32,
+    filled, the slots each phase-2 warp instruction writes)."""
+    cols = keep.size
+    j_items = cols // THREADS
+    stretch = LANES * j_items
+    below = np.tril(np.ones((LANES, LANES), bool), -1)  # below[l, m]: m < l
+
+    def ballot(cs):
+        return (cs < cols) & keep[np.minimum(cs, cols - 1)]
+
+    # phase 1: keep bits per lane and item, the warp's count
+    keep_bits = np.zeros((WARPS, LANES), np.int64)
+    kept = np.zeros(WARPS, np.int64)
+    for w in range(WARPS):
+        for j in range(j_items):
+            b = ballot(w * stretch + LANES * j + LANE)
+            keep_bits[w] |= b.astype(np.int64) << j
+            kept[w] += b.sum()
+    tail_rounds = list(range(WARPS * stretch, cols, LANES))
+    for t in tail_rounds:
+        kept[WARPS - 1] += ballot(t + LANE).sum()
+    # phase 2: scan of the warp counts; each warp walks its items again
+    base = np.concatenate([[0], np.cumsum(kept)[:-1]])
+    total = int(kept.sum())
+    s_col = np.full(k_pad, -1, np.int64)
+    writes = []
+    slot0 = base.copy()
+    for w in range(WARPS):
+        for j in range(j_items):
+            b = ((keep_bits[w] >> j) & 1).astype(bool)
+            slot = slot0[w] + (below & b[None, :]).sum(axis=1)
+            ok = b & (slot < k_pad)
+            s_col[slot[ok]] = (w * stretch + LANES * j + LANE)[ok]
+            writes.append(slot[ok])
+            slot0[w] += b.sum()
+    slot0 = slot0[WARPS - 1]
+    for t in tail_rounds:
+        if slot0 >= k_pad:
+            break
+        cs = t + LANE
+        b = ballot(cs)
+        slot = slot0 + (below & b[None, :]).sum(axis=1)
+        ok = b & (slot < k_pad)
+        s_col[slot[ok]] = cs[ok]
+        writes.append(slot[ok])
+        slot0 += b.sum()
+    # phase 3
+    filled = min(total, k_pad)
+    idx = np.zeros(k_pad, np.int32)
+    for g in range(k_pad // GROUP):
+        s0 = g * GROUP
+        if s0 < filled:
+            for u in range(GROUP):
+                if s0 + u < filled:
+                    idx[s0 + u] = s_col[s0 + u]
+    return idx, filled, writes
+
+
+def _planes(rows, cols, kind, seed):
+    """(re, im, w, tau, k_keep) of ``rows`` rows of one kind, float32."""
+    rng = np.random.default_rng(seed)
+    re, im = (rng.standard_normal((2, rows, cols)) * 0.05).astype(np.float32)
+    w = np.full(cols, 2.0, np.float32)
+    w[0] = w[-1] = 1.0
+    k = sparsify.keep_count(cols, 0.7)
+    if kind == "ties":  # magnitudes on a coarse grid: many bins tie with tau
+        re = np.round(re * 40).astype(np.float32) / np.float32(40)
+        im = np.zeros_like(im)
+    if kind == "zero":  # the stacked layout's padding rows
+        re[:], im[:] = 0.0, 0.0
+    mag = (np.sqrt(re * re + im * im) * w).astype(np.float32)
+    if kind in ("zero", "over"):  # tau 0: every bin kept, cut at k_pad
+        tau = np.zeros(rows, np.float32)
+    elif kind == "few":  # 3 kept: most groups are the zero tail
+        tau = -np.sort(-mag, axis=1)[:, 2]
+    else:
+        tau = -np.sort(-mag, axis=1)[:, k - 1]
+    return re, im, w, tau.astype(np.float32), k
+
+
+@pytest.mark.parametrize("cols", WIDTHS + [4096, 255, 1])
+def test_b2_column_map_is_a_partition_in_ascending_warp_stretches(cols):
+    """Every column is loaded once; each warp instruction reads 32
+    consecutive columns (one coalesced span, clipped at the row's end in the
+    tail); a warp's columns lie above every column of the warps before it,
+    so the scan of warp counts gives index-ascending slots."""
+    loads = b2_load_map(cols)
+    seen = np.concatenate([c[c < cols] for _, c in loads])
+    np.testing.assert_array_equal(np.sort(seen), np.arange(cols))
+    for _, c in loads:
+        assert np.all(np.diff(c) == 1)
+    top = -1
+    for w in range(WARPS):
+        cs = np.concatenate([c[c < cols] for ww, c in loads if ww == w] or [np.zeros(0, int)])
+        if cs.size:
+            assert cs.min() > top
+            top = cs.max()
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "over", "few", "ties"])
+@pytest.mark.parametrize("cols", WIDTHS)
+def test_b2_walk_equals_plain_cumsum_slots_and_codes(cols, kind):
+    """The walk's slot -> column map, kept count and codes equal the plain
+    version's (cumsum slots, truncation at k_pad, code 0 at index 0 past the
+    count) bitwise; every phase-2 warp instruction writes distinct banks."""
+    rows = 3
+    re, im, w, tau, k = _planes(rows, cols, kind, seed=cols + len(kind))
+    k_pad = tfc.pad_k(k)
+    q = fit_quantizer(torch.tensor(float(min(re.min(), im.min(), -1e-3))),
+                      torch.tensor(float(max(re.max(), im.max(), 1e-3))), RangeQuantConfig(8, 3))
+    t = [torch.from_numpy(a) for a in (re, im, w, tau)]
+    p_re, p_im, p_idx, _ = tfc.fused_compress_plain(*t[:3], q.eps, q.p_codes, t[3], k_keep=k)
+    eps, p, n_neg = _checks.encode_row_params(q.eps, q.p_codes, 8, 1, "cpu")
+    mag = (np.sqrt(re * re + im * im) * w).astype(np.float32)
+    for r in range(rows):
+        keep = mag[r] >= tau[r]
+        idx, filled, writes = b2_walk(keep, k_pad)
+        np.testing.assert_array_equal(idx, p_idx[r].numpy())
+        assert filled == min(int(keep.sum()), k_pad)
+        for plane, want in ((re, p_re), (im, p_im)):
+            vals = torch.from_numpy(plane[r][idx[:filled]])
+            codes = encode_math(vals, eps, p, n_neg, 8.0).to(torch.uint8)
+            np.testing.assert_array_equal(codes.numpy(), want[r, :filled].numpy())
+            assert not want[r, filled:].any()
+        for slots in writes:
+            assert len(set(slots % 32)) == len(slots)
+        if kind in ("zero", "over"):
+            np.testing.assert_array_equal(idx[:filled], np.arange(filled))
+
+
+# ---------------------------------------------------------------- B4
+
+
+FULL_SWEEPS, CAND_REGS = 5, 8  # B4's sweeps over the row, candidates a lane keeps
+FLT_MAX = np.float32(np.finfo(np.float32).max)
+MAX_BRACKET = FLT_MAX / np.float32(4)
+
+
+def b4_items(cols):
+    """Items per lane N of the kernel's dispatch."""
+    items = -(-cols // LANES)
+    return items if items % 8 == 1 else -(-items // 8) * 8
+
+
+def _upper_bracket(x):
+    """The kernel's upper_bracket: bits + 1, clamped to FLT_MAX unless NaN."""
+    up = np.array([x], np.float32).view(np.uint32) + np.uint32(1)
+    up = up.view(np.float32)[0]
+    return up if np.isnan(up) else np.float32(min(up, FLT_MAX))
+
+
+def b4_walk(row, lo0, hi0, k, iters):
+    """One row as the warp runs it: (tau float32, count, whether the last
+    sweeps ran over the candidates alone)."""
+    cols = row.size
+    n = b4_items(cols)
+    col = LANES * np.arange(n)[None, :] + LANE[:, None]  # (lane, item)
+    v = np.where(col < cols, row[np.minimum(col, cols - 1)], np.float32(-np.inf))
+    v = v.astype(np.float32)
+    per_lane = (v >= lo0).sum(axis=1) | ((v >= hi0).sum(axis=1) << 16)
+    both = int(per_lane.sum())
+    c_lo, c_hi = both & 0xFFFF, both >> 16
+    m = np.float32(np.fmax.reduce(v.ravel()))
+    nan_lanes = np.flatnonzero(np.isnan(v).any(axis=1))
+    if nan_lanes.size:  # the first such lane's last NaN, bits and all
+        lane_v = v[nan_lanes[0]]
+        m = lane_v[np.flatnonzero(np.isnan(lane_v))[-1]]
+
+    def count(t):
+        parts = [int((v[:, j::4] >= t).sum()) for j in range(4)]  # 4 accumulators
+        return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+    lo, hi, lo_count, hi_count, hi_known = np.float32(lo0), np.float32(hi0), c_lo, c_hi, True
+    if c_lo < k:
+        lo, lo_count = np.float32(0.0), count(np.float32(0.0))
+    if c_hi >= k:
+        hi, hi_count, hi_known = _upper_bracket(m), 0, bool(m < FLT_MAX)
+    half = np.float32(0.5)
+    cand = None  # None: sweep the full row
+    with np.errstate(invalid="ignore"):  # a NaN hi makes every mid NaN
+        for it in range(iters):
+            if (it == FULL_SWEEPS and hi_known and lo <= hi and abs(lo) <= MAX_BRACKET
+                    and abs(hi) <= MAX_BRACKET):
+                inside = (v >= lo) & (v < hi)  # (lane, item)
+                if inside.sum(axis=1).max() <= CAND_REGS:  # every lane's fit its registers
+                    cand = v[inside]
+            mid = np.float32(half * np.float32(lo + hi))
+            if cand is not None:
+                c = hi_count + int((cand >= mid).sum())
+                assert c == count(mid)  # the identity the kernel relies on
+            else:
+                c = count(mid)
+            if c >= k:
+                lo, lo_count = mid, c
+            else:
+                hi = mid
+                if cand is None:
+                    hi_count, hi_known = c, True
+    return lo, lo_count, cand is not None
+
+
+def _b4_case(cols, kind, seed):
+    """(mag, lo, hi, k) for ``kind`` rows: the sampled bracket of the
+    selector, or an estimate that breaks one side of the invariant."""
+    rng = np.random.default_rng(seed)
+    rows = 4
+    mag = np.abs(rng.standard_normal((rows, cols))).astype(np.float32)
+    k = sparsify.keep_count(cols, 0.7)
+    if kind == "zero":
+        mag[:] = 0.0
+    elif kind == "sparse":  # fewer than k nonzeros: no sweep is feasible
+        mag[:, 10:] = 0.0
+    elif kind == "ties":  # a handful of values: the k-th is tied many times
+        mag = np.floor(mag * 3).astype(np.float32)
+    elif kind == "nan":  # NaN counts as not >=; NaN maximum on a fallback row
+        mag[:, 5] = np.nan
+        mag[1, cols // 2] = np.nan
+    elif kind == "inf":
+        mag[:, cols - 1] = np.inf
+    t = torch.from_numpy(mag)
+    lo, hi = (x.numpy().copy() for x in
+              selection.sample_bracket(selection.strided_sample(t), k, cols))
+    if kind in ("lo_high", "sparse"):  # count(>= lo) < k: lo falls back to 0
+        lo[:] = mag.max(axis=1)
+    elif kind in ("hi_low", "nan", "inf"):  # count(>= hi) >= k: hi falls back
+        hi[:] = 0.0
+    return mag, lo.astype(np.float32), hi.astype(np.float32), k
+
+
+@pytest.mark.parametrize("kind", ["sampled", "lo_high", "hi_low", "zero", "sparse", "ties", "nan",
+                                  "inf"])
+@pytest.mark.parametrize("cols", [2049, 1025, 513, 512, 100])
+def test_b4_walk_equals_refine_bracket_and_count(cols, kind):
+    """Tau and count of the warp walk equal ``sampled_threshold_plain``
+    (``selection.refine_bracket`` + one count) bitwise, fallbacks, denormal
+    bracket of the zero rows, a row where no sweep is feasible (its count is
+    the fallback's count(>= 0)), ties, NaN and +inf included."""
+    mag, lo, hi, k = _b4_case(cols, kind, seed=cols + len(kind))
+    want_tau, want_cnt = tst.sampled_threshold_plain(
+        torch.from_numpy(mag), torch.from_numpy(lo), torch.from_numpy(hi), k=k)
+    for r in range(mag.shape[0]):
+        tau, cnt, _ = b4_walk(mag[r], lo[r], hi[r], k, selection.DEFAULT_REFINE_ITERS)
+        assert np.array([tau], np.float32).view(np.uint32) == \
+            want_tau[r].numpy().view(np.uint32), (r, tau, want_tau[r])
+        assert cnt == int(want_cnt[r])
+
+
+@pytest.mark.parametrize("cols", [2049, 1025])
+def test_b4_walk_sweeps_candidates_on_spectrum_rows_and_the_row_on_zero_rows(cols):
+    """On rfft magnitude rows (the main path's data) the 11 last sweeps run
+    over at most CAND_REGS candidates a lane; an all-zero row has every value
+    in its bracket [0, 2**-149) and sweeps the full row."""
+    rng = np.random.default_rng(cols)
+    chunk = 2 * (cols - 1)
+    z = np.fft.rfft(rng.standard_normal((16, chunk)) * 1e-3, axis=-1)
+    w = np.full(cols, 2.0, np.float32)
+    w[0] = w[-1] = 1.0
+    mag = (np.abs(z).astype(np.float32) * w).astype(np.float32)
+    mag[-1] = 0.0
+    k = sparsify.keep_count(cols, 0.7)
+    lo, hi = (x.numpy() for x in
+              selection.sample_bracket(selection.strided_sample(torch.from_numpy(mag)), k, cols))
+    dense = [b4_walk(mag[r], lo[r], hi[r], k, selection.DEFAULT_REFINE_ITERS)[2]
+             for r in range(mag.shape[0])]
+    assert dense == [True] * 15 + [False]
+
+
+def test_b4_items_cover_every_width_with_one_dispatch_entry():
+    """N covers the row, wastes at most 7 items a lane, is exact at the
+    main path's widths, and takes 32 values in all (the kernel's cases)."""
+    ns = {b4_items(c) for c in range(1, 4097)}
+    assert len(ns) == 32
+    for cols in range(1, 4097):
+        n = b4_items(cols)
+        assert LANES * n >= cols and n - -(-cols // LANES) <= 7
+    assert [b4_items(c) for c in (2049, 1025, 513)] == [65, 33, 17]

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.core import fft as cfft
-from repro_torch.core import selection
+from repro_torch.core import selection, sparsify
 from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
 from repro_torch.kernels import (fft4step, fused_compress, fused_decompress, pack,
                                  range_quant, sampled_threshold, topk_threshold)
@@ -24,9 +24,13 @@ K = 615
 
 
 @pytest.fixture
-def planes():
+def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+
+
+@pytest.fixture
+def planes(card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((96, 4096), generator=gen, device="cuda") * 1e-2
     z = torch.fft.rfft(x, dim=-1)
@@ -214,3 +218,91 @@ def test_auto_compress_on_the_card_runs_the_kernels(planes, kw, kernel):
     want = cuda.compress(x)
     for a, b in ((got.re, want.re), (got.im, want.im), (got.idx, want.idx)):
         assert torch.equal(a, b)
+
+
+def _compress_rows(cols, k_keep, seed, rows=37):
+    """(re, im, w, tau) in numpy: random spectrum rows at the k_keep-th
+    magnitude, row 0 all zero (tau 0: every bin kept, cut at k_pad), row 1
+    with tau 0 (all 'cols' bins kept), row 2 with tau above its maximum."""
+    rng = np.random.default_rng(seed)
+    re, im = (rng.standard_normal((2, rows, cols)) * 0.05).astype(np.float32)
+    re[0], im[0] = 0.0, 0.0
+    w = np.full(cols, 2.0, np.float32)
+    w[0] = w[-1] = 1.0
+    mag = (np.sqrt(re * re + im * im) * w).astype(np.float32)
+    tau = -np.sort(-mag, axis=1)[:, k_keep - 1]
+    tau[:2] = 0.0
+    tau[2] = np.float32(2.0) * mag[2].max()
+    return re, im, w, tau.astype(np.float32)
+
+
+@pytest.mark.parametrize("quant", ["u8-scalar", "u16-per-row"])
+@pytest.mark.parametrize("k_keep", [127, 128, 129, 0])
+@pytest.mark.parametrize("cols", [2049, 1025, 513])
+def test_fused_compress_kernel_edge_rows(card, cols, k_keep, quant):
+    """B2 against its plain version, bitwise, around the 128-slot tile
+    (k_keep 127, 128, 129, and 0 for the 70% drop's keep count), at the
+    main path's widths and 513, with an all-zero row, a row keeping every
+    bin and a row keeping none; 8-bit codes with one fit, 16-bit codes
+    (n_bits 12, m_bits 7) with one fit per row."""
+    k_keep = k_keep or sparsify.keep_count(cols, 0.7)
+    n_bits, m_bits = (8, 3) if quant == "u8-scalar" else (12, 7)
+    re, im, w, tau = (torch.from_numpy(a).cuda() for a in _compress_rows(cols, k_keep, cols))
+    if quant == "u8-scalar":
+        q = fit_quantizer(torch.minimum(re.min(), im.min()), torch.maximum(re.max(), im.max()),
+                          RangeQuantConfig(n_bits, m_bits))
+    else:
+        q = fit_quantizer(torch.minimum(re.amin(-1), im.amin(-1)),
+                          torch.maximum(re.amax(-1), im.amax(-1)), RangeQuantConfig(n_bits, m_bits))
+    kw = dict(k_keep=k_keep, n_bits=n_bits, m_bits=m_bits)
+    got = fused_compress.fused_compress(re, im, w, q.eps, q.p_codes, tau, **kw)
+    want = fused_compress.fused_compress_plain(re, im, w, q.eps, q.p_codes, tau, **kw)
+    assert got[0].shape == (re.shape[0], fused_compress.pad_k(k_keep))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    k_pad = fused_compress.pad_k(k_keep)
+    expect = torch.arange(k_pad, dtype=torch.int32)
+    expect[cols:] = 0
+    assert torch.equal(got[2][0].cpu(), expect)  # the zero row: the first columns
+    assert not got[2][2].any() and not got[0][2].int().any()  # nothing kept (no uint16 any)
+
+
+def _bracket_rows(cols, kind, seed, rows=37):
+    """(mag, lo, hi, k) in numpy: the sampled selector's bracket, or one side
+    of it broken so the kernel's clamp falls back."""
+    rng = np.random.default_rng(seed)
+    mag = np.abs(rng.standard_normal((rows, cols))).astype(np.float32)
+    k = sparsify.keep_count(cols, 0.7)
+    if kind == "zero":
+        mag[:] = 0.0
+    elif kind == "ties":
+        mag = np.floor(mag * 3).astype(np.float32)
+    elif kind == "nan":
+        mag[:, 5] = np.nan
+    elif kind == "inf":
+        mag[:, cols - 1] = np.inf
+    t = torch.from_numpy(mag)
+    lo, hi = (x.numpy().copy() for x in
+              selection.sample_bracket(selection.strided_sample(t), k, cols))
+    if kind == "lo_high":  # count(>= lo) < k: lo falls back to 0
+        lo[:] = mag.max(axis=1)
+    elif kind in ("hi_low", "nan", "inf"):  # count(>= hi) >= k: nextafter(max)
+        hi[:] = 0.0
+        hi[::2] = np.float32(0.5)  # and rows that keep their hi
+    return mag, lo.astype(np.float32), hi.astype(np.float32), k
+
+
+@pytest.mark.parametrize("kind", ["sampled", "lo_high", "hi_low", "zero", "ties", "nan", "inf"])
+@pytest.mark.parametrize("cols", [2049, 1025])
+def test_sampled_threshold_kernel_edge_rows(card, cols, kind):
+    """B4 against its plain version, bitwise: estimates whose lo is too high
+    (falls back to 0) or whose hi is too low (falls back to nextafter(max)),
+    all-zero rows (the denormal bracket [0, 2**-149]), tied magnitudes, and
+    rows holding a NaN or +inf; 37 rows, not a multiple of the kernel's 4
+    rows per CTA."""
+    mag, lo, hi, k = _bracket_rows(cols, kind, cols + len(kind))
+    mag, lo, hi = (torch.from_numpy(a).cuda() for a in (mag, lo, hi))
+    got = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
+    want = sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))

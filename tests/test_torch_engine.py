@@ -118,6 +118,13 @@ def test_compress_stacked_parity_4bit(xla_rfft):
     _assert_payload_parity(jp, tp)
 
 
+def test_compress_stacked_parity_12bit(xla_rfft):
+    """uint16 codes through the fused route (B2's plain version on the CPU)."""
+    _, _, jp, tp = _compress_both("cuda", "pallas", "sampled", n_bits=12, seed=4, m_bits=7)
+    assert tp.re.dtype == torch.uint16
+    _assert_payload_parity(jp, tp)
+
+
 @pytest.mark.parametrize("port,ref", [("reference", "reference"), ("cuda", "pallas")])
 def test_decompress_stacked_parity(port, ref):
     """Both sides decompress the SAME (reference-made) payload."""

@@ -98,9 +98,10 @@ def test_fused_compress_plain_vs_pallas_at_tile_boundary(k_keep):
     assert not np.any(t[0].numpy()[:, k_keep:]) and not np.any(t[2].numpy()[:, k_keep:])
 
 
-@pytest.mark.parametrize("n_bits,m_bits", [(8, 3), (4, 2)])
+@pytest.mark.parametrize("n_bits,m_bits", [(8, 3), (4, 2), (12, 7)])
 def test_fused_compress_plain_vs_pallas_per_row_params(n_bits, m_bits):
-    """The engine's call: given mid-gap tau, one fit per row, 2049 bins."""
+    """The engine's call: given mid-gap tau, one fit per row, 2049 bins;
+    12 bits give uint16 codes."""
     rows, k = 8, 615
     re, im = _spectrum(rows, 4096, n_bits)
     w = _np(jfft.hermitian_weights(4096))

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -38,48 +37,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from kernel_trees import build_all, time_ms
+
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "fft_core_bench"
 KEEP_K = 615
-
-
-def build_all(trees):
-    """One nvcc per (tree, source), all at once; returns {name: {source: CDLL}}."""
-    from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
-
-    jobs = []
-    for name, src in trees.items():
-        (OUT / name).mkdir(parents=True, exist_ok=True)
-        for source in ("fft4096.cu", "fused_decompress.cu"):
-            target = OUT / name / source.replace(".cu", ".so")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(target), str(Path(src) / source)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                    text=True)
-            jobs.append((name, source, target, proc))
-    libs = {}
-    for name, source, target, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode:
-            print(out)
-            raise SystemExit(f"{name}/{source}: nvcc failed")
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}/{source}] {line.strip()}")
-        libs.setdefault(name, {})[source] = ctypes.CDLL(str(target))
-    return libs
-
-
-def time_ms(fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def radix2_twiddles(dev):
@@ -104,7 +66,7 @@ def main() -> int:
     trees = dict(t.split("=", 1) for t in args.trees)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    libs = build_all(trees)
+    libs = build_all(trees, ("fft4096.cu", "fused_decompress.cu"), OUT)
     dev = torch.device("cuda", 0)
     rows = args.rows
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
