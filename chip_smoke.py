@@ -6,12 +6,13 @@ Phases (any failure exits nonzero; the last line is printed only on success):
 
 1. the card's name and power limit; build every kernel from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once); B7,
-   B3, B2 and B4 must build without spills and within the registers of the
-   CTAs per SM that PTXAS_LIMITS names;
+   B3, B2, B4, B1 and B6 must build without spills and within the registers
+   of the CTAs per SM that PTXAS_LIMITS names;
 2. each kernel (B1..B7) on the card at the main path's shapes -- the rows
    that gemma2_2b at full width and 4 layers gives the 64 MB bucketed
-   exchange, the layout's all-zero padding rows among them -- against its
-   plain PyTorch version on the same inputs, with
+   exchange, the layout's all-zero padding rows among them, and for B1 also
+   rows holding a NaN or +inf -- against its plain PyTorch version on the
+   same inputs, with
    its time, the plain version's time, the library yardstick's time where
    one PyTorch call computes the same function, and the bound; B7's inverse
    time, and for B3, which no single call computes, cuFFT's irfft of the
@@ -85,7 +86,16 @@ B3_FFT_LIBRARY = "transform only: torch.fft.irfft of the (rows, 2049) spectrum"
 # CTAs an SM's 65,536 registers must hold) for the kernel with the most
 # registers in the source; none may spill
 PTXAS_LIMITS = {"fft4096.cu": (256, 3), "fused_decompress.cu": (256, 3),
-                "fused_compress.cu": (256, 3), "sampled_threshold.cu": (128, 3)}
+                "fused_compress.cu": (256, 3), "sampled_threshold.cu": (128, 3),
+                "topk_threshold.cu": (128, 3), "pack.cu": (256, 4)}
+# B1's bound prices the passes over the whole row that no design avoids:
+# the maximum and count(>= 0), then the sweeps until the bracket's values fit
+# the candidate registers (6 on spectrum rows by the numpy walk of
+# tests/test_torch_compress_threshold_design.py, which compacts from sweep
+# 7.3 on average); the later sweeps touch a handful of candidates a row
+B1_ROW_PASSES = 1 + 6
+# rows of the kernel phase's data that B1 also runs with a NaN or +inf put in
+B1_EDGE_ROWS = 384
 
 
 # each training phase's mean steady step (ms, steps after the first) and the
@@ -246,7 +256,21 @@ def kernel_phase(rows: int, dev) -> list:
     log(f"[B1 topk_threshold] rows={rows} tau/count mismatches={mism} (tolerance 0: bitwise)")
     if mism:
         raise AssertionError(f"B1 disagrees with its plain version on {mism} values")
-    b_ms, b_by = bound(rows * cols * 4 + rows * 8, rows * cols * (selection.BISECT_ITERS + 2))
+    # rows holding a NaN, a +inf (the rest scaled up to 1e29, where a finite
+    # bracket would not come down to 0) or both: the plain version's
+    # bracket is NaN, so tau is 0
+    edge = mag[:B1_EDGE_ROWS].clone()
+    edge[0::3, 7] = float("nan")
+    edge[1::3] *= 1e30
+    edge[1::3, cols - 1] = float("inf")
+    edge[2::3, 0] = float("inf")
+    edge[2::3, cols // 2] = float("nan")
+    got = topk_threshold.threshold(edge, k=k)
+    check_bitwise(f"B1 topk_threshold, {edge.shape[0]} rows holding a NaN or +inf",
+                  ((a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, topk_threshold.threshold_plain(edge, k))))
+    del edge, got
+    b_ms, b_by = bound(rows * cols * 4 + rows * 8, rows * cols * B1_ROW_PASSES)
     results.append(dict(
         kernel=topk_threshold.KERNEL, max_abs_err=err,
         ms=time_ms(lambda: topk_threshold.threshold(mag, k=k), 5),

@@ -32,36 +32,12 @@
 // torch.amax and upper_bracket give it -- so tau and count are bitwise
 // equal to it.  tests/test_torch_compress_threshold_design.py walks this
 // routine in numpy; the two change together.
-#include "common.cuh"
+#include "threshold.cuh"
 
 namespace repro {
 
-constexpr int kRowsPerCta = 4;  // one warp per row
 constexpr int kFullSweeps = 5;  // sweeps over the whole row before the compaction
 constexpr int kCandRegs = 8;    // candidates a lane holds after it
-constexpr float kMaxBracket = FLT_MAX / 4;  // brackets within it: lo + hi is finite
-
-// count(v >= t) over the warp's row; every lane receives it.  Four
-// accumulators keep the compare-and-add chains short.
-template <int N>
-__device__ __forceinline__ int warp_count_ge(const float (&v)[N], float t) {
-  int c[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int j = 0; j < N; ++j) c[j & 3] += v[j] >= t ? 1 : 0;
-  return __reduce_add_sync(kFullMask, (c[0] + c[1]) + (c[2] + c[3]));
-}
-
-// The plain version's upper_bracket: the float above x (bit pattern + 1),
-// clamped to FLT_MAX; a NaN result (x +inf or NaN) stays NaN, as
-// torch.clamp_max keeps it.  (threshold.cuh's, which B1 uses, clamps it.)
-__device__ __forceinline__ float upper_bracket(float x) {
-  const float up = __uint_as_float(__float_as_uint(x) + 1u);
-  return up != up ? up : fminf(up, FLT_MAX);
-}
-
-// CTAs per SM stated to ptxas: the registers a lane's N values and about 31
-// more need.  Left to itself, ptxas picks fewer for some N and spills.
-constexpr int min_ctas(int n) { return 65536 / (32 * kRowsPerCta) / ((n + 31 + 7) / 8 * 8); }
 
 // N: items per lane (columns l + 32 j, j < N; past the row they hold -inf,
 // which no count includes).
@@ -102,12 +78,7 @@ sampled_threshold_kernel(const float* __restrict__ mag, const float* __restrict_
   const int both = __reduce_add_sync(kFullMask, c_lo | (c_hi << 16));
   c_lo = both & 0xffff;
   c_hi = both >> 16;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFullMask, m, off));
-  // torch.amax returns a NaN of the row where there is one: take it, bits
-  // and all, since upper_bracket adds one to its bits
-  const unsigned nan_lanes = __ballot_sync(kFullMask, has_nan);
-  if (nan_lanes) m = __shfl_sync(kFullMask, nan, __ffs(nan_lanes) - 1);
+  m = warp_max_keep_nan(m, has_nan, nan);
 
   // the bracket with count(>= lo), carried so the final count is free, and
   // count(>= hi) where it is known
@@ -175,30 +146,18 @@ sampled_threshold_kernel(const float* __restrict__ mag, const float* __restrict_
   }
 }
 
-// Launches the instantiation for ceil(cols / 32) = items (1..128): N =
-// items when that is 8g + 1 (2049, 1025, 513 columns: one lone column past
-// a multiple of 256), else items rounded up to a multiple of 8.
-template <int N = 1>
-int launch(const float* mag, const float* lo, const float* hi, int rows, int cols, int k,
-           int iters, float* tau, int* count, cudaStream_t s) {
-  const int items = (cols + 31) / 32;
-  if constexpr (N < kThreads * kMaxItems / 32) {
-    if (items != N && (items % 8 == 1 || (items + 7) / 8 * 8 != N))
-      return launch<N % 8 == 1 ? N + 7 : N + 1>(mag, lo, hi, rows, cols, k, iters, tau, count,
-                                                s);
-  }
-  if (cols < 1 || cols > kThreads * kMaxItems) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = (rows + kRowsPerCta - 1) / kRowsPerCta;
-  sampled_threshold_kernel<N><<<grid, 32 * kRowsPerCta, 0, s>>>(mag, lo, hi, rows, cols, k,
-                                                                iters, tau, count);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace repro
 
 REPRO_EXPORT int sampled_threshold(const float* mag, const float* lo, const float* hi, int rows,
                                    int cols, int k, int iters, float* tau, int* count,
                                    void* stream) {
-  return repro::launch(mag, lo, hi, rows, cols, k, iters, tau, count,
-                       static_cast<cudaStream_t>(stream));
+  using namespace repro;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch_lane_items(cols, [&](auto n) {
+    constexpr int N = decltype(n)::value;
+    const int grid = (rows + kRowsPerCta - 1) / kRowsPerCta;
+    sampled_threshold_kernel<N><<<grid, 32 * kRowsPerCta, 0, s>>>(mag, lo, hi, rows, cols, k,
+                                                                  iters, tau, count);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

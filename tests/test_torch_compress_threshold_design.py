@@ -1,13 +1,14 @@
-"""The per-row algorithms of kernels B2 (``csrc/fused_compress.cu``) and B4
-(``csrc/sampled_threshold.cu``), transcribed into numpy and walked on the
-CPU, where no CUDA kernel runs.  Each walk is held bitwise to the plain
-PyTorch version that the kernel's wrapper runs on a CPU tensor, and that the
-kernel is held to on the card.
+"""The per-row algorithms of kernels B2 (``csrc/fused_compress.cu``), B6a
+(``pack`` in ``csrc/pack.cu``), B4 (``csrc/sampled_threshold.cu``) and B1
+(``csrc/topk_threshold.cu``), transcribed into numpy and walked on the CPU,
+where no CUDA kernel runs.  Each walk is held bitwise to the plain PyTorch
+version that the kernel's wrapper runs on a CPU tensor, and that the kernel
+is held to on the card.
 
 B2, one CTA of 256 threads (8 warps of 32 lanes) per row:
 
 * phase 1: warp w owns the contiguous columns [w*S, (w+1)*S), S = 32*J,
-  J = cols // 256; lane l holds w*S + 32j + l for j < J.  The tail
+  J = min(cols // 256, 16); lane l holds w*S + 32j + l for j < J.  The tail
   [8*S, cols) belongs to warp 7, in rounds of 32.  A ballot per item counts
   the warp's kept bins; a bit per item and lane marks the kept ones;
 * phase 2: an exclusive scan of the 8 warp counts gives each warp its base;
@@ -16,6 +17,10 @@ B2, one CTA of 256 threads (8 warps of 32 lanes) per row:
   goes to shared memory at its slot (the tail after the warp's main items);
 * phase 3: thread t takes the groups of 4 slots g = t, t + 256, ...; slots
   under min(count, k_pad) are encoded, the rest get code 0 at index 0.
+
+B6a runs phases 1 and 2 of B2 on keep = |x| >= tau (the same column map and
+scan, so the same walk), and in phase 3 copies the values and columns of
+the filled slots, (0.0, 0) past the count.
 
 B4, one warp per row: lane l holds the columns l + 32j, j < N (N =
 ceil(cols/32) when that is 8g + 1, else rounded up to a multiple of 8;
@@ -27,8 +32,18 @@ in float32, carrying count(>= lo) so the final count needs no pass.  After
 goes on sweeping in full), and the last 11 sweeps count them alone, plus
 count(>= hi).
 
-``csrc/fused_compress.cu`` and ``csrc/sampled_threshold.cu`` name this
-file: they change together.
+B1, one warp per row, lane l holding columns l + 32j as B4: one pass counts
+>= 0 and takes the maximum as B4 does; lo = 0, hi = upper_bracket(max), and
+count(>= hi) is known to be 0 where hi lies above the maximum.  The sweeps
+carry count(>= lo) and count(>= hi); at the first sweep where at most
+COMPACT_AT values lie in [lo, hi) (and the bracket allows B4's proof) the
+warp compacts them, in lane order, into 2 registers a lane, and the later
+sweeps count those plus count(>= hi).  The loop stops after the first
+sweep that leaves lo and hi as they were, bit for bit: every later sweep
+would repeat it.
+
+``csrc/fused_compress.cu``, ``csrc/pack.cu``, ``csrc/sampled_threshold.cu``
+and ``csrc/topk_threshold.cu`` name this file: they change together.
 """
 
 import numpy as np
@@ -40,7 +55,9 @@ from repro_torch.core import sparsify
 from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
 from repro_torch.kernels import _checks
 from repro_torch.kernels import fused_compress as tfc
+from repro_torch.kernels import pack as tpk
 from repro_torch.kernels import sampled_threshold as tst
+from repro_torch.kernels import topk_threshold as ttt
 from repro_torch.kernels.range_quant import encode_math
 
 WARPS, LANES = 8, 32
@@ -48,26 +65,27 @@ THREADS = WARPS * LANES
 GROUP = 4  # slots a B2 thread encodes and stores at once
 LANE = np.arange(LANES)
 WIDTHS = [2049, 1025, 513, 512, 300, 100]  # main path, chunk 2048, tests, odd tails
+MAX_STRETCH = 16  # items a lane holds in a warp's stretch (rows 4096 wide)
 
 
 # ---------------------------------------------------------------- B2
 
 
-def b2_load_map(cols):
-    """Phase 1's loads: a list of (warp, column array of one warp
-    instruction); the tail's rounds (warp 7) last."""
-    j_items = cols // THREADS
+def stretch_load_map(cols):
+    """Phase 1's loads of B2 and B6a: a list of (warp, column array of one
+    warp instruction); the tail's rounds (warp 7) last."""
+    j_items = min(cols // THREADS, MAX_STRETCH)
     stretch = LANES * j_items
     loads = [(w, w * stretch + LANES * j + LANE) for w in range(WARPS) for j in range(j_items)]
     loads += [(WARPS - 1, t + LANE) for t in range(WARPS * stretch, cols, LANES)]
     return loads
 
 
-def b2_walk(keep, k_pad):
-    """One row's phases 1-3 as the kernel runs them: (idx (k_pad,) int32,
+def compact_walk(keep, k_pad):
+    """One row's phases 1-3 as B2 and B6a run them: (idx (k_pad,) int32,
     filled, the slots each phase-2 warp instruction writes)."""
     cols = keep.size
-    j_items = cols // THREADS
+    j_items = min(cols // THREADS, MAX_STRETCH)
     stretch = LANES * j_items
     below = np.tril(np.ones((LANES, LANES), bool), -1)  # below[l, m]: m < l
 
@@ -144,13 +162,13 @@ def _planes(rows, cols, kind, seed):
     return re, im, w, tau.astype(np.float32), k
 
 
-@pytest.mark.parametrize("cols", WIDTHS + [4096, 255, 1])
+@pytest.mark.parametrize("cols", WIDTHS + [4096, 255, 1, 5000])
 def test_b2_column_map_is_a_partition_in_ascending_warp_stretches(cols):
     """Every column is loaded once; each warp instruction reads 32
     consecutive columns (one coalesced span, clipped at the row's end in the
     tail); a warp's columns lie above every column of the warps before it,
     so the scan of warp counts gives index-ascending slots."""
-    loads = b2_load_map(cols)
+    loads = stretch_load_map(cols)
     seen = np.concatenate([c[c < cols] for _, c in loads])
     np.testing.assert_array_equal(np.sort(seen), np.arange(cols))
     for _, c in loads:
@@ -180,7 +198,7 @@ def test_b2_walk_equals_plain_cumsum_slots_and_codes(cols, kind):
     mag = (np.sqrt(re * re + im * im) * w).astype(np.float32)
     for r in range(rows):
         keep = mag[r] >= tau[r]
-        idx, filled, writes = b2_walk(keep, k_pad)
+        idx, filled, writes = compact_walk(keep, k_pad)
         np.testing.assert_array_equal(idx, p_idx[r].numpy())
         assert filled == min(int(keep.sum()), k_pad)
         for plane, want in ((re, p_re), (im, p_im)):
@@ -215,26 +233,42 @@ def _upper_bracket(x):
     return up if np.isnan(up) else np.float32(min(up, FLT_MAX))
 
 
+def lane_items(row):
+    """The row as a warp holds it: (lane, item) float32, -inf past the row."""
+    cols = row.size
+    col = LANES * np.arange(b4_items(cols))[None, :] + LANE[:, None]
+    v = np.where(col < cols, row[np.minimum(col, cols - 1)], np.float32(-np.inf))
+    return v.astype(np.float32)
+
+
+def lane_max(v):
+    """warp_max_keep_nan over the lanes' items: the maximum, or the first
+    NaN lane's last NaN, bits and all."""
+    m = np.float32(np.fmax.reduce(v.ravel()))
+    nan_lanes = np.flatnonzero(np.isnan(v).any(axis=1))
+    if nan_lanes.size:
+        lane_v = v[nan_lanes[0]]
+        m = lane_v[np.flatnonzero(np.isnan(lane_v))[-1]]
+    return m
+
+
+def lane_count(v, t):
+    """warp_count_ge: count(v >= t) in 4 accumulators."""
+    parts = [int((v[:, j::4] >= t).sum()) for j in range(4)]
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
 def b4_walk(row, lo0, hi0, k, iters):
     """One row as the warp runs it: (tau float32, count, whether the last
     sweeps ran over the candidates alone)."""
-    cols = row.size
-    n = b4_items(cols)
-    col = LANES * np.arange(n)[None, :] + LANE[:, None]  # (lane, item)
-    v = np.where(col < cols, row[np.minimum(col, cols - 1)], np.float32(-np.inf))
-    v = v.astype(np.float32)
+    v = lane_items(row)
     per_lane = (v >= lo0).sum(axis=1) | ((v >= hi0).sum(axis=1) << 16)
     both = int(per_lane.sum())
     c_lo, c_hi = both & 0xFFFF, both >> 16
-    m = np.float32(np.fmax.reduce(v.ravel()))
-    nan_lanes = np.flatnonzero(np.isnan(v).any(axis=1))
-    if nan_lanes.size:  # the first such lane's last NaN, bits and all
-        lane_v = v[nan_lanes[0]]
-        m = lane_v[np.flatnonzero(np.isnan(lane_v))[-1]]
+    m = lane_max(v)
 
     def count(t):
-        parts = [int((v[:, j::4] >= t).sum()) for j in range(4)]  # 4 accumulators
-        return (parts[0] + parts[1]) + (parts[2] + parts[3])
+        return lane_count(v, t)
 
     lo, hi, lo_count, hi_count, hi_known = np.float32(lo0), np.float32(hi0), c_lo, c_hi, True
     if c_lo < k:
@@ -340,3 +374,175 @@ def test_b4_items_cover_every_width_with_one_dispatch_entry():
         n = b4_items(cols)
         assert LANES * n >= cols and n - -(-cols // LANES) <= 7
     assert [b4_items(c) for c in (2049, 1025, 513)] == [65, 33, 17]
+
+
+# ---------------------------------------------------------------- B1
+
+
+CAND_PER_LANE = 2  # B1's candidates a lane holds after its compaction
+COMPACT_AT = LANES * CAND_PER_LANE  # B1 compacts once at most this many lie in [lo, hi)
+
+
+def _bits(x):
+    return int(np.array([x], np.float32).view(np.uint32)[0])
+
+
+def b1_walk(row, k, iters=selection.BISECT_ITERS):
+    """One row as B1's warp runs it: (tau float32, count, sweeps run, the
+    sweep from which the candidates served, or None)."""
+    v = lane_items(row)
+    m = lane_max(v)
+    lo, hi = np.float32(0.0), _upper_bracket(m)
+    lo_count, hi_count = lane_count(v, np.float32(0.0)), 0
+    with np.errstate(invalid="ignore"):
+        hi_known = bool(hi > m)  # nothing is >= hi above the maximum
+    half = np.float32(0.5)
+    cand, compact_at = None, None
+    with np.errstate(invalid="ignore", over="ignore"):  # NaN and +inf brackets
+        for it in range(iters):
+            if (cand is None and hi_known and lo_count - hi_count <= COMPACT_AT and lo <= hi
+                    and abs(lo) <= MAX_BRACKET and abs(hi) <= MAX_BRACKET):
+                inside = (v >= lo) & (v < hi)  # (lane, item): lane order, then item
+                assert int(inside.sum()) == lo_count - hi_count  # the carried counts
+                slots = np.full(COMPACT_AT, np.float32(-np.inf), np.float32)
+                slots[:lo_count - hi_count] = v[inside]
+                cand, compact_at = slots.reshape(CAND_PER_LANE, LANES), it + 1
+            mid = np.float32(half * np.float32(lo + hi))
+            if cand is not None:
+                c = hi_count + int((cand >= mid).sum())
+                assert c == lane_count(v, mid)  # the identity the kernel relies on
+            else:
+                c = lane_count(v, mid)
+            moved = lo if c >= k else hi
+            if c >= k:
+                lo, lo_count = mid, c
+            else:
+                hi = mid
+                if cand is None:
+                    hi_count, hi_known = c, True
+            if _bits(mid) == _bits(moved):  # the fixed point: every later sweep repeats this
+                return lo, lo_count, it + 1, compact_at
+    return lo, lo_count, iters, compact_at
+
+
+def _spectrum_mag(rows, cols, seed):
+    """Hermitian-weighted rfft magnitudes of N(0, 1e-6) chunks, float32."""
+    rng = np.random.default_rng(seed)
+    z = np.fft.rfft(rng.standard_normal((rows, 2 * (cols - 1))) * 1e-3, axis=-1)
+    w = np.full(cols, 2.0, np.float32)
+    w[0] = w[-1] = 1.0
+    return (np.abs(z).astype(np.float32) * w).astype(np.float32)
+
+
+def _b1_rows(cols, kind, seed, rows=4):
+    """(mag, k): ``rows`` rows of one kind, float32."""
+    rng = np.random.default_rng(seed)
+    k = sparsify.keep_count(cols, 0.7)
+    if kind == "spectrum":
+        return _spectrum_mag(rows, cols, seed), k
+    mag = np.abs(rng.standard_normal((rows, cols))).astype(np.float32)
+    if kind == "zero":
+        mag[:] = 0.0
+    elif kind == "ties":  # a handful of values: the k-th is tied many times
+        mag = np.floor(mag * 3).astype(np.float32)
+    elif kind == "tiny":  # one huge value: 48 sweeps do not come down to the rest
+        mag *= np.float32(1e-3)
+        mag[:, cols // 2] = np.float32(1e30)
+    elif kind == "nan":
+        mag[:, cols // 3] = np.nan
+    elif kind == "inf":  # tau 0 however large the rest: the bracket is NaN
+        mag *= np.float32(1e30)
+        mag[:, cols - 1] = np.inf
+    elif kind == "nan_inf":
+        mag[:, 0] = np.inf
+        mag[:, cols - 1] = np.nan
+    elif kind == "flt_max":  # hi = FLT_MAX: count(>= hi) is not known to be 0
+        mag[:, cols // 2] = FLT_MAX
+    elif kind == "all_flt_max":  # lo + hi overflows to +inf
+        mag[:] = FLT_MAX
+    return mag, k
+
+
+B1_KINDS = ["random", "spectrum", "zero", "ties", "tiny", "nan", "inf", "nan_inf", "flt_max",
+            "all_flt_max"]
+
+
+@pytest.mark.parametrize("cols,kind", [(c, kd) for c in (2049, 1025, 1, 31, 33, 257, 511, 4096)
+                                       for kd in B1_KINDS if c > 1 or kd != "spectrum"])
+def test_b1_walk_equals_threshold_plain(cols, kind):
+    """Tau and count of B1's warp walk (maximum with NaN kept, data-driven
+    compaction, stop at the fixed point) equal ``threshold_plain``
+    (``selection.bisect_tau`` + one count) bitwise, the count identity
+    holding at every candidate sweep."""
+    mag, k = _b1_rows(cols, kind, seed=cols + len(kind))
+    want_tau, want_cnt = ttt.threshold_plain(torch.from_numpy(mag), k)
+    for r in range(mag.shape[0]):
+        tau, cnt, _, _ = b1_walk(mag[r], k)
+        assert _bits(tau) == _bits(want_tau[r, 0].numpy()), (r, tau, want_tau[r])
+        assert cnt == int(want_cnt[r, 0])
+
+
+@pytest.mark.parametrize("cols", [2049, 1025])
+def test_b1_walk_stops_early_and_compacts_on_spectrum_rows(cols):
+    """On the main path's rows B1 compacts by sweep 8 and stops by sweep 30
+    of 48; an all-zero padding row stops after one sweep (lo = 0, hi =
+    2**-149, mid rounds to 0) without compacting; a row holding a NaN never
+    compacts."""
+    mag = _spectrum_mag(32, cols, seed=cols)
+    mag[-1] = 0.0
+    mag[-2, 7] = np.nan
+    k = sparsify.keep_count(cols, 0.7)
+    walks = [b1_walk(mag[r], k) for r in range(mag.shape[0])]
+    for tau, cnt, sweeps, compact_at in walks[:-2]:
+        assert sweeps <= 30 and compact_at is not None and compact_at <= 8
+        assert cnt >= k
+    assert walks[-1][2:] == (1, None) and walks[-1][:2] == (0.0, cols)
+    assert walks[-2][3] is None
+
+
+# ---------------------------------------------------------------- B6a
+
+
+def _pack_rows(cols, kind, seed, rows=3):
+    """(x, tau, k): signed rows and a per-row tau giving ``kind`` counts."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, cols)).astype(np.float32)
+    k = tpk.K_TILE * max(1, -(-sparsify.keep_count(cols, 0.7) // tpk.K_TILE))
+    mag = np.sort(np.abs(x), axis=1)[:, ::-1]
+    if kind == "none":  # nothing kept
+        tau = np.full(rows, np.inf, np.float32)
+    elif kind == "exact":  # exactly min(k, cols) kept
+        tau = mag[:, min(k, cols) - 1].copy()
+    elif kind == "over":  # tau 0: every column kept, cut at k
+        tau = np.zeros(rows, np.float32)
+        x[0] = 0.0  # |0| >= 0: an all-zero row keeps every column too
+    else:  # "random": about a third kept
+        tau = mag[:, cols // 3].copy()
+    return x, tau.astype(np.float32), k
+
+
+@pytest.mark.parametrize("kind", ["none", "exact", "over", "random"])
+@pytest.mark.parametrize("cols", [2049, 1025, 513, 100, 1, 4096, 5000])
+def test_b6a_walk_equals_pack_plain_slots(cols, kind):
+    """B6a's column map and slot scan (B2's, on keep = |x| >= tau) give
+    ``pack_plain``'s slots bitwise: values and columns in index order,
+    (0.0, 0) past the count, a count beyond k cut at k; every phase-2 warp
+    store on distinct banks."""
+    x, tau, k = _pack_rows(cols, kind, seed=cols + len(kind))
+    p_vals, p_idx = tpk.pack_plain(torch.from_numpy(x), torch.from_numpy(tau)[:, None], k=k)
+    for r in range(x.shape[0]):
+        keep = np.abs(x[r]) >= tau[r]
+        idx, filled, writes = compact_walk(keep, k)
+        vals = np.where(np.arange(k) < filled, x[r][idx], np.float32(0.0))
+        np.testing.assert_array_equal(idx, p_idx[r].numpy())
+        assert vals.astype(np.float32).view(np.uint32).tolist() == \
+            p_vals[r].numpy().view(np.uint32).tolist()
+        assert filled == min(int(keep.sum()), k)
+        if kind == "none":
+            assert filled == 0
+        elif kind == "exact":
+            assert filled == min(k, cols)
+        elif kind == "over":
+            assert filled == min(k, cols) and int(keep.sum()) == cols
+        for slots in writes:
+            assert len(set(slots % 32)) == len(slots)

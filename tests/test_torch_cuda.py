@@ -2,7 +2,7 @@
 at small shapes.  Marked ``cuda``: they skip without a GPU (as here on the
 CPU) and run on the card with
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: B1, B4, B2, B5 and B6 bitwise; B3 and B7
 max abs error <= 2e-6 * max|x| per row.
@@ -304,5 +304,92 @@ def test_sampled_threshold_kernel_edge_rows(card, cols, kind):
     mag, lo, hi = (torch.from_numpy(a).cuda() for a in (mag, lo, hi))
     got = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
     want = sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def _threshold_rows(cols, kind, seed, rows=37):
+    """(mag, k) in numpy for B1: ``rows`` rows of one kind (37: not a
+    multiple of the kernel's 4 rows per CTA)."""
+    rng = np.random.default_rng(seed)
+    k = sparsify.keep_count(cols, 0.7)
+    mag = np.abs(rng.standard_normal((rows, cols))).astype(np.float32)
+    if kind == "spectrum" and cols > 1:
+        z = np.fft.rfft(rng.standard_normal((rows, 2 * (cols - 1))) * 1e-3, axis=-1)
+        mag = (np.abs(z) * 2.0).astype(np.float32)
+        mag[::5] = 0.0  # the stacked layout's padding rows
+    elif kind == "zero":
+        mag[:] = 0.0
+    elif kind == "ties":
+        mag = np.floor(mag * 3).astype(np.float32)
+    elif kind == "tiny":  # one huge value: 48 sweeps never reach the rest
+        mag *= np.float32(1e-3)
+        mag[:, cols // 2] = np.float32(1e30)
+    elif kind == "nan":  # the plain version's bracket is NaN: tau 0
+        mag[:, cols // 3] = np.nan
+        mag[::3] *= np.float32(1e-3)  # some rows with a denormal-free small range
+    elif kind == "inf":  # upper_bracket(+inf) is a NaN: tau 0, however large the rest
+        mag *= np.float32(1e30)
+        mag[:, cols - 1] = np.inf
+    elif kind == "nan_inf":
+        mag[:, 0] = np.inf
+        mag[::2, cols // 2] = np.nan
+    elif kind == "flt_max":
+        mag[:, cols // 2] = np.finfo(np.float32).max
+    elif kind == "all_flt_max":
+        mag[:] = np.finfo(np.float32).max
+    return mag, k
+
+
+@pytest.mark.parametrize("kind", ["random", "spectrum", "zero", "ties", "tiny", "nan", "inf",
+                                  "nan_inf", "flt_max", "all_flt_max"])
+@pytest.mark.parametrize("cols", [1, 31, 33, 257, 511, 513, 1025, 2049, 4096])
+def test_topk_threshold_kernel_edge_rows(card, cols, kind):
+    """B1 against its plain version, bitwise (tau by its bits): rows holding
+    a NaN or +inf (tau 0 with count(>= 0), as torch.amax and upper_bracket
+    give it), all-zero rows, ties, a huge maximum over tiny values, FLT_MAX
+    and all-FLT_MAX rows, at every width the lane dispatch serves."""
+    mag, k = _threshold_rows(cols, kind, cols + len(kind))
+    mag = torch.from_numpy(mag).cuda()
+    got = topk_threshold.threshold(mag, k=k)
+    want = topk_threshold.threshold_plain(mag, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def _pack_rows(cols, kind, seed, rows=37):
+    """(x, tau, k) in numpy for B6a: signed rows and per-row tau giving
+    ``kind`` counts; k the 128-multiple above the 70% drop's keep count."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, cols)).astype(np.float32)
+    k = pack.K_TILE * -(-sparsify.keep_count(cols, 0.7) // pack.K_TILE)
+    ranked = -np.sort(-np.abs(x), axis=1)
+    if kind == "none":
+        tau = np.full(rows, np.inf, np.float32)
+    elif kind == "exact":  # min(k, cols) kept
+        tau = ranked[:, min(k, cols) - 1].copy()
+    elif kind == "over":  # tau 0: every column kept, cut at k; an all-zero row
+        tau = np.zeros(rows, np.float32)
+        x[0] = 0.0
+    elif kind == "nan":  # NaN values are never kept; a NaN tau keeps nothing
+        x[:, ::7] = np.nan
+        tau = ranked[:, cols // 3].copy()
+        tau[1] = np.nan
+    else:  # "random"
+        tau = ranked[:, cols // 3].copy()
+    return x, tau.astype(np.float32), k
+
+
+@pytest.mark.parametrize("kind", ["none", "exact", "over", "nan", "random"])
+@pytest.mark.parametrize("cols", [1, 100, 255, 256, 513, 1025, 2049, 4096, 5000])
+def test_pack_kernel_edge_rows(card, cols, kind):
+    """B6a against its plain version, bitwise: nothing kept, exactly k kept,
+    every column kept with the count cut at k (tau 0, an all-zero row among
+    them), NaN values and a NaN tau, at widths from all-tail rows (under 256
+    columns) to 4096 and past it (warp 7's tail beyond the stretches)."""
+    x, tau, k = _pack_rows(cols, kind, cols + len(kind))
+    x, tau = torch.from_numpy(x).cuda(), torch.from_numpy(tau).cuda()[:, None]
+    got = pack.pack(x, tau, k=k)
+    want = pack.pack_plain(x, tau, k=k)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))

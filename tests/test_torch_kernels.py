@@ -44,12 +44,46 @@ def _np(t):
     return np.asarray(t)
 
 
-@pytest.mark.parametrize("rows,cols,k", [(4, 2049, 615), (8, 512, 100), (3, 513, 129)])
-def test_topk_threshold_plain_vs_pallas_bitwise(rows, cols, k):
+def _edge_rows(mag, kind):
+    """Rows the kernel must match on besides plain ones (normal-range data:
+    XLA's CPU flushes denormals)."""
+    mag = mag.copy()
+    cols = mag.shape[1]
+    if kind == "nan":  # torch.amax and jnp.max keep the NaN: tau 0
+        mag[:, cols // 3] = np.nan
+    elif kind == "inf":  # upper_bracket(+inf) is a NaN: tau 0, however large the rest
+        mag *= np.float32(1e30)
+        mag[:, cols - 1] = np.inf
+    elif kind == "nan_inf":
+        mag[:, 0] = np.inf
+        mag[:, cols // 2] = np.nan
+    elif kind == "zero":
+        mag[:] = 0.0
+    elif kind == "all_flt_max":  # lo + hi overflows: tau FLT_MAX / 2
+        mag[:] = np.finfo(np.float32).max
+    elif kind == "tiny":  # one huge value: 48 sweeps never reach the rest, tau 0
+        mag *= np.float32(1e-3)
+        mag[:, cols // 2] = np.float32(1e30)
+    return mag
+
+
+_EDGE = ["nan", "inf", "nan_inf", "zero", "all_flt_max", "tiny"]
+
+
+@pytest.mark.parametrize("rows,cols,k,kind", [
+    pytest.param(4, 2049, 615, "plain", id="4-2049-615"),
+    pytest.param(8, 512, 100, "plain", id="8-512-100"),
+    pytest.param(3, 513, 129, "plain", id="3-513-129"),
+    *(pytest.param(4, 2049, 615, kind, id=f"4-2049-615-{kind}") for kind in _EDGE),
+    *(pytest.param(3, 513, 129, kind, id=f"3-513-129-{kind}") for kind in _EDGE)])
+def test_topk_threshold_plain_vs_pallas_bitwise(rows, cols, k, kind):
+    """Tau and count bitwise, on plain rows and on the edge rows the CUDA
+    kernel is held to on the card (tests/test_torch_cuda.py)."""
     mag = np.abs(np.random.default_rng(k).standard_normal((rows, cols))).astype(np.float32)
+    mag = _edge_rows(mag, kind)
     jt, jc = jtt.threshold_pallas(jnp.asarray(mag), k=k, interpret=True)
     tt, tc = ttt.threshold(torch.from_numpy(mag), k=k)
-    np.testing.assert_array_equal(_np(jt), tt.numpy())
+    np.testing.assert_array_equal(_np(jt).view(np.uint32), tt.numpy().view(np.uint32))
     np.testing.assert_array_equal(_np(jc), tc.numpy())
 
 

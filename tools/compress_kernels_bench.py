@@ -1,15 +1,15 @@
 """Time the port's compress-side kernels, B2 (``fused_compress``), B4
-(``sampled_threshold``) and B1 (``topk_threshold``), as built from several
-source trees, in one run on one NVIDIA GPU.
+(``sampled_threshold``), B1 (``topk_threshold``) and B6a (``pack``), as
+built from several source trees, in one run on one NVIDIA GPU.
 
     python3 tools/compress_kernels_bench.py NAME=CSRC_DIR [NAME=CSRC_DIR ...]
-        [--rows N] [--iters N] [--cols C]
+        [--rows N] [--iters N] [--cols C] [--b4-sweeps N,..] [--b1-sweeps N,..]
 
 Each ``NAME=CSRC_DIR`` is a directory holding ``fused_compress.cu``,
-``sampled_threshold.cu`` and ``topk_threshold.cu`` with their headers:
-``src/repro_torch/kernels/csrc``, or that directory of an earlier commit
-unpacked with ``git archive`` into a directory that ``.gitignore`` lists
-(``build/``).  Each tree is compiled with the port's nvcc flags into
+``sampled_threshold.cu``, ``topk_threshold.cu`` and ``pack.cu`` with their
+headers: ``src/repro_torch/kernels/csrc``, or that directory of an earlier
+commit unpacked with ``git archive`` into a directory that ``.gitignore``
+lists (``build/``).  Each tree is compiled with the port's nvcc flags into
 ``build/compress_kernels_bench/<NAME>/`` (``kernel_trees.build_all``: one
 nvcc per source, all at once); its ptxas register and spill lines are
 printed.
@@ -18,20 +18,22 @@ The inputs are ``chip_smoke.py``'s kernel phase: the rfft of N(0, 1e-6)
 chunks of 4096 at the main path's rows (221,184 by default, the stacked
 layout's 1,146 padding rows all zero), k = 615 of 2049 bins, B4's bracket
 from the sampled selector's strided sample, B2's mid-gap tau and one
-quantizer fit per row.  ``--cols 1025`` runs the ``chunk=2048`` route's
-shapes instead (chunks of 2048, 442,368 rows by default, k = 308);
-``--rows 4096`` one bucket's rows, as the per-bucket loop launches them.  Every tree's kernels are first
-held bitwise to the plain PyTorch versions, then timed with CUDA events
-(mean of ``--iters`` launches after one warm-up) in turns, trees in order
-and then in reverse, so a drift of the card's clock shows as a gap between
-the two readings of one tree.  B4 is also timed at the sweep counts of
-``--b4-sweeps`` (default 0: its loads and the clamp alone), each checked
-against the plain version with that ``refine_iters``, which splits its time
-between the row's pass over device memory and the sweeps; B2 is also timed
-with tau = +inf (nothing kept, so nothing encoded: the loads, the
-compaction and the zero stores alone).  Last, B1 and B4 run on rows that
-hold a NaN, and the rows where they disagree with their plain versions are
-counted (reported, not failed on).
+quantizer fit per row, B6a's tau from B1 on the same magnitudes (k_pad =
+640 slots).  ``--cols 1025`` runs the ``chunk=2048`` route's shapes instead
+(chunks of 2048, 442,368 rows by default, k = 308); ``--rows 4096`` one
+bucket's rows, as the per-bucket loop launches them.  Every tree's kernels
+are first held bitwise to the plain PyTorch versions, then timed with CUDA
+events (mean of ``--iters`` launches after one warm-up) in turns, trees in
+order and then in reverse, so a drift of the card's clock shows as a gap
+between the two readings of one tree.  B4 is also timed at the sweep counts
+of ``--b4-sweeps`` (default 0: its loads and the clamp alone) and B1 at
+those of ``--b1-sweeps`` (default 0: its loads and the maximum pass), each
+checked against the plain version with that many sweeps, which splits a
+kernel's time between the row's pass over device memory and the sweeps; B2
+is also timed with tau = +inf (nothing kept, so nothing encoded: the loads,
+the compaction and the zero stores alone).  Last, B1 and B4 run on rows
+that hold a NaN or +inf, and the rows where they disagree with their plain
+versions are counted; the run exits with 1 if any tree disagrees on one.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from kernel_trees import build_all, time_ms
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "compress_kernels_bench"
-SOURCES = ("fused_compress.cu", "sampled_threshold.cu", "topk_threshold.cu")
+SOURCES = ("fused_compress.cu", "sampled_threshold.cu", "topk_threshold.cu", "pack.cu")
 
 
 def main() -> int:
@@ -59,6 +61,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--b4-sweeps", type=lambda v: [int(x) for x in v.split(",") if x],
                     default=[0], help="B4 also timed at these sweep counts (default 0)")
+    ap.add_argument("--b1-sweeps", type=lambda v: [int(x) for x in v.split(",") if x],
+                    default=[0], help="B1 also timed at these sweep counts (default 0)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compress_kernels_bench: torch.cuda.is_available() is False", file=sys.stderr)
@@ -67,7 +71,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from repro_torch.core import selection, sparsify
-    from repro_torch.kernels import _checks, fused_compress, sampled_threshold, topk_threshold
+    from repro_torch.kernels import (_checks, fused_compress, pack, sampled_threshold,
+                                     topk_threshold)
 
     trees = dict(t.split("=", 1) for t in args.trees)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -90,6 +95,12 @@ def main() -> int:
                                                                    refine_iters=n)
                       for n in args.b4_sweeps}
     want_b1 = topk_threshold.threshold_plain(mag, k)
+    want_b1_sweeps = {}
+    for n in args.b1_sweeps:
+        t = selection.bisect_tau(mag, k, n)[:, None]
+        want_b1_sweeps[n] = (t, (mag >= t).sum(dim=-1, keepdim=True, dtype=torch.int32))
+    pack_tau = want_b1[0].reshape(rows).contiguous()
+    want_b6a = pack.pack_plain(mag, pack_tau, k=k_pad)
     tau, q_eps, q_p = chip_smoke.compress_params(mag, re, im, want_b4[0])
     tau = tau.reshape(rows).contiguous()
     eps, p_codes, n_neg = _checks.encode_row_params(q_eps, q_p, 8, rows, dev)
@@ -107,13 +118,21 @@ def main() -> int:
     rec = torch.empty((rows, k_pad), dtype=torch.uint8, device=dev)
     imc = torch.empty_like(rec)
     idx = torch.empty((rows, k_pad), dtype=torch.int32, device=dev)
+    vals = torch.empty((rows, k_pad), device=dev)
     calls = {}
     for name in trees:
-        b1, b4, b2 = (libs[name][s] for s in ("topk_threshold.cu", "sampled_threshold.cu",
-                                             "fused_compress.cu"))
+        b1, b4, b2, b6 = (libs[name][s] for s in ("topk_threshold.cu", "sampled_threshold.cu",
+                                                 "fused_compress.cu", "pack.cu"))
         calls[(name, "B1")] = (lambda b1=b1: b1.topk_threshold(
             p(mag), rows, cols, k, selection.BISECT_ITERS, p(tau_out), p(cnt_out), stream),
             lambda: (tau_out, cnt_out), want_b1)
+        for n in args.b1_sweeps:
+            calls[(name, f"B1 sweeps={n}")] = (lambda b1=b1, n=n: b1.topk_threshold(
+                p(mag), rows, cols, k, n, p(tau_out), p(cnt_out), stream),
+                lambda: (tau_out, cnt_out), want_b1_sweeps[n])
+        calls[(name, "B6a")] = (lambda b6=b6: b6.pack(
+            p(mag), p(pack_tau), rows, cols, k_pad, p(vals), p(idx), stream),
+            lambda: (vals, idx), want_b6a)
         calls[(name, "B4")] = (lambda b4=b4: b4.sampled_threshold(
             p(mag), p(lo), p(hi), rows, cols, k, iters, p(tau_out), p(cnt_out), stream),
             lambda: (tau_out, cnt_out), want_b4)
@@ -134,7 +153,9 @@ def main() -> int:
         if rc != 0:
             raise SystemExit(f"{key}: launch failed ({rc})")
         torch.cuda.synchronize()
-        mism = sum(int((a.reshape(b.shape) != b).sum()) for a, b in zip(got(), want))
+        mism = sum(int((a.reshape(b.shape).view(torch.int32) != b.view(torch.int32)).sum())
+                   if a.dtype == torch.float32 else int((a.reshape(b.shape) != b).sum())
+                   for a, b in zip(got(), want))
         print(f"[check {key[0]} {key[1]}] mismatches={mism} (tolerance 0: bitwise)")
         if mism:
             raise SystemExit(f"{key}: disagrees with the plain version")
@@ -145,21 +166,22 @@ def main() -> int:
           "(first, second reading):")
     for (name, kernel), (first, second) in sorted(times.items(), key=lambda kv: kv[0][1]):
         print(f"[time {name}] {kernel}: {first:.3f} {second:.3f} ms")
-    nan_rows(libs, mag, lo, hi, k, stream)
-    return 0
+    return 1 if edge_rows(libs, mag, lo, hi, k, stream) else 0
 
 
-def nan_rows(libs, mag, lo, hi, k, stream, n=256):
-    """B1 and B4 of every tree on ``n`` rows that each hold a NaN (half of
-    them with hi = 0, so B4's clamp falls back to nextafter(max)), against
-    their plain versions: rows that disagree are counted and reported, not
-    failed on (B1's open fault, ROADMAP section 3)."""
+def edge_rows(libs, mag, lo, hi, k, stream, n=256):
+    """B1 and B4 of every tree on ``n`` rows that each hold a NaN and ``n``
+    that each hold a +inf, the rest of those scaled by 1e30 (half of each
+    with hi = 0, so B4's clamp falls back to nextafter(max)), against their
+    plain versions: the rows that disagree are counted; returns how many
+    disagreed in all."""
     from repro_torch.core import selection
     from repro_torch.kernels import sampled_threshold, topk_threshold
 
-    mag = mag[:n].clone()
-    mag[:, 7] = float("nan")
-    lo, hi = lo[:n].clone(), hi[:n].clone()
+    mag = torch.cat([mag[:n], mag[:n] * 1e30])  # the +inf rows' rest far from 0
+    mag[:n, 7] = float("nan")
+    mag[n:, -1] = float("inf")
+    lo, hi = torch.cat([lo[:n], lo[:n]]), torch.cat([hi[:n], hi[:n]])
     hi[::2] = 0.0
     rows, cols = mag.shape
     want = {"B1": topk_threshold.threshold_plain(mag, k),
@@ -167,6 +189,7 @@ def nan_rows(libs, mag, lo, hi, k, stream, n=256):
     tau = torch.empty((rows, 1), device=mag.device)
     cnt = torch.empty((rows, 1), dtype=torch.int32, device=mag.device)
     ptr = ctypes.c_void_p
+    total = 0
     for name, trees in libs.items():
         for kernel in ("B1", "B4"):
             if kernel == "B1":
@@ -180,9 +203,12 @@ def nan_rows(libs, mag, lo, hi, k, stream, n=256):
                     stream)
             torch.cuda.synchronize()
             w_tau, w_cnt = want[kernel]
-            bad = (tau.view(torch.int32) != w_tau.view(torch.int32)) | (cnt != w_cnt)
-            print(f"[nan rows {name}] {kernel} (rc {rc}): {int(bad.sum())} of {rows} rows "
-                  f"holding a NaN disagree with the plain version")
+            bad = ((tau.view(torch.int32) != w_tau.view(torch.int32)) | (cnt != w_cnt)).reshape(-1)
+            total += int(bad.sum()) + (rc != 0)
+            print(f"[edge rows {name}] {kernel} (rc {rc}): {int(bad[:n].sum())} of {n} rows "
+                  f"holding a NaN and {int(bad[n:].sum())} of {n} holding a +inf disagree "
+                  "with the plain version")
+    return total
 
 
 if __name__ == "__main__":
