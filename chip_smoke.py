@@ -6,18 +6,22 @@ Phases (any failure exits nonzero; the last line is printed only on success):
 
 1. the card's name and power limit; build every kernel from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once); B7,
-   B3, B2, B4, B1 and B6 must build without spills and within the registers
-   of the CTAs per SM that PTXAS_LIMITS names;
+   B3, B2, B4, B1, B5 and B6 must build without spills and within the
+   registers of the CTAs per SM that PTXAS_LIMITS names;
 2. each kernel (B1..B7) on the card at the main path's shapes -- the rows
    that gemma2_2b at full width and 4 layers gives the 64 MB bucketed
-   exchange, the layout's all-zero padding rows among them, and for B1 also
-   rows holding a NaN or +inf -- against its plain PyTorch version on the
-   same inputs, with
+   exchange, the layout's all-zero padding rows among them, for B1 and the
+   bisecting B2 also rows holding a NaN or +inf, for B5a rows holding NaN,
+   -NaN, +-inf, denormals and the segment bounds -- against its plain
+   PyTorch version on the same inputs, with
    its time, the plain version's time, the library yardstick's time where
    one PyTorch call computes the same function, and the bound; B7's inverse
    time, and for B3, which no single call computes, cuFFT's irfft of the
    same spectrum as a yardstick of its transform alone; B4 and B2 also at
-   the ``chunk=2048`` route's 442,368 rows of 1025 bins, bitwise;
+   the ``chunk=2048`` route's 442,368 rows of 1025 bins, and B5 at its
+   442,368 rows of 384 slots, bitwise; B2 with ``tau=None`` (its own
+   bisection, launched once through its API with the counts set to 0) also
+   against B1's tau on the same magnitudes;
 3. the engine's cuda and reference backends on a small ragged layout (codes,
    fits and reconstructions agree);
 4. the kernel-composed pipeline ``ops.compress_chunks`` ->
@@ -87,7 +91,8 @@ B3_FFT_LIBRARY = "transform only: torch.fft.irfft of the (rows, 2049) spectrum"
 # registers in the source; none may spill
 PTXAS_LIMITS = {"fft4096.cu": (256, 3), "fused_decompress.cu": (256, 3),
                 "fused_compress.cu": (256, 3), "sampled_threshold.cu": (128, 3),
-                "topk_threshold.cu": (128, 3), "pack.cu": (256, 4)}
+                "topk_threshold.cu": (128, 3), "pack.cu": (256, 4),
+                "range_quant.cu": (256, 3)}
 # B1's bound prices the passes over the whole row that no design avoids:
 # the maximum and count(>= 0), then the sweeps until the bracket's values fit
 # the candidate registers (6 on spectrum rows by the numpy walk of
@@ -96,6 +101,8 @@ PTXAS_LIMITS = {"fft4096.cu": (256, 3), "fused_decompress.cu": (256, 3),
 B1_ROW_PASSES = 1 + 6
 # rows of the kernel phase's data that B1 also runs with a NaN or +inf put in
 B1_EDGE_ROWS = 384
+# rows of B5a's input given the edge values of b5_edge_values
+B5_EDGE_ROWS = 64
 
 
 # each training phase's mean steady step (ms, steps after the first) and the
@@ -235,7 +242,42 @@ def compress_params(mag, re, im, s_tau):
     return 0.5 * (s_tau + below), quant.eps, quant.p_codes
 
 
-def kernel_phase(rows: int, dev) -> list:
+def b5_edge_values(x, eps, rows: int) -> None:
+    """The first ``rows`` rows of ``x`` (in place) start with the values the
+    encode must get right besides plain ones, at each row's ``eps``: NaN,
+    -NaN, +-inf, +-0, denormals, +-1e30, +-eps, +-eps/2 and the segment
+    bounds +-eps * 2^q, q < 40."""
+    e = eps.reshape(-1)[:rows, None].expand(rows, 1)
+    fixed = torch.tensor([float("nan"), -float("nan"), float("inf"), -float("inf"), 0.0, -0.0,
+                          1e-40, -1e-40, 1e30, -1e30], device=x.device).expand(rows, -1)
+    scales = torch.cat([torch.tensor([1.0, 0.5], device=x.device),
+                        2.0 ** torch.arange(1, 40, device=x.device)])
+    bounds = e * scales
+    vals = torch.cat([fixed, bounds, -bounds], dim=1)[:, : x.shape[1]]
+    x[:rows, : vals.shape[1]] = vals
+
+
+def b5_chunk2048_inputs(dev):
+    """B5's input at the ``chunk=2048`` route's shape: 442,368 rows of 384
+    slots (k = 308 of 1025 bins kept, the rest zero), N(0, 1e-6), one fit
+    per bucket repeated over its 8,192 rows, as the engine's per-stage
+    decode gets them.  Returns x, eps, p_codes (rows,)."""
+    from repro_torch.core import sparsify
+    from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
+    from repro_torch.kernels import ops
+
+    layout = main_path_layout(2048)
+    n, per = layout.n_buckets, layout.max_chunks
+    k = sparsify.keep_count(1025, KEEP_THETA)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((n * per, ops.pad_k(k)), generator=gen, device=dev) * 1e-3
+    x[:, k:] = 0.0
+    q = fit_quantizer(x.amin(dim=-1).reshape(n, per).amin(-1),
+                      x.amax(dim=-1).reshape(n, per).amax(-1), RangeQuantConfig(8, 3))
+    return x, q.eps.repeat_interleave(per), q.p_codes.repeat_interleave(per)
+
+
+def kernel_phase(rows: int, dev, counted) -> list:
     """Each kernel against its plain version at ``rows`` rows."""
     from repro_torch.core import selection, sparsify
     from repro_torch.kernels import (fused_compress, fused_decompress, sampled_threshold,
@@ -301,7 +343,7 @@ def kernel_phase(rows: int, dev) -> list:
 
     # B2: the engine's mid-gap tau, a quantizer fit per row
     tau, eps_rows, p_rows = compress_params(mag, re, im, s_tau_k)
-    del mag
+    del mag, tau_p, cnt_p, s_tau_p, s_cnt_p
     out_k = fused_compress.fused_compress(re, im, w, eps_rows, p_rows, tau, k_keep=k)
     out_p = fused_compress.fused_compress_plain(re, im, w, eps_rows, p_rows, tau, k_keep=k)
     torch.cuda.synchronize()
@@ -324,6 +366,7 @@ def kernel_phase(rows: int, dev) -> list:
         plain_ms=time_ms(lambda: fused_compress.fused_compress_plain(
             re, im, w, eps_rows, p_rows, tau, k_keep=k), 2),
         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    results.append(bisect_compress(re, im, w, eps_rows, p_rows, k, tau_k, counted))
 
     # B3 on the payload B2 produced, as the engine slices it; its transform
     # alone is timed as cuFFT's irfft of the (rows, 2049) spectrum
@@ -362,14 +405,73 @@ def kernel_phase(rows: int, dev) -> list:
     return results
 
 
+def bisect_compress(re, im, w, eps_rows, p_rows, k: int, tau_b1, counted) -> dict:
+    """B2 with ``tau=None``: one call through its API with every count set
+    to 0 just before (its launches), then its codes, indices and tau against
+    its plain version, bitwise, its tau against B1's (``tau_b1``, on the same
+    magnitudes), and the same on B1_EDGE_ROWS rows holding a NaN, a +inf (the
+    rest of the row scaled by 1e18) or both."""
+    from repro_torch.kernels import fused_compress, topk_threshold
+
+    rows, cols = re.shape
+    for kern in counted:
+        kern.launches = 0
+    got = fused_compress.fused_compress(re, im, w, eps_rows, p_rows, k_keep=k)
+    torch.cuda.synchronize()
+    launches = fused_compress.BISECT_KERNEL.launches
+    others = {kern.name: kern.launches for kern in counted if kern.launches}
+    log(f"[B2 fused_compress tau=None] one call through its API: launches={others}")
+    if others != {fused_compress.BISECT_KERNEL.name: 1}:
+        raise AssertionError(f"fused_compress(tau=None) launched {others}")
+    want = fused_compress.fused_compress_plain(re, im, w, eps_rows, p_rows, k_keep=k)
+    check_bitwise(f"B2 fused_compress tau=None, {rows} rows", zip(
+        (got[0], got[1], got[2], got[3].view(torch.int32)),
+        (want[0], want[1], want[2], want[3].view(torch.int32))))
+    check_bitwise("B2 fused_compress tau=None: its tau against B1's",
+                  [(got[3].view(torch.int32), tau_b1.view(torch.int32))])
+    err = float(max((got[0].int() - want[0].int()).abs().max(),
+                    (got[1].int() - want[1].int()).abs().max()))
+    del got, want
+    n = B1_EDGE_ROWS
+    re_e, im_e = re[:n].clone(), im[:n].clone()
+    re_e[0::3, 7] = float("nan")
+    re_e[1::3] *= 1e18
+    im_e[1::3] *= 1e18
+    re_e[1::3, cols - 1] = float("inf")
+    re_e[2::3, 0] = float("inf")
+    re_e[2::3, cols // 2] = float("nan")
+    mag_e = torch.sqrt(re_e * re_e + im_e * im_e) * w
+    got = fused_compress.fused_compress(re_e, im_e, w, eps_rows[:n], p_rows[:n], k_keep=k)
+    want = fused_compress.fused_compress_plain(re_e, im_e, w, eps_rows[:n], p_rows[:n], k_keep=k)
+    check_bitwise(f"B2 fused_compress tau=None, {n} rows holding a NaN or +inf", zip(
+        (got[0], got[1], got[2], got[3].view(torch.int32)),
+        (want[0], want[1], want[2], want[3].view(torch.int32))))
+    check_bitwise(f"B2 fused_compress tau=None, {n} rows holding a NaN or +inf: its tau "
+                  "against B1's", [(got[3].view(torch.int32),
+                                    topk_threshold.threshold(mag_e, k=k)[0].view(torch.int32))])
+    del got, want, re_e, im_e, mag_e
+    k_pad = fused_compress.pad_k(k)
+    b_ms, b_by = bound(rows * cols * 8 + cols * 4 + rows * 12 + rows * k_pad * 6 + rows * 4,
+                       rows * cols * (6 + B1_ROW_PASSES) + 2 * rows * k * 30)
+    return dict(
+        kernel=fused_compress.BISECT_KERNEL, max_abs_err=err, launches=launches,
+        ms=time_ms(lambda: fused_compress.fused_compress(re, im, w, eps_rows, p_rows, k_keep=k),
+                   5),
+        plain_ms=time_ms(lambda: fused_compress.fused_compress_plain(re, im, w, eps_rows, p_rows,
+                                                                     k_keep=k), 1),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 def chunk2048_phase(rows: int, dev) -> None:
     """B4 and B2 at the ``chunk=2048`` route's width, 1025 bins (k = 308,
     k_pad = 384), where each runs code of its own (B2's stretches of 128
     columns with column 1024 on warp 7's last lane, B4's instantiation for
     33 values a lane), against their plain versions, bitwise, at that
-    route's ``rows`` with its layout's padding rows all zero."""
+    route's ``rows`` with its layout's padding rows all zero; then B5a and
+    B5b at its 384 slots with one fit per bucket (b5_chunk2048_inputs), edge
+    values in B5a's first rows."""
     from repro_torch.core import selection, sparsify
-    from repro_torch.kernels import fused_compress, sampled_threshold
+    from repro_torch.kernels import fused_compress, range_quant, sampled_threshold
 
     chunk = 2048
     cols = chunk // 2 + 1
@@ -390,7 +492,22 @@ def chunk2048_phase(rows: int, dev) -> None:
     del got, want
     b2_ms = time_ms(lambda: fused_compress.fused_compress(re, im, w, eps, p_codes, tau,
                                                           k_keep=k), 5)
-    log(f"[chunk 2048] kernel_ms at {cols} columns: B4 {b4_ms:.3f}, B2 {b2_ms:.3f}")
+    del re, im, w, tau, eps, p_codes
+    x, eps, p_codes = b5_chunk2048_inputs(dev)
+    x = x[:rows]
+    eps, p_codes = eps[:rows], p_codes[:rows]
+    b5_edge_values(x, eps, B5_EDGE_ROWS)
+    codes = range_quant.encode(x, eps, p_codes)
+    check_bitwise(f"B5a encode, {x.shape[0]} x {x.shape[1]}, {B5_EDGE_ROWS} rows of edge values",
+                  [(codes, range_quant.encode_plain(x, eps, p_codes))])
+    y = range_quant.decode(codes, eps, p_codes)
+    check_bitwise(f"B5b decode, {x.shape[0]} x {x.shape[1]}",
+                  [(y.view(torch.int32),
+                    range_quant.decode_plain(codes, eps, p_codes).view(torch.int32))])
+    b5a_ms = time_ms(lambda: range_quant.encode(x, eps, p_codes), 5)
+    b5b_ms = time_ms(lambda: range_quant.decode(codes, eps, p_codes), 5)
+    log(f"[chunk 2048] kernel_ms at {cols} columns: B4 {b4_ms:.3f}, B2 {b2_ms:.3f}; at "
+        f"{x.shape[1]} slots: B5a {b5a_ms:.3f}, B5b {b5b_ms:.3f}")
 
 
 def standalone_phase(rows: int, dev) -> list:
@@ -445,6 +562,16 @@ def standalone_phase(rows: int, dev) -> list:
     x = torch.gather(re, -1, idx.long()) * valid
     del re, im, vals, idx, valid
     q = fit_quantizer(x.amin(dim=-1), x.amax(dim=-1), RangeQuantConfig(8, 3))
+    edge = x[:B5_EDGE_ROWS].clone()
+    b5_edge_values(edge, q.eps, B5_EDGE_ROWS)
+    check_bitwise(f"B5a encode, {B5_EDGE_ROWS} rows of edge values", [(
+        range_quant.encode(edge, q.eps[:B5_EDGE_ROWS], q.p_codes[:B5_EDGE_ROWS]),
+        range_quant.encode_plain(edge, q.eps[:B5_EDGE_ROWS], q.p_codes[:B5_EDGE_ROWS]))])
+    nan_row = edge[:1, :16]
+    log(f"[B5a encode] NaN and -NaN encode to "
+        f"{range_quant.encode(nan_row, q.eps[:1], q.p_codes[:1])[0, :2].tolist()} (kernel), "
+        f"{range_quant.encode_plain(nan_row, q.eps[:1], q.p_codes[:1])[0, :2].tolist()} (plain)")
+    del edge
     codes = range_quant.encode(x, q.eps, q.p_codes)
     check_bitwise("B5a encode", [(codes, range_quant.encode_plain(x, q.eps, q.p_codes))])
     b_ms, b_by = bound(rows * k_pad * 5 + rows * 12, rows * k_pad * 30)
@@ -454,7 +581,9 @@ def standalone_phase(rows: int, dev) -> list:
         plain_ms=time_ms(lambda: range_quant.encode_plain(x, q.eps, q.p_codes), 2),
         library_ms=None, bound_ms=b_ms, bound_by=b_by))
     y = range_quant.decode(codes, q.eps, q.p_codes)
-    check_bitwise("B5b decode", [(y, range_quant.decode_plain(codes, q.eps, q.p_codes))])
+    check_bitwise("B5b decode", [(y.view(torch.int32),
+                                  range_quant.decode_plain(codes, q.eps, q.p_codes).view(
+                                      torch.int32))])
     b_ms, b_by = bound(rows * k_pad * 5 + rows * 8, rows * k_pad * 20)
     results.append(dict(
         kernel=range_quant.DECODE_KERNEL, max_abs_err=0.0,
@@ -762,7 +891,7 @@ def main() -> int:
     check_ptxas(ptxas)
 
     rows = args.rows or main_path_rows()
-    results = kernel_phase(rows, dev)
+    results = kernel_phase(rows, dev, kernels)
     torch.cuda.empty_cache()
     chunk2048_phase(args.rows or main_path_rows(2048), dev)
     torch.cuda.empty_cache()
@@ -773,6 +902,7 @@ def main() -> int:
     engine_phase(dev)
 
     launches = {k.name: None for k in kernels}
+    launches.update({r["kernel"].name: r["launches"] for r in results if "launches" in r})
     if not args.skip_train:
         ops_counts = ops_phase(dev, kernels)
         for name in ("fft4096", "pack", "unpack", "range_quant_encode", "range_quant_decode"):

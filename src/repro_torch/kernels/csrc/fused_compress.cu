@@ -37,7 +37,19 @@
 // intrinsics, so codes and indices are bitwise equal to the plain version.
 // tests/test_torch_compress_threshold_design.py walks phases 1 and 2 in
 // numpy; the two change together.
+//
+// With no tau (the reference's tau=None: fused_compress.py l.64-71), a
+// separate instantiation (kBisect) bisects each row for k_keep itself
+// before phase 1: every thread writes the weighted magnitudes of its columns
+// to shared memory (the slot buffers, free until phase 2; -inf past the
+// row), and after a barrier warp 0 runs B1's row routine (threshold.cuh
+// bisect_row, NaN and +inf rows and the fixed-point stop included) on the
+// staged row, lane l reading columns l + 32 j, so tau is B1's on the same
+// magnitudes.  A second barrier hands tau to the CTA, and phases 1-3 run
+// unchanged.  Its parameters follow the tau-given kernel's, so that
+// instantiation's code is unchanged.
 #include "range_quant.cuh"
+#include "threshold.cuh"
 
 namespace repro {
 
@@ -66,20 +78,36 @@ __device__ __forceinline__ float weighted_mag(float re, float im, float w) {
   return __fmul_rn(sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im))), w);
 }
 
+// Items per lane of the bisecting warp at J: cols < 256 (J + 1) gives at
+// most 8 J + 8; rows are at most 4096 wide.
+__host__ __device__ constexpr int bisect_items(int j) {
+  return j < kMaxItems ? 8 * j + 8 : 8 * kMaxItems;
+}
+
+// The bisecting warp's view of a row staged in shared memory: item j of
+// lane l is column l + 32 j.
+struct StagedRow {
+  const float* lane_col;  // the row's column l
+  __device__ float operator[](int j) const { return lane_col[32 * j]; }
+};
+
 // J: items per lane in the warps' stretches (cols / 256, 0..16).  Dynamic
-// shared memory: k_pad floats of re, k_pad of im, k_pad column ints.  The
+// shared memory: k_pad floats of re, k_pad of im, k_pad column ints (with
+// kBisect at least 32 * bisect_items(J) floats, the staged row).  The
 // CTAs per SM are stated: 6 (40 registers) up to 2303 columns, which the
 // load of the quantizer params after the first barrier makes room for, and
 // 3 above; left to itself, ptxas picks 48 or 64 registers for the wider
-// rows and spills.
-template <int J, typename CodeT>
-__global__ void __launch_bounds__(kThreads, J <= 8 ? 6 : 3)
+// rows and spills.  The bisecting instantiations are held to 5 up to 2303
+// columns (48 registers; at 6, ptxas spills).
+template <int J, typename CodeT, bool kBisect>
+__global__ void __launch_bounds__(kThreads, J > 8 ? 3 : kBisect ? 5 : 6)
 fused_compress_kernel(const float* __restrict__ re, const float* __restrict__ im,
                       const float* __restrict__ w, const float* __restrict__ tau_in,
                       const float* __restrict__ eps, const float* __restrict__ p_codes,
                       const float* __restrict__ n_neg, int cols, int k_pad, float m_scale,
                       CodeT* __restrict__ rec, CodeT* __restrict__ imc,
-                      int* __restrict__ idx) {
+                      int* __restrict__ idx, int k_keep, int iters,
+                      float* __restrict__ tau_out) {
   extern __shared__ float4 smem[];
   __shared__ int warp_kept[kWarps];
   float* s_re = reinterpret_cast<float*>(smem);
@@ -92,7 +120,28 @@ fused_compress_kernel(const float* __restrict__ re, const float* __restrict__ im
   const unsigned below = (1u << lane) - 1u;  // lanes under this one
   const float* re_row = re + row * cols;
   const float* im_row = im + row * cols;
-  const float tau = tau_in[row];
+  float tau;
+  if constexpr (kBisect) {
+    __shared__ float s_cand[kCompactAt];
+    __shared__ float s_tau;
+    constexpr int kN = bisect_items(J);
+    for (int col = threadIdx.x; col < 32 * kN; col += kThreads)
+      s_re[col] = col < cols ? weighted_mag(re_row[col], im_row[col], w[col]) : -INFINITY;
+    __syncthreads();
+    if (warp == 0) {
+      float t;
+      int count;
+      bisect_row<kN>(StagedRow{s_re + lane}, k_keep, iters, s_cand, t, count);
+      if (lane == 0) {
+        s_tau = t;
+        tau_out[row] = t;
+      }
+    }
+    __syncthreads();
+    tau = s_tau;
+  } else {
+    tau = tau_in[row];
+  }
   constexpr int kStretch = 32 * J;
   const int first = warp * kStretch + lane;
   const int tail0 = kWarps * kStretch;  // first tail column
@@ -202,20 +251,25 @@ fused_compress_kernel(const float* __restrict__ re, const float* __restrict__ im
 }
 
 // Launches the instantiation with J = cols / 256 items per lane (0..16;
-// rows up to 4096 wide).
-template <typename CodeT, int J = 0>
+// rows up to 4096 wide); with kBisect, the one that bisects for k_keep and
+// writes its tau to tau_out.
+template <typename CodeT, bool kBisect, int J = 0>
 int launch(const float* re, const float* im, const float* w, const float* tau_in,
            const float* eps, const float* p_codes, const float* n_neg, int rows, int cols,
-           int k_pad, float m_scale, void* rec, void* imc, int* idx, cudaStream_t s) {
+           int k_pad, float m_scale, void* rec, void* imc, int* idx, int k_keep, int iters,
+           float* tau_out, cudaStream_t s) {
   if constexpr (J < kMaxItems) {
     if (cols / kThreads != J)
-      return launch<CodeT, J + 1>(re, im, w, tau_in, eps, p_codes, n_neg, rows, cols, k_pad,
-                                  m_scale, rec, imc, idx, s);
+      return launch<CodeT, kBisect, J + 1>(re, im, w, tau_in, eps, p_codes, n_neg, rows, cols,
+                                           k_pad, m_scale, rec, imc, idx, k_keep, iters,
+                                           tau_out, s);
   }
   if (cols < 1 || cols > kThreads * kMaxItems || k_pad % (32 * kSlotGroup))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fused_compress_kernel<J, CodeT>;
-  const size_t smem = static_cast<size_t>(k_pad) * 3 * sizeof(float);
+  auto kernel = fused_compress_kernel<J, CodeT, kBisect>;
+  size_t smem = static_cast<size_t>(k_pad) * 3 * sizeof(float);
+  const size_t staged = kBisect ? 32 * bisect_items(J) * sizeof(float) : 0;
+  if (staged > smem) smem = staged;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -223,7 +277,7 @@ int launch(const float* re, const float* im, const float* w, const float* tau_in
   }
   kernel<<<rows, kThreads, smem, s>>>(re, im, w, tau_in, eps, p_codes, n_neg, cols, k_pad,
                                       m_scale, static_cast<CodeT*>(rec),
-                                      static_cast<CodeT*>(imc), idx);
+                                      static_cast<CodeT*>(imc), idx, k_keep, iters, tau_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,10 +291,29 @@ REPRO_EXPORT int fused_compress(const float* re, const float* im, const float* w
                                 int code_bytes, void* rec, void* imc, int* idx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (code_bytes == 1)
-    return repro::launch<uint8_t>(re, im, w, tau_in, eps, p_codes, n_neg, rows, cols, k_pad,
-                                  m_scale, rec, imc, idx, s);
+    return repro::launch<uint8_t, false>(re, im, w, tau_in, eps, p_codes, n_neg, rows, cols,
+                                         k_pad, m_scale, rec, imc, idx, 0, 0, nullptr, s);
   if (code_bytes == 2)
-    return repro::launch<uint16_t>(re, im, w, tau_in, eps, p_codes, n_neg, rows, cols, k_pad,
-                                   m_scale, rec, imc, idx, s);
+    return repro::launch<uint16_t, false>(re, im, w, tau_in, eps, p_codes, n_neg, rows, cols,
+                                          k_pad, m_scale, rec, imc, idx, 0, 0, nullptr, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same with no tau: each row bisected for k_keep in ``iters`` sweeps
+// (B1's routine); tau_out (rows,) receives it.
+REPRO_EXPORT int fused_compress_bisect(const float* re, const float* im, const float* w,
+                                       const float* eps, const float* p_codes,
+                                       const float* n_neg, int rows, int cols, int k_pad,
+                                       float m_scale, int code_bytes, void* rec, void* imc,
+                                       int* idx, int k_keep, int iters, float* tau_out,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (code_bytes == 1)
+    return repro::launch<uint8_t, true>(re, im, w, nullptr, eps, p_codes, n_neg, rows, cols,
+                                        k_pad, m_scale, rec, imc, idx, k_keep, iters, tau_out, s);
+  if (code_bytes == 2)
+    return repro::launch<uint16_t, true>(re, im, w, nullptr, eps, p_codes, n_neg, rows, cols,
+                                         k_pad, m_scale, rec, imc, idx, k_keep, iters, tau_out,
+                                         s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

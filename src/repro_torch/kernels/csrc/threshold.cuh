@@ -1,10 +1,13 @@
 // Warp-per-row bisection pieces shared by the threshold kernels B1
-// (topk_threshold.cu) and B4 (sampled_threshold.cu).
+// (topk_threshold.cu) and B4 (sampled_threshold.cu), and B1's row routine,
+// which B2 (fused_compress.cu) also runs when it bisects for its own tau.
 //
 // One warp bisects one row; lane l holds the row's columns l, l + 32, ...
-// in N registers (-inf past the row, which no count includes), N from
-// dispatch_lane_items.  Every lane receives every count, so the lanes
-// update lo/hi alike without a broadcast.  The arithmetic is the plain
+// (-inf past the row, which no count includes): N of them, N from
+// dispatch_lane_items, in registers (a ``float[N]``) or staged in shared
+// memory (any ``Row`` whose ``v[j]`` reads item j of the lane).  Every
+// lane receives every count, so the lanes update lo/hi alike without a
+// broadcast.  The arithmetic is the plain
 // version's (core/selection.py: upper_bracket, bisect_bracket) op for op:
 // mid = 0.5 * (lo + hi) in round-to-nearest, a NaN counts as not >=, a NaN
 // or +inf maximum as torch.amax and upper_bracket give it.
@@ -21,8 +24,8 @@ constexpr float kMaxBracket = FLT_MAX / 4;  // brackets within it: lo + hi is fi
 
 // count(v >= t) over the warp's row; every lane receives it.  Four
 // accumulators keep the compare-and-add chains short.
-template <int N>
-__device__ __forceinline__ int warp_count_ge(const float (&v)[N], float t) {
+template <int N, typename Row>
+__device__ __forceinline__ int warp_count_ge(const Row& v, float t) {
   int c[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int j = 0; j < N; ++j) c[j & 3] += v[j] >= t ? 1 : 0;
@@ -66,6 +69,107 @@ int dispatch_lane_items(int cols, Launch&& launch) {
   }
   if (cols < 1 || cols > kThreads * kMaxItems) return static_cast<int>(cudaErrorInvalidValue);
   return launch(std::integral_constant<int, N>{});
+}
+
+constexpr int kCandPerLane = 2;              // candidates a lane holds after B1's compaction
+constexpr int kCompactAt = 32 * kCandPerLane;  // values in [lo, hi) that B1's warp compacts
+
+// The warp's values in [lo, hi), ``n`` of them (n <= kCompactAt), to the
+// warp's kCompactAt floats of shared memory at the 32-bit shared address
+// ``slots``, in lane order (an exclusive scan of the lanes' counts), then
+// back as kCandPerLane a lane, -inf past n.  Then count(>= mid) =
+// count(>= hi) + warp_count_ge(cv, mid) for every mid in [lo, hi].  The
+// stores use the 32-bit address: left to itself the compiler rebuilds a
+// generic one (an S2R of the cluster id and three more instructions) at
+// every predicated store.
+template <int N, typename Row>
+__device__ __forceinline__ void compact_candidates(const Row& v, float lo, float hi, int n,
+                                                   unsigned slots, float (&cv)[kCandPerLane]) {
+  const int lane = threadIdx.x & 31;
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) mine += v[j] >= lo && v[j] < hi ? 1 : 0;
+  int slot = mine;  // inclusive scan over the lanes, then exclusive
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int up = __shfl_up_sync(kFullMask, slot, off);
+    slot += lane >= off ? up : 0;
+  }
+  slot -= mine;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (v[j] >= lo && v[j] < hi) {
+      asm volatile("st.shared.f32 [%0], %1;" ::"r"(slots + 4 * slot), "f"(v[j]) : "memory");
+      ++slot;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kCandPerLane; ++r) {
+    const int s = 32 * r + lane;
+    cv[r] = -INFINITY;  // below every mid
+    if (s < n)
+      asm volatile("ld.shared.f32 %0, [%1];" : "=f"(cv[r]) : "r"(slots + 4 * s) : "memory");
+  }
+}
+
+// B1's row routine (topk_threshold.cu says how it works): ``iters``
+// bisection sweeps on [0, upper_bracket(max)] for the row's k-th value, as
+// the plain version's bisect_tau, with the compaction and the fixed-point
+// stop.  ``cand``: the warp's kCompactAt floats of shared memory.  Every
+// lane receives tau and count(>= tau).
+template <int N, typename Row>
+__device__ __forceinline__ void bisect_row(const Row& v, int k, int iters, float* cand,
+                                           float& tau, int& count) {
+  // count(>= 0) and the maximum in one pass
+  int c_zero = 0;
+  float m = -INFINITY, nan = 0.0f;
+  bool has_nan = false;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c_zero += v[j] >= 0.0f ? 1 : 0;
+    m = fmaxf(m, v[j]);
+    if (v[j] != v[j]) {
+      has_nan = true;
+      nan = v[j];
+    }
+  }
+  m = warp_max_keep_nan(m, has_nan, nan);
+
+  // the bracket with count(>= lo), carried so the final count is free, and
+  // count(>= hi) where it is known: 0 when hi lies above the maximum (not
+  // for a maximum of FLT_MAX, +inf or NaN, nor a negative one)
+  float lo = 0.0f;
+  float hi = upper_bracket(m);
+  int lo_count = __reduce_add_sync(kFullMask, c_zero);
+  int hi_count = 0;
+  bool hi_known = hi > m;
+
+  const unsigned slots = static_cast<unsigned>(__cvta_generic_to_shared(cand));
+  float cv[kCandPerLane];
+  bool dense = false;
+  for (int it = 0; it < iters; ++it) {
+    if (!dense && hi_known && lo_count - hi_count <= kCompactAt && lo <= hi &&
+        fabsf(lo) <= kMaxBracket && fabsf(hi) <= kMaxBracket) {  // lo <= mid <= hi
+      compact_candidates<N>(v, lo, hi, lo_count - hi_count, slots, cv);
+      dense = true;
+    }
+    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    const int c = dense ? hi_count + warp_count_ge<kCandPerLane>(cv, mid)
+                        : warp_count_ge<N>(v, mid);
+    const bool feasible = c >= k;
+    const float moved = feasible ? lo : hi;  // the end mid replaces
+    lo = feasible ? mid : lo;
+    lo_count = feasible ? c : lo_count;
+    hi = feasible ? hi : mid;
+    if (!feasible && !dense) {  // after the compaction hi_count stays count(>= its hi)
+      hi_count = c;
+      hi_known = true;
+    }
+    if (__float_as_uint(mid) == __float_as_uint(moved)) break;  // the fixed point
+  }
+  tau = lo;
+  count = lo_count;
 }
 
 }  // namespace repro

@@ -37,52 +37,11 @@
 // so no final pass is needed.  mid = 0.5 * (lo + hi) in round-to-nearest,
 // as in the plain version (core/selection.py: bisect_tau), so tau and count
 // are bitwise equal to it.  tests/test_torch_compress_threshold_design.py
-// walks this routine in numpy; the two change together.
+// walks this routine in numpy; the two change together.  The routine itself
+// is bisect_row in threshold.cuh, which B2 also runs.
 #include "threshold.cuh"
 
 namespace repro {
-
-constexpr int kCandPerLane = 2;              // candidates a lane holds after the compaction
-constexpr int kCompactAt = 32 * kCandPerLane;  // values in [lo, hi) that the warp compacts
-
-// The warp's values in [lo, hi), ``n`` of them (n <= kCompactAt), to the
-// warp's kCompactAt floats of shared memory at the 32-bit shared address
-// ``slots``, in lane order (an exclusive scan of the lanes' counts), then
-// back as kCandPerLane a lane, -inf past n.  Then count(>= mid) =
-// count(>= hi) + warp_count_ge(cv, mid) for every mid in [lo, hi].  The
-// stores use the 32-bit address: left to itself the compiler rebuilds a
-// generic one (an S2R of the cluster id and three more instructions) at
-// every predicated store.
-template <int N>
-__device__ __forceinline__ void compact_candidates(const float (&v)[N], float lo, float hi, int n,
-                                                   unsigned slots, float (&cv)[kCandPerLane]) {
-  const int lane = threadIdx.x & 31;
-  int mine = 0;
-#pragma unroll
-  for (int j = 0; j < N; ++j) mine += v[j] >= lo && v[j] < hi ? 1 : 0;
-  int slot = mine;  // inclusive scan over the lanes, then exclusive
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int up = __shfl_up_sync(kFullMask, slot, off);
-    slot += lane >= off ? up : 0;
-  }
-  slot -= mine;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    if (v[j] >= lo && v[j] < hi) {
-      asm volatile("st.shared.f32 [%0], %1;" ::"r"(slots + 4 * slot), "f"(v[j]) : "memory");
-      ++slot;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < kCandPerLane; ++r) {
-    const int s = 32 * r + lane;
-    cv[r] = -INFINITY;  // below every mid
-    if (s < n)
-      asm volatile("ld.shared.f32 %0, [%1];" : "=f"(cv[r]) : "r"(slots + 4 * s) : "memory");
-  }
-}
 
 // N: items per lane (columns l + 32 j, j < N; past the row they hold -inf,
 // which no count includes).
@@ -101,58 +60,12 @@ topk_threshold_kernel(const float* __restrict__ mag, int rows, int cols, int k, 
     const int col = 32 * j + lane;
     v[j] = col < cols ? m_row[col] : -INFINITY;
   }
-
-  // count(>= 0) and the maximum in one pass
-  int c_zero = 0;
-  float m = -INFINITY, nan = 0.0f;
-  bool has_nan = false;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    c_zero += v[j] >= 0.0f ? 1 : 0;
-    m = fmaxf(m, v[j]);
-    if (v[j] != v[j]) {
-      has_nan = true;
-      nan = v[j];
-    }
-  }
-  m = warp_max_keep_nan(m, has_nan, nan);
-
-  // the bracket with count(>= lo), carried so the final count is free, and
-  // count(>= hi) where it is known: 0 when hi lies above the maximum (not
-  // for a maximum of FLT_MAX, +inf or NaN, nor a negative one)
-  float lo = 0.0f;
-  float hi = upper_bracket(m);
-  int lo_count = __reduce_add_sync(kFullMask, c_zero);
-  int hi_count = 0;
-  bool hi_known = hi > m;
-
-  const unsigned slots =
-      static_cast<unsigned>(__cvta_generic_to_shared(&s_cand[threadIdx.x >> 5][0]));
-  float cv[kCandPerLane];
-  bool dense = false;
-  for (int it = 0; it < iters; ++it) {
-    if (!dense && hi_known && lo_count - hi_count <= kCompactAt && lo <= hi &&
-        fabsf(lo) <= kMaxBracket && fabsf(hi) <= kMaxBracket) {  // lo <= mid <= hi
-      compact_candidates<N>(v, lo, hi, lo_count - hi_count, slots, cv);
-      dense = true;
-    }
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    const int c = dense ? hi_count + warp_count_ge<kCandPerLane>(cv, mid)
-                        : warp_count_ge<N>(v, mid);
-    const bool feasible = c >= k;
-    const float moved = feasible ? lo : hi;  // the end mid replaces
-    lo = feasible ? mid : lo;
-    lo_count = feasible ? c : lo_count;
-    hi = feasible ? hi : mid;
-    if (!feasible && !dense) {  // after the compaction hi_count stays count(>= its hi)
-      hi_count = c;
-      hi_known = true;
-    }
-    if (__float_as_uint(mid) == __float_as_uint(moved)) break;  // the fixed point
-  }
+  float t;
+  int c;
+  bisect_row<N>(v, k, iters, &s_cand[threadIdx.x >> 5][0], t, c);
   if (lane == 0) {
-    tau[row] = lo;
-    count[row] = lo_count;
+    tau[row] = t;
+    count[row] = c;
   }
 }
 

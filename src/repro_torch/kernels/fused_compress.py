@@ -2,13 +2,16 @@
 ``repro.kernels.fused_compress.fused_compress_pallas``).
 
 Per row of rfft spectrum planes: the Hermitian-weighted magnitude
-``sqrt(re^2 + im^2) * w``, the mask ``mag >= tau`` (the caller's per-row
-tau), index-ascending compaction of the kept bins into
-``k_pad = ceil128(k_keep)`` slots, and range-quant encode of re and im with
-scalar or per-row quantizer params.  Slots never filled hold code 0 at
-index 0.  The reference kernel's in-kernel bisection (``tau=None``) is not
-ported: the engine always passes the threshold kernel's mid-gap tau.  The CUDA kernel is ``csrc/fused_compress.cu``; codes and
-indices are bitwise equal to the plain version on the same input.
+``sqrt(re^2 + im^2) * w``, the mask ``mag >= tau``, index-ascending
+compaction of the kept bins into ``k_pad = ceil128(k_keep)`` slots, and
+range-quant encode of re and im with scalar or per-row quantizer params.
+Slots never filled hold code 0 at index 0.  The engine passes the
+threshold kernel's mid-gap tau; with ``tau=None`` each row is bisected for
+``k_keep`` first (``selection.bisect_tau``, B1's function), as the
+reference kernel does, and that tau is returned.  The CUDA kernel is
+``csrc/fused_compress.cu`` (:data:`KERNEL` with a tau, :data:`BISECT_KERNEL`
+without); codes, indices and tau are bitwise equal to the plain version on
+the same input.
 """
 
 from __future__ import annotations
@@ -17,11 +20,13 @@ import ctypes
 
 import torch
 
+from repro_torch.core import selection
 from repro_torch.kernels import _checks
 from repro_torch.kernels.build import Kernel, ptr
 from repro_torch.kernels.range_quant import encode_math
 
-__all__ = ["KERNEL", "K_TILE", "pad_k", "fused_compress", "fused_compress_plain"]
+__all__ = ["KERNEL", "BISECT_KERNEL", "K_TILE", "pad_k", "fused_compress",
+           "fused_compress_plain"]
 
 K_TILE = 128
 
@@ -32,6 +37,12 @@ KERNEL = Kernel(
     entry="fused_compress",
     argtypes=[_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
 )
+BISECT_KERNEL = Kernel(
+    "fused_compress_bisect", "fused_compress.cu",
+    replaces="src/repro/kernels/fused_compress.py:168",
+    entry="fused_compress_bisect",
+    argtypes=[_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _I, _I, _P],
+)
 
 
 def pad_k(k: int) -> int:
@@ -39,7 +50,7 @@ def pad_k(k: int) -> int:
     return ((k + K_TILE - 1) // K_TILE) * K_TILE
 
 
-def fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
+def fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau=None, *, k_keep: int,
                          n_bits: int = 8, m_bits: int = 3):
     """Plain PyTorch version: (re_codes, im_codes, idx i32, tau (rows,1))."""
     rows, cols = re2d.shape
@@ -47,6 +58,8 @@ def fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
     eps_r, p_r, n_neg_r = (v[:, None] for v in _checks.encode_row_params(
         eps, p_codes, n_bits, rows, re2d.device))
     mag = torch.sqrt(re2d * re2d + im2d * im2d) * weights.reshape(1, -1)
+    if tau is None:
+        tau = selection.bisect_tau(mag, k_keep)
     tau = tau.reshape(rows, 1).float()
     mask = mag >= tau
     pos = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
@@ -66,15 +79,16 @@ def fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
     return codes[0], codes[1], idx, tau
 
 
-def fused_compress(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
+def fused_compress(re2d, im2d, weights, eps, p_codes, tau=None, *, k_keep: int,
                    n_bits: int = 8, m_bits: int = 3):
     """(rows, cols) spectrum planes and per-row ``tau`` -> (re_codes,
     im_codes, idx i32, tau (rows, 1)).
 
-    Codes are uint8 for ``n_bits <= 8``, else uint16; the payload width is
-    ``pad_k(k_keep)``.  ``eps``/``p_codes`` are scalars (one fit) or
-    ``(rows,)`` vectors (one fit per row).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    With ``tau=None`` each row's tau is bisected for ``k_keep`` first, as
+    B1 bisects it, and returned.  Codes are uint8 for ``n_bits <= 8``, else
+    uint16; the payload width is ``pad_k(k_keep)``.  ``eps``/``p_codes``
+    are scalars (one fit) or ``(rows,)`` vectors (one fit per row).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if _checks.on_cpu(re2d):
         return fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, k_keep=k_keep,
                                     n_bits=n_bits, m_bits=m_bits)
@@ -84,16 +98,25 @@ def fused_compress(re2d, im2d, weights, eps, p_codes, tau, *, k_keep: int,
     _checks.require("im", im2d, torch.float32, shape=(rows, cols), device=dev)
     w = weights.reshape(cols)
     _checks.require("weights", w, torch.float32, device=dev)
-    tau = tau.reshape(rows).float().contiguous()
-    _checks.require("tau", tau, torch.float32, device=dev)
     eps_r, p_r, n_neg_r = _checks.encode_row_params(eps, p_codes, n_bits, rows, dev)
     k = pad_k(k_keep)
     out_dtype = _checks.code_dtype(n_bits)
     rec = torch.empty((rows, k), dtype=out_dtype, device=dev)
     imc = torch.empty((rows, k), dtype=out_dtype, device=dev)
     idx = torch.empty((rows, k), dtype=torch.int32, device=dev)
+    m_scale = float(1 << m_bits)
+    if tau is None:
+        tau = torch.empty((rows,), dtype=torch.float32, device=dev)
+        if rows:
+            BISECT_KERNEL.launch(dev, ptr(re2d), ptr(im2d), ptr(w), ptr(eps_r), ptr(p_r),
+                                 ptr(n_neg_r), rows, cols, k, m_scale, rec.element_size(),
+                                 ptr(rec), ptr(imc), ptr(idx), k_keep, selection.BISECT_ITERS,
+                                 ptr(tau))
+        return rec, imc, idx, tau.reshape(rows, 1)
+    tau = tau.reshape(rows).float().contiguous()
+    _checks.require("tau", tau, torch.float32, device=dev)
     if rows:
         KERNEL.launch(dev, ptr(re2d), ptr(im2d), ptr(w), ptr(tau), ptr(eps_r), ptr(p_r),
-                      ptr(n_neg_r), rows, cols, k, float(1 << m_bits), rec.element_size(),
+                      ptr(n_neg_r), rows, cols, k, m_scale, rec.element_size(),
                       ptr(rec), ptr(imc), ptr(idx))
     return rec, imc, idx, tau.reshape(rows, 1)

@@ -14,7 +14,8 @@ per row).
 (``csrc/range_quant.cu``): a ``(rows, cols)`` plane with one fit for the
 whole plane (scalars) or one per row (``(rows,)`` vectors); codes are uint8
 for ``n_bits <= 8``, else uint16.  Their plain versions are the math above
-with the dtype casts, and kernel and plain version are bitwise equal.
+with the dtype casts, and kernel and plain version are bitwise equal for
+every input (a NaN encodes to code 0 in both, as in the reference).
 """
 
 from __future__ import annotations

@@ -42,8 +42,12 @@ sweeps count those plus count(>= hi).  The loop stops after the first
 sweep that leaves lo and hi as they were, bit for bit: every later sweep
 would repeat it.
 
-``csrc/fused_compress.cu``, ``csrc/pack.cu``, ``csrc/sampled_threshold.cu``
-and ``csrc/topk_threshold.cu`` name this file: they change together.
+B2 with ``tau=None`` stages the row's magnitudes in shared memory (-inf up
+to 32 * (8 J + 8) columns) and runs B1's routine on them with one warp.
+
+``csrc/fused_compress.cu``, ``csrc/pack.cu``, ``csrc/sampled_threshold.cu``,
+``csrc/topk_threshold.cu`` and ``csrc/threshold.cuh`` name this file: they
+change together.
 """
 
 import numpy as np
@@ -498,6 +502,31 @@ def test_b1_walk_stops_early_and_compacts_on_spectrum_rows(cols):
         assert cnt >= k
     assert walks[-1][2:] == (1, None) and walks[-1][:2] == (0.0, cols)
     assert walks[-2][3] is None
+
+
+def bisect_items(cols):
+    """Items per lane of B2's bisecting warp (fused_compress.cu
+    bisect_items): 8 J + 8 for J = cols // 256, at most 128."""
+    j = min(cols // THREADS, MAX_STRETCH)
+    return 8 * j + 8 if j < MAX_STRETCH else 8 * MAX_STRETCH
+
+
+@pytest.mark.parametrize("cols,kind", [(c, kd) for c in (2049, 1025, 513, 300, 100, 4096)
+                                       for kd in ("spectrum", "nan", "inf", "zero")])
+def test_b2_bisect_staged_row_walk_equals_threshold_plain(cols, kind):
+    """B2 with tau=None stages the row's magnitudes in shared memory, -inf
+    up to 32 * bisect_items columns, and its warp 0 runs B1's routine with
+    lane l reading columns l + 32 j: B1's walk on that staged row gives
+    ``threshold_plain``'s tau and count bitwise, so B2's tau is B1's."""
+    n = bisect_items(cols)
+    assert LANES * n >= cols
+    mag, k = _b1_rows(cols, kind, seed=cols + len(kind))
+    want_tau, want_cnt = ttt.threshold_plain(torch.from_numpy(mag), k)
+    for r in range(mag.shape[0]):
+        staged = np.concatenate([mag[r], np.full(LANES * n - cols, -np.inf, np.float32)])
+        assert lane_items(staged).shape == (LANES, n)
+        tau, cnt, _, _ = b1_walk(staged, k)
+        assert _bits(tau) == _bits(want_tau[r, 0].numpy()) and cnt == int(want_cnt[r, 0])
 
 
 # ---------------------------------------------------------------- B6a

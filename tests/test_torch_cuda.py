@@ -5,7 +5,8 @@ CPU) and run on the card with
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances as in chip_smoke.py: B1, B4, B2, B5 and B6 bitwise; B3 and B7
-max abs error <= 2e-6 * max|x| per row.
+max abs error <= 2e-6 * max|x| per row.  Build the kernels first with
+``repro_torch.kernels.build.build(...)`` so the nvcc runs go in parallel.
 """
 
 import numpy as np
@@ -71,19 +72,84 @@ def test_fused_compress_bitwise_and_decompress(planes, selector):
     assert bool((err <= 2e-6 * y_ref.abs().amax(-1)).all())
 
 
+def _edge_values(eps, cols):
+    """Row r: NaN, -NaN, +-inf, +-0, denormals, +-1e30, then +-eps, +-eps/2,
+    every segment bound +-eps * 2^q (q < 40) and the float on each side of
+    each, at row r's eps (the first ``cols`` of these 256 values)."""
+    rows = eps.shape[0]
+    fixed = torch.tensor([float("nan"), -float("nan"), float("inf"), -float("inf"), 0.0, -0.0,
+                          1e-40, -1e-40, 1e30, -1e30], device="cuda").expand(rows, -1)
+    bounds = eps[:, None] * torch.cat([torch.tensor([1.0, 0.5], device="cuda"),
+                                       2.0 ** torch.arange(1, 40, device="cuda")])
+    up = (bounds.view(torch.int32) + 1).view(torch.float32)
+    down = (bounds.view(torch.int32) - 1).view(torch.float32)
+    vals = torch.cat([fixed, bounds, -bounds, up, -up, down, -down], dim=1)
+    return vals[:, :cols]
+
+
 @pytest.mark.parametrize("n_bits,m_bits", [(8, 3), (12, 7)])
 def test_range_quant_kernels_bitwise(planes, n_bits, m_bits):
+    """B5a and B5b against their plain versions, bitwise, on spectrum values
+    with edge values in their first columns (NaN and -NaN to code 0), at
+    the widths chip_smoke.py runs (640, 384) and odd ones (130, 1, 2049:
+    the one-value path), one fit per row and one fit."""
     re, im, *_ = planes
-    x = re[:, :640].contiguous()
-    fits = fit_quantizer(x.amin(-1), x.amax(-1), RangeQuantConfig(n_bits, m_bits))
-    one = fit_quantizer(x.amin(), x.amax(), RangeQuantConfig(n_bits, m_bits))
-    for eps, p in ((fits.eps, fits.p_codes), (one.eps, one.p_codes)):
-        codes = range_quant.encode(x, eps, p, n_bits=n_bits, m_bits=m_bits)
-        want = range_quant.encode_plain(x, eps, p, n_bits=n_bits, m_bits=m_bits)
-        assert codes.dtype == want.dtype and torch.equal(codes, want)
-        got = range_quant.decode(codes, eps, p, n_bits=n_bits, m_bits=m_bits)
-        assert torch.equal(got, range_quant.decode_plain(codes, eps, p, n_bits=n_bits,
-                                                         m_bits=m_bits))
+    for cols in (640, 384, 130, 1, 2049):
+        x = re[:, :cols].contiguous()
+        fits = fit_quantizer(x.amin(-1), x.amax(-1), RangeQuantConfig(n_bits, m_bits))
+        one = fit_quantizer(x.amin(), x.amax(), RangeQuantConfig(n_bits, m_bits))
+        for eps, p in ((fits.eps, fits.p_codes), (one.eps, one.p_codes)):
+            e = torch.as_tensor(eps, device="cuda").reshape(-1).expand(x.shape[0])
+            edge = _edge_values(e, cols)
+            x_e = x.clone()
+            x_e[:, :edge.shape[1]] = edge
+            codes = range_quant.encode(x_e, eps, p, n_bits=n_bits, m_bits=m_bits)
+            want = range_quant.encode_plain(x_e, eps, p, n_bits=n_bits, m_bits=m_bits)
+            assert codes.dtype == want.dtype and torch.equal(codes, want), cols
+            assert not codes[:, :min(2, cols)].int().any()  # NaN and -NaN: code 0
+            got = range_quant.decode(codes, eps, p, n_bits=n_bits, m_bits=m_bits)
+            want_y = range_quant.decode_plain(codes, eps, p, n_bits=n_bits, m_bits=m_bits)
+            assert torch.equal(got.view(torch.int32), want_y.view(torch.int32)), cols
+
+
+@pytest.mark.parametrize("n_bits,m_bits", [(8, 3), (4, 2), (12, 4)])
+def test_range_quant_kernels_on_edge_rows_per_row_fits(card, n_bits, m_bits):
+    """B5a on rows of edge values with fits of every kind of eps (tiny,
+    large, the 12-bit fits' 1e-30 floor) and a fractional P (the exact path
+    throughout), and B5b on the codes, bitwise."""
+    lo = torch.tensor([-1.0, -1e-30, -3e5, -0.02, -1e-3], device="cuda")
+    hi = torch.tensor([1.0, 1e-30, 2e5, 3.0, 1e-3], device="cuda")
+    q = fit_quantizer(lo, hi, RangeQuantConfig(n_bits, m_bits))
+    eps, p = q.eps, q.p_codes.float()
+    p[-1] += 0.5
+    x = _edge_values(eps, 512).contiguous()
+    kw = dict(n_bits=n_bits, m_bits=m_bits)
+    codes = range_quant.encode(x, eps, p, **kw)
+    assert torch.equal(codes, range_quant.encode_plain(x, eps, p, **kw))
+    got = range_quant.decode(codes, eps, p, **kw)
+    assert torch.equal(got.view(torch.int32),
+                       range_quant.decode_plain(codes, eps, p, **kw).view(torch.int32))
+
+
+def test_range_quant_kernels_on_every_float(card):
+    """B5a on all 2^32 float32 bit patterns (in chunks of 2^28, rows of 512)
+    for one 8/3 fit, and B5b on their codes, against the plain versions:
+    bitwise."""
+    q = fit_quantizer(-0.3, 0.5, RangeQuantConfig(8, 3))
+    chunk = 1 << 28
+    for start in range(0, 1 << 32, chunk):
+        bits = torch.arange(start, start + chunk, dtype=torch.int64, device="cuda")
+        x = bits.to(torch.int32).view(torch.float32).reshape(-1, 512)
+        del bits
+        codes = range_quant.encode(x, q.eps, q.p_codes)
+        want = range_quant.encode_plain(x, q.eps, q.p_codes)
+        bad = int((codes != want).sum())
+        assert bad == 0, (start, bad)
+        del x, want
+        got = range_quant.decode(codes, q.eps, q.p_codes)
+        want_y = range_quant.decode_plain(codes, q.eps, q.p_codes)
+        assert torch.equal(got.view(torch.int32), want_y.view(torch.int32)), start
+        del codes, got, want_y
 
 
 def test_pack_unpack_kernels_bitwise(planes):
@@ -265,6 +331,48 @@ def test_fused_compress_kernel_edge_rows(card, cols, k_keep, quant):
     expect[cols:] = 0
     assert torch.equal(got[2][0].cpu(), expect)  # the zero row: the first columns
     assert not got[2][2].any() and not got[0][2].int().any()  # nothing kept (no uint16 any)
+
+
+@pytest.mark.parametrize("kind", ["spectrum", "nan", "inf", "nan_inf", "zero"])
+@pytest.mark.parametrize("quant", ["u8-scalar", "u16-per-row"])
+@pytest.mark.parametrize("cols,k_keep", [(2049, 615), (1025, 308), (513, 129), (4096, 1229),
+                                         (300, 127)])
+def test_fused_compress_bisect_kernel(card, cols, k_keep, quant, kind):
+    """B2 with ``tau=None`` against its plain version (codes, indices, tau)
+    and its tau against B1's on the same magnitudes, bitwise (tau by its
+    bits): spectrum rows with an all-zero row, rows holding a NaN, a +inf
+    (the rest scaled by 1e18) or both, and all-zero rows; 37 rows."""
+    re, im, w, _ = (torch.from_numpy(a).cuda() for a in _compress_rows(cols, k_keep, cols))
+    if kind in ("nan", "nan_inf"):
+        re[:, cols // 3] = float("nan")
+    if kind == "inf":
+        re *= 1e18
+        im *= 1e18
+    if kind in ("inf", "nan_inf"):
+        re[:, cols - 1] = float("inf")
+    if kind == "zero":
+        re[:], im[:] = 0.0, 0.0
+    n_bits, m_bits = (8, 3) if quant == "u8-scalar" else (12, 7)
+    fin = torch.isfinite(re) & torch.isfinite(im)
+    lo = torch.minimum(torch.where(fin, re, 0.0).amin(-1), torch.where(fin, im, 0.0).amin(-1))
+    hi = torch.maximum(torch.where(fin, re, 0.0).amax(-1), torch.where(fin, im, 0.0).amax(-1))
+    if quant == "u8-scalar":
+        lo, hi = lo.min(), hi.max()
+    q = fit_quantizer(lo, hi, RangeQuantConfig(n_bits, m_bits))
+    kw = dict(k_keep=k_keep, n_bits=n_bits, m_bits=m_bits)
+    before = fused_compress.BISECT_KERNEL.launches
+    got = fused_compress.fused_compress(re, im, w, q.eps, q.p_codes, **kw)
+    assert fused_compress.BISECT_KERNEL.launches == before + 1
+    want = fused_compress.fused_compress_plain(re, im, w, q.eps, q.p_codes, **kw)
+    assert got[3].shape == (re.shape[0], 1)
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    mag = torch.sqrt(re * re + im * im) * w
+    tau_b1 = topk_threshold.threshold(mag, k=k_keep)[0]
+    assert torch.equal(got[3].view(torch.int32).cpu(), tau_b1.view(torch.int32).cpu())
 
 
 def _bracket_rows(cols, kind, seed, rows=37):

@@ -76,6 +76,52 @@ def test_range_quant_plain_vs_pallas_bitwise(rows, cols, n_bits, m_bits, per_row
     np.testing.assert_array_equal(_np(jy), ty.numpy())
 
 
+def range_quant_edge_values(eps, n_bits, m_bits):
+    """The values B5a must get right besides plain ones, at one fit's eps:
+    NaN, -NaN, +-inf, +-0, a denormal, +-1e30, and +-eps, +-eps/2 and every
+    finite segment bound +-eps * 2**q up to two segments past the codes."""
+    vals = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40, 1e30, -1e30],
+                    np.float32)
+    bounds = float(eps) * 2.0 ** np.arange(-1, (1 << (n_bits - m_bits)) + 2)
+    bounds = bounds[bounds <= np.finfo(np.float32).max].astype(np.float32)
+    return np.concatenate([vals, bounds, -bounds])
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("n_bits,m_bits", [(8, 3), (4, 2), (12, 4)])
+def test_range_quant_plain_vs_pallas_edge_values(n_bits, m_bits, per_row):
+    """NaN and -NaN encode to code 0, as do +-inf, +-0 and denormals; +-1e30
+    clamp to the end codes; eps, eps/2 and the segment bounds land where the
+    reference puts them: codes bitwise, scalar and per-row fits, uint8 and
+    (12 bits) uint16 codes.  Decoded values bitwise at 8 and 4 bits; at 12
+    bits within 2 ulps, since XLA's and torch's CPU exp differ by up to 2
+    ulps from 2**32 on (codes 513 and up at 12/4; ROADMAP, faults 2)."""
+    fits = [jfit(-1.0, 1.0, JRQ(n_bits, m_bits)), jfit(-0.02, 3.0, JRQ(n_bits, m_bits))]
+    rows = [range_quant_edge_values(np.float32(f.eps), n_bits, m_bits) for f in fits]
+    cols = max(len(r) for r in rows)
+    x = np.stack([np.pad(r, (0, cols - len(r))) for r in rows])
+    if per_row:
+        eps = np.array([np.float32(f.eps) for f in fits], np.float32)
+        p = np.array([np.int32(f.p_codes) for f in fits], np.int32)
+    else:
+        x = x[:1]
+        eps, p = np.float32(fits[0].eps), np.int32(fits[0].p_codes)
+    jcodes = jrq.encode_pallas(jnp.asarray(x), jnp.asarray(eps), jnp.asarray(p), n_bits=n_bits,
+                               m_bits=m_bits, interpret=True)
+    tcodes = trq.encode(_t(x), _t(np.asarray(eps)), _t(np.asarray(p)), n_bits=n_bits,
+                        m_bits=m_bits)
+    np.testing.assert_array_equal(_np(jcodes).astype(np.int32), tcodes.numpy().astype(np.int32))
+    assert not tcodes[:, :2].numpy().any()  # NaN and -NaN: code 0
+    jy = jrq.decode_pallas(jcodes, jnp.asarray(eps), jnp.asarray(p), n_bits=n_bits,
+                           m_bits=m_bits, interpret=True)
+    ty = trq.decode(tcodes, _t(np.asarray(eps)), _t(np.asarray(p)), n_bits=n_bits,
+                    m_bits=m_bits)
+    if n_bits <= 8:
+        np.testing.assert_array_equal(_np(jy).view(np.int32), ty.numpy().view(np.int32))
+    else:
+        np.testing.assert_array_max_ulp(_np(jy), ty.numpy(), maxulp=2)
+
+
 @pytest.mark.parametrize("rows,cols,k", [(4, 2049, 615), (3, 1024, 100), (4, 300, 128)])
 def test_pack_unpack_plain_vs_pallas_bitwise(rows, cols, k):
     rng = np.random.default_rng(k)

@@ -31,7 +31,8 @@ those of ``--b1-sweeps`` (default 0: its loads and the maximum pass), each
 checked against the plain version with that many sweeps, which splits a
 kernel's time between the row's pass over device memory and the sweeps; B2
 is also timed with tau = +inf (nothing kept, so nothing encoded: the loads,
-the compaction and the zero stores alone).  Last, B1 and B4 run on rows
+the compaction and the zero stores alone), and with no tau (its own
+bisection, ``fused_compress_bisect``) in the trees that have that entry.  Last, B1 and B4 run on rows
 that hold a NaN or +inf, and the rows where they disagree with their plain
 versions are counted; the run exits with 1 if any tree disagrees on one.
 """
@@ -108,6 +109,7 @@ def main() -> int:
     tau_none = torch.full_like(tau, float("inf"))  # B2 with nothing kept: no encode
     want_b2_none = fused_compress.fused_compress_plain(re, im, w, q_eps, q_p, tau_none,
                                                        k_keep=k)
+    want_b2_bisect = fused_compress.fused_compress_plain(re, im, w, q_eps, q_p, k_keep=k)
     print(f"rows={rows} ({n_zero} all zero), cols={cols}, k={k}, k_pad={k_pad}")
 
     def p(t):
@@ -148,6 +150,11 @@ def main() -> int:
             p(re), p(im), p(w), p(tau_none), p(eps), p(p_codes), p(n_neg), rows, cols, k_pad,
             ctypes.c_float(8.0), 1, p(rec), p(imc), p(idx), stream),
             lambda: (rec, imc, idx), want_b2_none[:3])
+        if hasattr(b2, "fused_compress_bisect"):
+            calls[(name, "B2 tau=None")] = (lambda b2=b2: b2.fused_compress_bisect(
+                p(re), p(im), p(w), p(eps), p(p_codes), p(n_neg), rows, cols, k_pad,
+                ctypes.c_float(8.0), 1, p(rec), p(imc), p(idx), k, selection.BISECT_ITERS,
+                p(tau_out), stream), lambda: (rec, imc, idx, tau_out), want_b2_bisect)
     for key, (fn, got, want) in calls.items():
         rc = fn()
         if rc != 0:

@@ -3,6 +3,7 @@
 alternating, then each phase's medians.
 
     python3 tools/phase_ab.py A=DIR B=DIR [--pairs 10] [--rows 16384] [--out DIR]
+        [--cli bisect|no-stacked] [--cli-only]
 
 Each ``DIR`` is a checkout (for instance ``git archive`` of a commit unpacked
 into ``build/``, which ``.gitignore`` lists); its own ``chip_smoke.py`` and
@@ -10,7 +11,9 @@ package run from there.  Pair i runs A then B for odd i, B then A for even
 i.  A run is ``python3 chip_smoke.py --rows R`` (its ``[phase ms]`` line: the
 mean steady step of each training phase, and the ``ops`` pipeline's time),
 then the CLI with ``--selector bisect --steps 5`` on the main path's
-arguments (the mean of steps 1-4: "bisect CLI").  Every run's output goes to
+arguments (the mean of steps 1-4: "bisect CLI"); ``--cli no-stacked`` runs
+the per-bucket loop (``--no-stacked``, selector auto) instead ("no-stacked
+CLI"), and ``--cli-only`` leaves out ``chip_smoke.py``.  Every run's output goes to
 ``--out`` (default ``build/phase_ab``).  For each phase it prints A's
 and B's medians, A's interquartile range, and the pairs in which B was
 faster.  B's gain is claimed where B is faster in at least 9 of 10 pairs
@@ -31,10 +34,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-BISECT_CLI = ["--arch", "gemma2_2b", "--n-layers", "4", "--batch", "4", "--seq", "512",
-              "--mode", "compressed_dp", "--reducer", "fft", "--error-feedback",
-              "--backend", "auto", "--selector", "bisect", "--transport", "sequenced",
-              "--bucket-mb", "64", "--steps", "5"]
+MAIN_CLI = ["--arch", "gemma2_2b", "--n-layers", "4", "--batch", "4", "--seq", "512",
+            "--mode", "compressed_dp", "--reducer", "fft", "--error-feedback",
+            "--backend", "auto", "--transport", "sequenced", "--bucket-mb", "64", "--steps", "5"]
+CLIS = {"bisect": MAIN_CLI + ["--selector", "bisect"],
+        "no-stacked": MAIN_CLI + ["--selector", "auto", "--no-stacked"]}
 
 
 def run(cmd, cwd, log: Path, env=None) -> str:
@@ -45,18 +49,21 @@ def run(cmd, cwd, log: Path, env=None) -> str:
     return proc.stdout
 
 
-def one_run(tree: Path, rows: int, log_stem: Path) -> dict:
-    """Phase -> ms of one chip_smoke run and one bisect CLI run in ``tree``."""
-    out = run([sys.executable, "chip_smoke.py", "--rows", str(rows)], tree,
-              log_stem.with_suffix(".smoke.log"))
-    line = next(ln for ln in out.splitlines() if ln.startswith("[phase ms]"))
-    phases = {k: float(v) for k, v in re.findall(r"([\w-]+)=([\d.]+)", line)}
+def one_run(tree: Path, rows: int, log_stem: Path, cli: str, cli_only: bool) -> dict:
+    """Phase -> ms of one chip_smoke run (unless ``cli_only``) and one run
+    of the ``cli`` CLI in ``tree``."""
+    phases = {}
+    if not cli_only:
+        out = run([sys.executable, "chip_smoke.py", "--rows", str(rows)], tree,
+                  log_stem.with_suffix(".smoke.log"))
+        line = next(ln for ln in out.splitlines() if ln.startswith("[phase ms]"))
+        phases = {k: float(v) for k, v in re.findall(r"([\w-]+)=([\d.]+)", line)}
     env = dict(os.environ, PYTHONPATH="src")
-    out = run([sys.executable, "-m", "repro_torch.launch.train", *BISECT_CLI], tree,
-              log_stem.with_suffix(".bisect.log"), env=env)
+    out = run([sys.executable, "-m", "repro_torch.launch.train", *CLIS[cli]], tree,
+              log_stem.with_suffix(f".{cli}.log"), env=env)
     steps = [ast.literal_eval(ln) for ln in out.splitlines() if ln.startswith("{'")]
     dts = [row["dt"] * 1e3 for row in steps if row["step"] >= 1]
-    phases["bisect CLI"] = sum(dts) / len(dts)
+    phases[f"{cli} CLI"] = sum(dts) / len(dts)
     return phases
 
 
@@ -71,6 +78,8 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--rows", type=int, default=16384)
     ap.add_argument("--out", default=str(ROOT / "build" / "phase_ab"))
+    ap.add_argument("--cli", choices=sorted(CLIS), default="bisect")
+    ap.add_argument("--cli-only", action="store_true", help="leave out chip_smoke.py")
     args = ap.parse_args()
     (a_name, a_dir), (b_name, b_dir) = (t.split("=", 1) for t in args.trees)
     out = Path(args.out)
@@ -81,7 +90,8 @@ def main() -> int:
     for i in range(1, args.pairs + 1):
         order = [(a_name, a_dir), (b_name, b_dir)]
         for name, tree in (order if i % 2 else order[::-1]):
-            phases = one_run(Path(tree).resolve(), args.rows, out / f"{i}_{name}")
+            phases = one_run(Path(tree).resolve(), args.rows, out / f"{i}_{name}", args.cli,
+                             args.cli_only)
             results[name].append(phases)
             print(f"[pair {i} {name}] " + ", ".join(f"{k}={v:.1f}" for k, v in phases.items()),
                   flush=True)
