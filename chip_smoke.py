@@ -16,12 +16,15 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    PyTorch version on the same inputs, with
    its time, the plain version's time, the library yardstick's time where
    one PyTorch call computes the same function, and the bound; B7's inverse
-   time, and for B3, which no single call computes, cuFFT's irfft of the
-   same spectrum as a yardstick of its transform alone; B4 and B2 also at
+   time beside ``torch.fft.ifft``'s, and for B3, which no single call
+   computes, cuFFT's irfft of the same spectrum as a yardstick of its
+   transform alone; B4 and B2 also at
    the ``chunk=2048`` route's 442,368 rows of 1025 bins, and B5 at its
    442,368 rows of 384 slots, bitwise; B2 with ``tau=None`` (its own
    bisection, launched once through its API with the counts set to 0) also
-   against B1's tau on the same magnitudes;
+   against B1's tau on the same magnitudes, and on rows holding a NaN or
+   +inf and on tied, all-zero, all-FLT_MAX rows and rows with fewer than k
+   non-NaN values;
 3. the engine's cuda and reference backends on a small ragged layout (codes,
    fits and reconstructions agree);
 4. the kernel-composed pipeline ``ops.compress_chunks`` ->
@@ -87,12 +90,16 @@ OPS_ROW_ATOL, OPS_MAX_REL_L2 = 1e-5, 1e-3
 # transform alone has one, printed beside it as fft_library_ms
 B3_FFT_LIBRARY = "transform only: torch.fft.irfft of the (rows, 2049) spectrum"
 # register budgets read off ptxas: per source, (threads per CTA, the fewest
-# CTAs an SM's 65,536 registers must hold) for the kernel with the most
-# registers in the source; none may spill
+# CTAs an SM's 65,536 registers must hold) for every kernel of the source;
+# none may spill
 PTXAS_LIMITS = {"fft4096.cu": (256, 3), "fused_decompress.cu": (256, 3),
                 "fused_compress.cu": (256, 3), "sampled_threshold.cu": (128, 3),
                 "topk_threshold.cu": (128, 3), "pack.cu": (256, 4),
                 "range_quant.cu": (256, 3)}
+# kernels that state more CTAs per SM than their source's budget, by a
+# pattern of their mangled names: B2 up to 2303 columns (J <= 8 items a
+# lane), with a tau (Lb0E) and without (Lb1E, its own bisection)
+PTXAS_KERNEL_CTAS = {"fused_compress.cu": {r"fused_compress_kernelILi[0-8]E[ht]Lb[01]E": 6}}
 # B1's bound prices the passes over the whole row that no design avoids:
 # the maximum and count(>= 0), then the sweeps until the bracket's values fit
 # the candidate registers (6 on spectrum rows by the numpy walk of
@@ -163,7 +170,8 @@ def main_path_rows(chunk: int = 4096) -> int:
 
 def log_result(r) -> None:
     lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
-    extra = "".join(f" {key}={r[key]:.3f}" for key in ("inverse_ms", "fft_library_ms") if key in r)
+    extra = "".join(f" {key}={r[key]:.3f}" for key in ("inverse_ms", "inverse_library_ms",
+                                                        "fft_library_ms") if key in r)
     log(f"[{r['kernel'].name}] kernel_ms={r['ms']:.3f} plain_ms={r['plain_ms']:.3f} "
         f"library_ms={lib} bound_ms={r['bound_ms']:.3f} ({r['bound_by']}){extra}")
 
@@ -179,9 +187,10 @@ def check_bitwise(label: str, pairs) -> None:
 
 
 def check_ptxas(ptxas) -> None:
-    """The sources in PTXAS_LIMITS must not spill and must fit their CTAs
-    per SM by registers (allocated in units of 8 a thread); read off the
-    ptxas output of a fresh build."""
+    """Every kernel of the sources in PTXAS_LIMITS must not spill and must
+    fit its CTAs per SM by registers (allocated in units of 8 a thread): its
+    source's, or PTXAS_KERNEL_CTAS's where a pattern names it; read off the
+    ptxas output of a fresh build, kernel by kernel."""
     import re
 
     for source, (threads, min_ctas) in PTXAS_LIMITS.items():
@@ -189,14 +198,23 @@ def check_ptxas(ptxas) -> None:
         if text is None:
             log(f"[ptxas {source}] library reused from an earlier build: not rechecked")
             continue
-        regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", text)]
-        ctas = 65536 // (threads * (-(-max(regs, default=255) // 8) * 8))
-        log(f"[ptxas {source}] at most {max(regs, default=0)} registers a thread: {ctas} CTAs "
-            f"of {threads} threads per SM; spill bytes {sum(spills)} (limits: >= {min_ctas} "
-            "CTAs, 0 spills)")
-        if not regs or sum(spills) or ctas < min_ctas:
-            raise AssertionError(f"{source}: spills or too many registers")
+        stated = PTXAS_KERNEL_CTAS.get(source, {})
+        kernels = re.split(r"Compiling entry function '(\S+)'", text)[1:]
+        worst, spills, bad = 0, 0, []
+        for name, info in zip(kernels[::2], kernels[1::2]):
+            regs = int(re.search(r"Used (\d+) registers", info).group(1))
+            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", info))
+            want = max([min_ctas] + [c for pat, c in stated.items() if re.search(pat, name)])
+            if spill or 65536 // (threads * (-(-regs // 8) * 8)) < want:
+                bad.append(f"{name}: {regs} registers, {spill} spill bytes, {want} CTAs stated")
+            worst, spills = max(worst, regs), spills + spill
+        ctas = 65536 // (threads * (-(-max(worst, 1) // 8) * 8))
+        log(f"[ptxas {source}] {len(kernels) // 2} kernels, at most {worst} registers a thread: "
+            f"{ctas} CTAs of {threads} threads per SM; spill bytes {spills} (limits: >= "
+            f"{min_ctas} CTAs, {', '.join(f'{c} for {p}' for p, c in stated.items()) or 'no other'}"
+            "; 0 spills)")
+        if not kernels or bad:
+            raise AssertionError(f"{source}: spills or too many registers: {bad}")
 
 
 def padding_rows(rows: int, dev, chunk: int = 4096) -> torch.Tensor:
@@ -409,8 +427,8 @@ def bisect_compress(re, im, w, eps_rows, p_rows, k: int, tau_b1, counted) -> dic
     """B2 with ``tau=None``: one call through its API with every count set
     to 0 just before (its launches), then its codes, indices and tau against
     its plain version, bitwise, its tau against B1's (``tau_b1``, on the same
-    magnitudes), and the same on B1_EDGE_ROWS rows holding a NaN, a +inf (the
-    rest of the row scaled by 1e18) or both."""
+    magnitudes), and the same on two sets of B1_EDGE_ROWS edge rows
+    (bisect_edge_rows)."""
     from repro_torch.kernels import fused_compress, topk_threshold
 
     rows, cols = re.shape
@@ -433,23 +451,18 @@ def bisect_compress(re, im, w, eps_rows, p_rows, k: int, tau_b1, counted) -> dic
                     (got[1].int() - want[1].int()).abs().max()))
     del got, want
     n = B1_EDGE_ROWS
-    re_e, im_e = re[:n].clone(), im[:n].clone()
-    re_e[0::3, 7] = float("nan")
-    re_e[1::3] *= 1e18
-    im_e[1::3] *= 1e18
-    re_e[1::3, cols - 1] = float("inf")
-    re_e[2::3, 0] = float("inf")
-    re_e[2::3, cols // 2] = float("nan")
-    mag_e = torch.sqrt(re_e * re_e + im_e * im_e) * w
-    got = fused_compress.fused_compress(re_e, im_e, w, eps_rows[:n], p_rows[:n], k_keep=k)
-    want = fused_compress.fused_compress_plain(re_e, im_e, w, eps_rows[:n], p_rows[:n], k_keep=k)
-    check_bitwise(f"B2 fused_compress tau=None, {n} rows holding a NaN or +inf", zip(
-        (got[0], got[1], got[2], got[3].view(torch.int32)),
-        (want[0], want[1], want[2], want[3].view(torch.int32))))
-    check_bitwise(f"B2 fused_compress tau=None, {n} rows holding a NaN or +inf: its tau "
-                  "against B1's", [(got[3].view(torch.int32),
-                                    topk_threshold.threshold(mag_e, k=k)[0].view(torch.int32))])
-    del got, want, re_e, im_e, mag_e
+    for label, (re_e, im_e, w_e) in bisect_edge_rows(re[:n], im[:n], w, k).items():
+        mag_e = torch.sqrt(re_e * re_e + im_e * im_e) * w_e
+        got = fused_compress.fused_compress(re_e, im_e, w_e, eps_rows[:n], p_rows[:n], k_keep=k)
+        want = fused_compress.fused_compress_plain(re_e, im_e, w_e, eps_rows[:n], p_rows[:n],
+                                                   k_keep=k)
+        check_bitwise(f"B2 fused_compress tau=None, {n} rows {label}", zip(
+            (got[0], got[1], got[2], got[3].view(torch.int32)),
+            (want[0], want[1], want[2], want[3].view(torch.int32))))
+        check_bitwise(f"B2 fused_compress tau=None, {n} rows {label}: its tau against B1's",
+                      [(got[3].view(torch.int32),
+                        topk_threshold.threshold(mag_e, k=k)[0].view(torch.int32))])
+        del got, want, re_e, im_e, mag_e
     k_pad = fused_compress.pad_k(k)
     b_ms, b_by = bound(rows * cols * 8 + cols * 4 + rows * 12 + rows * k_pad * 6 + rows * 4,
                        rows * cols * (6 + B1_ROW_PASSES) + 2 * rows * k * 30)
@@ -460,6 +473,33 @@ def bisect_compress(re, im, w, eps_rows, p_rows, k: int, tau_b1, counted) -> dic
         plain_ms=time_ms(lambda: fused_compress.fused_compress_plain(re, im, w, eps_rows, p_rows,
                                                                      k_keep=k), 1),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def bisect_edge_rows(re, im, w, k: int) -> dict:
+    """Two sets of rows for B2's own bisection, from copies of ``re`` and
+    ``im``: {label: (re, im, w)}.  "holding a NaN or +inf": a third hold a
+    NaN, a third a +inf (the rest of the row scaled by 1e18), a third both;
+    their maximum's bracket is NaN.  "tied, zero, FLT_MAX or with fewer than
+    k non-NaN": with every weight FLT_MAX, a quarter all tied (re = 0.5:
+    FLT_MAX / 2, more ties than B1's 64 candidates), a quarter all zero, a
+    quarter all FLT_MAX (re = 1, so lo + hi overflows), a quarter NaN past
+    k - 1 columns."""
+    rows, cols = re.shape
+    re_e, im_e = re.clone(), im.clone()
+    re_e[0::3, 7] = float("nan")
+    re_e[1::3] *= 1e18
+    im_e[1::3] *= 1e18
+    re_e[1::3, cols - 1] = float("inf")
+    re_e[2::3, 0] = float("inf")
+    re_e[2::3, cols // 2] = float("nan")
+    re_t, im_t = re.clone(), im.clone()
+    q = rows // 4
+    for part, value in ((slice(0, q), 0.5), (slice(q, 2 * q), 0.0), (slice(2 * q, 3 * q), 1.0)):
+        re_t[part], im_t[part] = value, 0.0
+    re_t[3 * q:, k - 1:] = float("nan")
+    w_t = torch.full_like(w, torch.finfo(torch.float32).max)
+    return {"holding a NaN or +inf": (re_e, im_e, w),
+            "tied, zero, FLT_MAX or with fewer than k non-NaN": (re_t, im_t, w_t)}
 
 
 def chunk2048_phase(rows: int, dev) -> None:
@@ -551,11 +591,21 @@ def standalone_phase(rows: int, dev) -> list:
     check_bitwise("B6b unpack", [(dense, pack.unpack_plain(vals, idx, cols=cols_pad))])
     del dense
     b_ms, b_by = bound(rows * k_pad * 8 + rows * cols_pad * 4, rows * k_pad)
+    # its library yardstick: one scatter_add_ of the k slots into zeros,
+    # the int64 index made outside the timed call
+    idx64 = idx.long()
+    lib = torch.zeros((rows, cols_pad), device=dev).scatter_add_(-1, idx64, vals)
+    log(f"[B6b unpack] library scatter_add_ against the kernel: "
+        f"{int((lib != pack.unpack(vals, idx, cols=cols_pad)).sum())} values differ")
+    del lib
     results.append(dict(
         kernel=pack.UNPACK_KERNEL, max_abs_err=0.0,
         ms=time_ms(lambda: pack.unpack(vals, idx, cols=cols_pad), 5),
         plain_ms=time_ms(lambda: pack.unpack_plain(vals, idx, cols=cols_pad), 2),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        library_ms=time_ms(lambda: torch.zeros((rows, cols_pad), device=dev).scatter_add_(
+            -1, idx64, vals), 2),
+        bound_ms=b_ms, bound_by=b_by))
+    del idx64
 
     # B5a/B5b on the gathered real parts, one fit per row
     valid = vals != 0
@@ -632,11 +682,12 @@ def fft_phase(rows: int, dev, stretch: int = 32768) -> dict:
     z = torch.complex(x_re, x_im)
     del x_re, x_im
     library_ms = time_ms(lambda: torch.fft.fft(z, dim=-1), 2)
+    inv_library_ms = time_ms(lambda: torch.fft.ifft(z, dim=-1), 2)
     log(f"[B7 fft4096] forward {fwd_ms:.3f} ms, inverse {inv_ms:.3f} ms per launch")
     b_ms, b_by = bound(rows * chunk * 16, 0, rows * 5 * chunk * 12)
     r = dict(kernel=fft4step.KERNEL, max_abs_err=max(errs.values()), ms=fwd_ms,
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-             inverse_ms=inv_ms)
+             inverse_ms=inv_ms, inverse_library_ms=inv_library_ms)
     log_result(r)
     return r
 
@@ -940,8 +991,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("inverse_ms", "fft_library_ms", "fft_library_covers")
-               if key in r}})
+            **{key: r[key] for key in ("inverse_ms", "inverse_library_ms", "fft_library_ms",
+                                       "fft_library_covers") if key in r}})
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

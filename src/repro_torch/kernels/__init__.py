@@ -15,7 +15,8 @@ __all__ = ["all_kernels"]
 def all_kernels():
     """Every kernel, B1..B7, as ``build.Kernel`` records (one per TPU
     ``pallas_call``; B5 and B6 have two entries in one source each, and B2
-    a second one for its ``tau=None`` mode)."""
+    a second one for its ``tau=None`` mode, which selects each row's tau
+    with the whole CTA before it compresses)."""
     from repro_torch.kernels import (fft4step, fused_compress, fused_decompress, pack,
                                      range_quant, sampled_threshold, topk_threshold)
 

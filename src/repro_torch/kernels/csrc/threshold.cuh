@@ -1,13 +1,12 @@
 // Warp-per-row bisection pieces shared by the threshold kernels B1
-// (topk_threshold.cu) and B4 (sampled_threshold.cu), and B1's row routine,
-// which B2 (fused_compress.cu) also runs when it bisects for its own tau.
+// (topk_threshold.cu) and B4 (sampled_threshold.cu), and B1's row routine.
+// B2 (fused_compress.cu) runs B1's sweeps with a whole CTA when it bisects
+// for its own tau, from the pieces below.
 //
 // One warp bisects one row; lane l holds the row's columns l, l + 32, ...
-// (-inf past the row, which no count includes): N of them, N from
-// dispatch_lane_items, in registers (a ``float[N]``) or staged in shared
-// memory (any ``Row`` whose ``v[j]`` reads item j of the lane).  Every
-// lane receives every count, so the lanes update lo/hi alike without a
-// broadcast.  The arithmetic is the plain
+// in N registers (-inf past the row, which no count includes), N from
+// dispatch_lane_items.  Every lane receives every count, so the lanes
+// update lo/hi alike without a broadcast.  The arithmetic is the plain
 // version's (core/selection.py: upper_bracket, bisect_bracket) op for op:
 // mid = 0.5 * (lo + hi) in round-to-nearest, a NaN counts as not >=, a NaN
 // or +inf maximum as torch.amax and upper_bracket give it.
@@ -24,8 +23,8 @@ constexpr float kMaxBracket = FLT_MAX / 4;  // brackets within it: lo + hi is fi
 
 // count(v >= t) over the warp's row; every lane receives it.  Four
 // accumulators keep the compare-and-add chains short.
-template <int N, typename Row>
-__device__ __forceinline__ int warp_count_ge(const Row& v, float t) {
+template <int N>
+__device__ __forceinline__ int warp_count_ge(const float (&v)[N], float t) {
   int c[4] = {0, 0, 0, 0};
 #pragma unroll
   for (int j = 0; j < N; ++j) c[j & 3] += v[j] >= t ? 1 : 0;
@@ -82,8 +81,8 @@ constexpr int kCompactAt = 32 * kCandPerLane;  // values in [lo, hi) that B1's w
 // stores use the 32-bit address: left to itself the compiler rebuilds a
 // generic one (an S2R of the cluster id and three more instructions) at
 // every predicated store.
-template <int N, typename Row>
-__device__ __forceinline__ void compact_candidates(const Row& v, float lo, float hi, int n,
+template <int N>
+__device__ __forceinline__ void compact_candidates(const float (&v)[N], float lo, float hi, int n,
                                                    unsigned slots, float (&cv)[kCandPerLane]) {
   const int lane = threadIdx.x & 31;
   int mine = 0;
@@ -118,8 +117,8 @@ __device__ __forceinline__ void compact_candidates(const Row& v, float lo, float
 // the plain version's bisect_tau, with the compaction and the fixed-point
 // stop.  ``cand``: the warp's kCompactAt floats of shared memory.  Every
 // lane receives tau and count(>= tau).
-template <int N, typename Row>
-__device__ __forceinline__ void bisect_row(const Row& v, int k, int iters, float* cand,
+template <int N>
+__device__ __forceinline__ void bisect_row(const float (&v)[N], int k, int iters, float* cand,
                                            float& tau, int& count) {
   // count(>= 0) and the maximum in one pass
   int c_zero = 0;

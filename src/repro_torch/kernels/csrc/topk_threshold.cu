@@ -38,7 +38,7 @@
 // as in the plain version (core/selection.py: bisect_tau), so tau and count
 // are bitwise equal to it.  tests/test_torch_compress_threshold_design.py
 // walks this routine in numpy; the two change together.  The routine itself
-// is bisect_row in threshold.cuh, which B2 also runs.
+// is bisect_row in threshold.cuh; B2 runs its sweeps with a whole CTA.
 #include "threshold.cuh"
 
 namespace repro {

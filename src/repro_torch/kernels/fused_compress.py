@@ -10,8 +10,10 @@ threshold kernel's mid-gap tau; with ``tau=None`` each row is bisected for
 ``k_keep`` first (``selection.bisect_tau``, B1's function), as the
 reference kernel does, and that tau is returned.  The CUDA kernel is
 ``csrc/fused_compress.cu`` (:data:`KERNEL` with a tau, :data:`BISECT_KERNEL`
-without); codes, indices and tau are bitwise equal to the plain version on
-the same input.
+without: the whole CTA runs B1's sweeps until few values are left in the
+bracket, then one warp takes the k-th largest magnitude from those and
+replays the rest of the bisection from it); codes, indices and tau are
+bitwise equal to the plain version on the same input.
 """
 
 from __future__ import annotations

@@ -42,8 +42,20 @@ sweeps count those plus count(>= hi).  The loop stops after the first
 sweep that leaves lo and hi as they were, bit for bit: every later sweep
 would repeat it.
 
-B2 with ``tau=None`` stages the row's magnitudes in shared memory (-inf up
-to 32 * (8 J + 8) columns) and runs B1's routine on them with one warp.
+B2 with ``tau=None`` selects with the whole CTA: thread t = 32 w + l holds
+its J stretch magnitudes and one tail column, 8 S + t (-inf past the row;
+none at J = 16).  count(>= 0) is a warp reduction summed over the warps,
+the maximum the largest bit pattern as a signed integer (B1's fmaxf where
+no value has its sign bit clear); then B1's sweeps run CTA-wide, each warp
+counting its items, until at most 512 values lie in [lo, hi) with B1's
+conditions on the bracket.  Rows that never get there sweep to B1's fixed
+point.  The others write those values to 512 shared slots (in whatever
+order the threads' atomics land), the sweeps go on over them, two a
+thread, until at most 32 are left, warp 0 takes them one a lane and finds
+v_k, the k-th largest non-NaN value of the row, as the (k - count(>= hi))-th
+largest, and replays the rest of B1's sweeps with ``v_k >= mid`` in place
+of ``count(>= mid) >= k``: the two agree for every mid (the replay lemma),
+so the tau is B1's.
 
 ``csrc/fused_compress.cu``, ``csrc/pack.cu``, ``csrc/sampled_threshold.cu``,
 ``csrc/topk_threshold.cu`` and ``csrc/threshold.cuh`` name this file: they
@@ -504,29 +516,244 @@ def test_b1_walk_stops_early_and_compacts_on_spectrum_rows(cols):
     assert walks[-2][3] is None
 
 
-def bisect_items(cols):
-    """Items per lane of B2's bisecting warp (fused_compress.cu
-    bisect_items): 8 J + 8 for J = cols // 256, at most 128."""
-    j = min(cols // THREADS, MAX_STRETCH)
-    return 8 * j + 8 if j < MAX_STRETCH else 8 * MAX_STRETCH
+def b2_bisect_columns(cols):
+    """The columns the kBisect CTA holds, (THREADS, N): thread t = 32 w + l
+    holds w*S + 32 j + l for j < J, then the tail column 8 S + t (no tail
+    item at J = 16); -1 where the thread holds no column."""
+    j_items = min(cols // THREADS, MAX_STRETCH)
+    t = np.arange(THREADS)
+    col = (t // LANES * LANES * j_items + LANES * np.arange(j_items)[:, None] + t % LANES).T
+    if j_items < MAX_STRETCH:
+        tail = WARPS * LANES * j_items + t
+        col = np.concatenate([col, np.where(tail < cols, tail, -1)[:, None]], axis=1)
+    return col
 
 
-@pytest.mark.parametrize("cols,kind", [(c, kd) for c in (2049, 1025, 513, 300, 100, 4096)
-                                       for kd in ("spectrum", "nan", "inf", "zero")])
-def test_b2_bisect_staged_row_walk_equals_threshold_plain(cols, kind):
-    """B2 with tau=None stages the row's magnitudes in shared memory, -inf
-    up to 32 * bisect_items columns, and its warp 0 runs B1's routine with
-    lane l reading columns l + 32 j: B1's walk on that staged row gives
-    ``threshold_plain``'s tau and count bitwise, so B2's tau is B1's."""
-    n = bisect_items(cols)
-    assert LANES * n >= cols
-    mag, k = _b1_rows(cols, kind, seed=cols + len(kind))
-    want_tau, want_cnt = ttt.threshold_plain(torch.from_numpy(mag), k)
+def kth_largest(row, k):
+    """v_k: the k-th largest non-NaN value of ``row`` (NaN if there are fewer)."""
+    vals = np.sort(row[~np.isnan(row)])[::-1]
+    return vals[k - 1] if 0 < k <= vals.size else np.float32(np.nan)
+
+
+def replay_sweeps(vk, lo, hi, k, sweeps):
+    """B1's sweeps on [lo, hi) with ``v_k >= mid`` in place of
+    ``count(>= mid) >= k``, the fixed-point stop included: (tau, steps)."""
+    half = np.float32(0.5)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for step in range(sweeps):
+            mid = np.float32(half * np.float32(lo + hi))
+            feasible = k <= 0 or bool(vk >= mid)
+            moved = lo if feasible else hi
+            lo, hi = (mid, hi) if feasible else (lo, mid)
+            if _bits(mid) == _bits(moved):
+                return lo, step + 1
+    return lo, sweeps
+
+
+CTA_CAND = 2 * THREADS  # values in [lo, hi) the kBisect CTA sweeps alone: two a thread
+RANK_AT = 32  # values in [lo, hi) warp 0 ranks: one a lane
+UNKNOWN = -(1 << 30)  # count(>= hi) not known yet: lo_count - hi_count exceeds every cap
+
+
+def b2_bisect_walk(row, k, iters=selection.BISECT_ITERS, warp_order=None):
+    """One row as B2's kBisect CTA selects it: (tau float32, sweeps over the
+    row, sweeps over the candidates, values ranked or None, replay steps).
+    ``warp_order``: the order in which the warps' shared atomics hand out
+    candidate slots."""
+    col = b2_bisect_columns(row.size)
+    v = np.where(col >= 0, row[np.maximum(col, 0)], np.float32(-np.inf)).astype(np.float32)
+    vw = v.reshape(WARPS, LANES, -1)  # (warp, lane, item)
+
+    def count(t):  # each warp's warp_count_ge, summed as every thread sums them
+        return sum(lane_count(vw[w], t) for w in range(WARPS))
+
+    # the maximum: the largest bit pattern as a signed integer (a NaN of the
+    # card, 0x7fffffff, above +inf); B1's fmaxf with a NaN kept when no
+    # value has its sign bit clear
+    imax = int(v.view(np.int32).max())
+    if imax >= 0:
+        m = np.array([imax], np.int32).view(np.float32)[0]
+    else:
+        m = lane_max(vw[0])
+        for w in range(1, WARPS):  # the first warp's NaN, else the maximum
+            x = lane_max(vw[w])
+            m = m if np.isnan(m) else x if np.isnan(x) else np.float32(np.fmax(m, x))
+    lo, hi = np.float32(0.0), _upper_bracket(m)
+    lo_count = count(np.float32(0.0))
+    with np.errstate(invalid="ignore"):
+        hi_count = 0 if hi > m else UNKNOWN  # count(>= hi) known: nothing above the maximum
+    half = np.float32(0.5)
+    it = cta_sweeps = 0
+
+    def sweep(c):  # B1's update from count(>= mid); True at the fixed point
+        nonlocal lo, hi, lo_count, hi_count, it
+        it += 1
+        moved = lo if c >= k else hi
+        if c >= k:
+            lo, lo_count = mid, c
+        else:
+            hi, hi_count = mid, c
+        return _bits(mid) == _bits(moved)
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        while it < iters:
+            if (lo_count - hi_count <= CTA_CAND and lo <= hi and abs(lo) <= MAX_BRACKET
+                    and abs(hi) <= MAX_BRACKET):
+                break
+            mid = np.float32(half * np.float32(lo + hi))
+            cta_sweeps += 1
+            if sweep(count(mid)):
+                return lo, cta_sweeps, 0, None, 0
+    if it == iters:
+        return lo, cta_sweeps, 0, None, 0
+    # the CTA's candidates in any order (each thread's atomic takes its
+    # slots): the warps in ``warp_order``; thread t holds slots t and t + 256
+    inside = (vw >= lo) & (vw < hi)
+    n = lo_count - hi_count
+    assert int(inside.sum()) == n <= CTA_CAND  # the carried counts
+    order = range(WARPS) if warp_order is None else warp_order
+    slots = np.full(CTA_CAND, np.float32(-np.inf), np.float32)
+    slots[:n] = np.concatenate([vw[w][inside[w]] for w in order])
+    cw = slots.reshape(2, WARPS, LANES).transpose(1, 2, 0)  # (warp, lane, item)
+    base = hi_count  # count(>= hi) at the compaction
+    cand_sweeps = 0
+    with np.errstate(invalid="ignore", over="ignore"):
+        while it < iters and lo_count - hi_count > RANK_AT:
+            mid = np.float32(half * np.float32(lo + hi))
+            c = base + sum(lane_count(cw[w], mid) for w in range(WARPS))
+            assert c == count(mid)  # the identity the candidate sweeps rely on
+            cand_sweeps += 1
+            if sweep(c):
+                return lo, cta_sweeps, cand_sweeps, None, 0
+    if it == iters:
+        return lo, cta_sweeps, cand_sweeps, None, 0
+    # the values left in [lo, hi) to warp 0, one a lane in any order, then
+    # v_k: the largest of them with at least r = k - count(>= hi) at or
+    # above it
+    n = lo_count - hi_count
+    inside = (slots >= lo) & (slots < hi)
+    assert int(inside.sum()) == n <= RANK_AT
+    x = np.full(RANK_AT, np.float32(-np.inf), np.float32)
+    x[:n] = slots[inside][::-1]
+    r = k - hi_count
+    ge = (x[None, :] >= x[:, None]).sum(axis=1)
+    sel = (np.arange(RANK_AT) < n) & (ge >= r)
+    if r <= 0:
+        vk = np.float32(np.inf)
+    elif sel.any():
+        key = (x[sel] + np.float32(0.0)).view(np.uint32).max()  # -0 -> +0, then bits
+        vk = np.array([key], np.uint32).view(np.float32)[0]
+    else:
+        vk = np.float32(-np.inf)
+    want = kth_largest(row, k)
+    assert vk == want or (np.isnan(want) or want < lo) and vk == -np.inf
+    tau, steps = replay_sweeps(vk, lo, hi, k, iters - it)
+    return tau, cta_sweeps, cand_sweeps, n, steps
+
+
+B2_EDGE_KINDS = ["few_finite", "negative", "all_tied", "inf_k_minus_1", "neg_inf", "few_flt_max"]
+# rows of +0 and -0: which zero a maximum returns depends on the order it
+# meets them (the plain version's amax, B1's and B2's fmaxf alike), and
+# tau's sign follows it; B2's magnitudes, sqrt(re^2 + im^2) * w, are never
+# -0, so only the replay lemma takes these rows
+LEMMA_KINDS = B1_KINDS + B2_EDGE_KINDS + ["signed_zero"]
+
+
+def _edge_rows(cols, kind, seed, rows=4):
+    """(mag, k): ``rows`` rows of B1_KINDS or of the edge kinds of B2's
+    selection, float32."""
+    if kind in B1_KINDS:
+        return _b1_rows(cols, kind, seed, rows)
+    rng = np.random.default_rng(seed)
+    k = sparsify.keep_count(cols, 0.7)
+    mag = np.abs(rng.standard_normal((rows, cols))).astype(np.float32)
+    if kind == "few_finite":  # k - 1 values, the rest NaN: no mid is feasible
+        mag[:, k - 1:] = np.nan
+        mag[1] = rng.permutation(mag[1])
+    elif kind == "signed_zero":
+        mag[:] = np.float32(0.0)
+        mag[:, ::3] = np.float32(-0.0)
+    elif kind == "negative":  # the bracket [0, hi] is upside down
+        mag = -mag
+    elif kind == "all_tied":  # every value ties with v_k
+        mag[:] = np.float32(0.37)
+    elif kind == "inf_k_minus_1":
+        mag[:, rng.permutation(cols)[:k - 1]] = np.inf
+    elif kind == "neg_inf":
+        mag[:, ::7] = -np.inf
+    elif kind == "few_flt_max":  # 10 values >= 0, one FLT_MAX: count(>= hi) is not 0
+        mag[:, 10:] = -np.inf
+        mag[:, 3] = FLT_MAX
+    return mag, k
+
+
+B2_BISECT_CASES = [(c, kd) for c in (2049, 1025, 513, 300, 100, 4096)
+                   for kd in B1_KINDS + B2_EDGE_KINDS]
+
+
+@pytest.mark.parametrize("cols,kind", B2_BISECT_CASES)
+def test_b2_bisect_walk_equals_threshold_plain(cols, kind):
+    """B2 with tau=None: the CTA walk (stretch and tail items, the maximum
+    by bit pattern, CTA-wide counts, the compaction in any warp order, the
+    sweeps over the candidates, v_k by rank, the replay) gives
+    ``threshold_plain``'s tau bitwise, so the kernel's tau is B1's."""
+    mag, k = _edge_rows(cols, kind, seed=cols + len(kind))
+    want_tau, _ = ttt.threshold_plain(torch.from_numpy(mag), k)
+    rng = np.random.default_rng(cols)
     for r in range(mag.shape[0]):
-        staged = np.concatenate([mag[r], np.full(LANES * n - cols, -np.inf, np.float32)])
-        assert lane_items(staged).shape == (LANES, n)
-        tau, cnt, _, _ = b1_walk(staged, k)
-        assert _bits(tau) == _bits(want_tau[r, 0].numpy()) and cnt == int(want_cnt[r, 0])
+        tau = b2_bisect_walk(mag[r], k, warp_order=rng.permutation(WARPS))[0]
+        assert _bits(tau) == _bits(want_tau[r, 0].numpy()), (r, tau, want_tau[r])
+
+
+@pytest.mark.parametrize("cols", [2049, 1025, 513, 300, 100, 4096, 1])
+def test_b2_bisect_columns_cover_the_row_once(cols):
+    """Every column is held by exactly one item; the tail (8 S to the
+    row's end) sits one column a thread."""
+    col = b2_bisect_columns(cols)
+    np.testing.assert_array_equal(np.sort(col[col >= 0]), np.arange(cols))
+    assert col.shape[1] == min(cols // THREADS, MAX_STRETCH) + (cols < THREADS * MAX_STRETCH)
+
+
+@pytest.mark.parametrize("cols,kind", [(c, kd) for c in (2049, 1025, 300, 4096)
+                                       for kd in LEMMA_KINDS])
+def test_bisect_replay_lemma(cols, kind):
+    """The replay lemma: count(>= mid) >= k exactly when v_k >= mid, for
+    every mid NaN and infinities included, so B1's whole bisection from
+    [0, upper_bracket(max)] replayed with v_k (by a sort) in place of the
+    counts gives ``selection.bisect_tau`` bitwise."""
+    mag, k = _edge_rows(cols, kind, seed=cols + len(kind))
+    t = torch.from_numpy(mag)
+    want = selection.bisect_tau(t, k).numpy()
+    hi = selection.upper_bracket(torch.amax(t, dim=-1)).numpy()
+    for r in range(mag.shape[0]):
+        vk = kth_largest(mag[r], k)
+        tau, _ = replay_sweeps(vk, np.float32(0.0), hi[r], k, selection.BISECT_ITERS)
+        assert _bits(tau) == _bits(want[r]), (r, tau, want[r])
+        with np.errstate(invalid="ignore", over="ignore"):
+            mids = (np.float32(np.nan), np.float32(np.inf), np.float32(-np.inf), mag[r].min(), vk,
+                    np.nextafter(vk, np.float32(np.inf)))
+        for mid in mids:
+            with np.errstate(invalid="ignore"):
+                assert (int((mag[r] >= mid).sum()) >= k) == bool(vk >= mid)
+
+
+@pytest.mark.parametrize("cols", [2049, 1025])
+def test_b2_bisect_walk_compacts_early_and_replays_on_spectrum_rows(cols):
+    """On the main path's rows the CTA sweeps the row at most 4 times
+    before at most 512 values are left in the bracket, sweeps those at most
+    5 times before at most 32 are left, and warp 0 ranks them and replays at
+    most 24 sweeps; an all-zero padding row stops after one sweep and a row
+    holding a NaN after at most two (its bracket is NaN), neither
+    compacting."""
+    mag = _spectrum_mag(32, cols, seed=cols)
+    mag[-1] = 0.0
+    mag[-2, 7] = np.nan
+    k = sparsify.keep_count(cols, 0.7)
+    walks = [b2_bisect_walk(mag[r], k) for r in range(mag.shape[0])]
+    for _, row_sweeps, cand_sweeps, n, steps in walks[:-2]:
+        assert row_sweeps <= 4 and cand_sweeps <= 5 and n <= RANK_AT and steps <= 24
+    assert walks[-1][1:4] == (1, 0, None)
+    assert walks[-2][1] <= 2 and walks[-2][3] is None
 
 
 # ---------------------------------------------------------------- B6a

@@ -333,15 +333,20 @@ def test_fused_compress_kernel_edge_rows(card, cols, k_keep, quant):
     assert not got[2][2].any() and not got[0][2].int().any()  # nothing kept (no uint16 any)
 
 
-@pytest.mark.parametrize("kind", ["spectrum", "nan", "inf", "nan_inf", "zero"])
+@pytest.mark.parametrize("kind", ["spectrum", "nan", "inf", "nan_inf", "zero", "tied", "flt_max",
+                                  "few_finite", "negative"])
 @pytest.mark.parametrize("quant", ["u8-scalar", "u16-per-row"])
 @pytest.mark.parametrize("cols,k_keep", [(2049, 615), (1025, 308), (513, 129), (4096, 1229),
-                                         (300, 127)])
+                                         (300, 127), (100, 31)])
 def test_fused_compress_bisect_kernel(card, cols, k_keep, quant, kind):
     """B2 with ``tau=None`` against its plain version (codes, indices, tau)
     and its tau against B1's on the same magnitudes, bitwise (tau by its
     bits): spectrum rows with an all-zero row, rows holding a NaN, a +inf
-    (the rest scaled by 1e18) or both, and all-zero rows; 37 rows."""
+    (the rest scaled by 1e18) or both, all-zero rows, rows tied past B1's 64
+    candidates, all-FLT_MAX rows (re = 1 under weights FLT_MAX), rows with
+    k - 1 non-NaN values and rows of negative magnitudes (negated weights:
+    the kernel's fmaxf maximum), at widths from all-tail rows to 4096; 37
+    rows."""
     re, im, w, _ = (torch.from_numpy(a).cuda() for a in _compress_rows(cols, k_keep, cols))
     if kind in ("nan", "nan_inf"):
         re[:, cols // 3] = float("nan")
@@ -352,6 +357,14 @@ def test_fused_compress_bisect_kernel(card, cols, k_keep, quant, kind):
         re[:, cols - 1] = float("inf")
     if kind == "zero":
         re[:], im[:] = 0.0, 0.0
+    if kind in ("tied", "flt_max"):
+        re[:], im[:] = 0.25 if kind == "tied" else 1.0, 0.0
+    if kind == "flt_max":
+        w[:] = torch.finfo(torch.float32).max
+    if kind == "few_finite":
+        re[:, k_keep - 1:] = float("nan")
+    if kind == "negative":
+        w = -w
     n_bits, m_bits = (8, 3) if quant == "u8-scalar" else (12, 7)
     fin = torch.isfinite(re) & torch.isfinite(im)
     lo = torch.minimum(torch.where(fin, re, 0.0).amin(-1), torch.where(fin, im, 0.0).amin(-1))

@@ -19,11 +19,20 @@ from pathlib import Path
 import torch
 
 
-def build_all(trees, sources, out_dir):
-    """One nvcc per (tree, source), all at once, with the port's flags, into
-    ``out_dir/<name>/``; prints each build's ptxas register lines and any
-    line that reports spill bytes.  ``trees`` maps a name to a directory.
-    Returns {name: {source: CDLL}}."""
+def ptxas_kernels(text):
+    """[(mangled kernel name, registers, spill bytes)] of ``nvcc -Xptxas -v``
+    output, kernel by kernel."""
+    parts = re.split(r"Compiling entry function '(\S+)'", text)[1:]
+    return [(name, int(re.search(r"Used (\d+) registers", info).group(1)),
+             sum(int(v) for v in re.findall(r"(\d+) bytes spill", info)))
+            for name, info in zip(parts[::2], parts[1::2])]
+
+
+def build_all(trees, sources, out_dir, extra_flags=()):
+    """One nvcc per (tree, source), all at once, with the port's flags and
+    ``extra_flags``, into ``out_dir/<name>/``; prints each kernel's
+    registers and spill bytes as ptxas reports them.  ``trees`` maps a name
+    to a directory.  Returns {name: {source: CDLL}}."""
     from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
 
     jobs = []
@@ -31,7 +40,8 @@ def build_all(trees, sources, out_dir):
         (Path(out_dir) / name).mkdir(parents=True, exist_ok=True)
         for source in sources:
             target = Path(out_dir) / name / source.replace(".cu", ".so")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(target), str(Path(src) / source)]
+            cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(target),
+                   str(Path(src) / source)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True)
             jobs.append((name, source, target, proc))
@@ -41,9 +51,8 @@ def build_all(trees, sources, out_dir):
         if proc.returncode:
             print(out)
             raise SystemExit(f"{name}/{source}: nvcc failed")
-        for line in out.splitlines():
-            if "registers" in line or re.search(r"[1-9]\d* bytes spill", line):
-                print(f"[ptxas {name}/{source}] {line.strip()}")
+        for kernel, regs, spill in ptxas_kernels(out):
+            print(f"[ptxas {name}/{source}] {kernel}: {regs} registers, {spill} bytes spill")
         libs.setdefault(name, {})[source] = ctypes.CDLL(str(target))
     return libs
 
