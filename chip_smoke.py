@@ -24,7 +24,10 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    bisection, launched once through its API with the counts set to 0) also
    against B1's tau on the same magnitudes, and on rows holding a NaN or
    +inf and on tied, all-zero, all-FLT_MAX rows and rows with fewer than k
-   non-NaN values;
+   non-NaN values; and B1, B4, B2 (both modes) and B3 at the keep counts a
+   theta schedule gives them, k = 1332 (theta 0.35) and k = 2049 (theta 0,
+   every bin of a row), beside k = 615, on the main path's rows of its
+   spectrum, bitwise (B3 within 2e-6);
 3. the engine's cuda and reference backends on a small ragged layout (codes,
    fits and reconstructions agree);
 4. the kernel-composed pipeline ``ops.compress_chunks`` ->
@@ -39,10 +42,18 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    ``--no-stacked`` (the per-bucket loop);
 6. 3 steps each through the Python API (ReducerConfig -> StepConfig ->
    train_loop) on the cuda backend's per-stage routes: ``quantize=False``
-   (B6 pack) and ``chunk=2048`` (B5 decode).
+   (B6 pack) and ``chunk=2048`` (B5 decode);
+7. the dense baseline and the comparison paths through the CLI: 3 steps of
+   its defaults (``--mode pjit``: AdamW, no reducer) and 3 of
+   ``compressed_dp`` with the ``dense`` reducer, neither launching any of
+   the nine kernels; 3 steps over the ``psum`` transport; 4 steps of the
+   main path under ``--theta-schedule step`` (theta 0.7, 0.7, 0.0, 0.0),
+   launching B4, B2 and B3 at both; 3 steps each of the ``timedomain``
+   (sequenced) and ``qsgd`` (psum) reducers, which run no kernel, as in
+   the reference.
 
-Then each training phase's mean steady step and the ops phase's time, one
-JSON line with every kernel's numbers, and as the last line
+Then each training phase's mean steady step (``train-dense`` beside
+``train``) and the ops phase's time, one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package.  ``--rows`` and ``--skip-train`` (which skips phases 4 to 6)
 shorten a run while a kernel is being brought up; ``--profile`` traces the
@@ -75,6 +86,13 @@ TRAIN_ARGS = ["--arch", "gemma2_2b", "--n-layers", str(N_LAYERS), "--batch", str
               "--seq", str(SEQ), "--mode", "compressed_dp", "--reducer", "fft",
               "--error-feedback", "--backend", "auto", "--selector", "auto"]
 SEQUENCED = ["--transport", "sequenced", "--bucket-mb", str(BUCKET_MB)]
+# the CLI's defaults (--mode pjit: the dense baseline) at the same model and batch
+DENSE_ARGS = TRAIN_ARGS[:8]
+PSUM = ["--transport", "psum", "--bucket-mb", str(BUCKET_MB)]
+# the thetas whose keep counts B1, B4, B2 and B3 run at on the main path's
+# rows (KEEP_THETA's k = 615 again on the same data, as the yardstick of the
+# others' times)
+KEEP_COUNT_THETAS = (KEEP_THETA, 0.35, 0.0)
 # the kernel-composed pipeline against FFTCompressor: the two differ in the
 # forward FFT (B7 against cuFFT, ~1e-6 relative), which moves a few codes
 # across a quantizer bin edge and swaps a few bins across the kept-set
@@ -143,6 +161,27 @@ def bound(n_bytes: float, n_instr: float, n_flops: float = 0.0):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = (n_instr / FP32_INSTR_PER_S + n_flops / FP32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def b2_bound(rows: int, cols: int, k: int, k_pad: int):
+    """B2 with a tau: re, im, the weights, tau and the fit read, 6 bytes a
+    slot written; the magnitude and compare a value, the encode a kept one."""
+    return bound(rows * cols * 8 + cols * 4 + rows * 16 + rows * k_pad * 6,
+                 rows * cols * 6 + 2 * rows * k * 30)
+
+
+def b2_bisect_bound(rows: int, cols: int, k: int, k_pad: int):
+    """B2 with ``tau=None``: as B2, no tau read, its tau written, and B1's
+    passes over each row."""
+    return bound(rows * cols * 8 + cols * 4 + rows * 12 + rows * k_pad * 6 + rows * 4,
+                 rows * cols * (6 + B1_ROW_PASSES) + 2 * rows * k * 30)
+
+
+def b3_bound(rows: int, k: int, chunk: int = 4096):
+    """B3: 4 bytes a kept slot and the fit read, the chunk written; the
+    decode a slot and the irfft's flops."""
+    return bound(rows * k * 4 + rows * 8 + rows * chunk * 4,
+                 rows * 2 * k * 30, rows * 5 * chunk * 12)
 
 
 def model_config():
@@ -375,8 +414,7 @@ def kernel_phase(rows: int, dev, counted) -> list:
         raise AssertionError(f"B2 disagrees with its plain version: codes {code_mism}, "
                              f"indices {idx_mism}")
     k_pad = fused_compress.pad_k(k)
-    b_ms, b_by = bound(rows * cols * 8 + cols * 4 + rows * 16 + rows * k_pad * 6,
-                       rows * cols * 6 + 2 * rows * k * 30)
+    b_ms, b_by = b2_bound(rows, cols, k, k_pad)
     results.append(dict(
         kernel=fused_compress.KERNEL, max_abs_err=err,
         ms=time_ms(lambda: fused_compress.fused_compress(re, im, w, eps_rows, p_rows, tau,
@@ -406,8 +444,7 @@ def kernel_phase(rows: int, dev, counted) -> list:
     if not ratio <= 2e-6:
         raise AssertionError(f"B3 disagrees with its plain version: {ratio:.3e} > 2e-6")
     del y_k, y_p
-    b_ms, b_by = bound(rows * k * 4 + rows * 8 + rows * chunk * 4,
-                       rows * 2 * k * 30, rows * 5 * chunk * 12)
+    b_ms, b_by = b3_bound(rows, k, chunk)
     results.append(dict(
         kernel=fused_decompress.KERNEL, max_abs_err=err,
         ms=time_ms(lambda: fused_decompress.fused_decompress(rec, imc, idx16, eps_rows,
@@ -464,8 +501,7 @@ def bisect_compress(re, im, w, eps_rows, p_rows, k: int, tau_b1, counted) -> dic
                         topk_threshold.threshold(mag_e, k=k)[0].view(torch.int32))])
         del got, want, re_e, im_e, mag_e
     k_pad = fused_compress.pad_k(k)
-    b_ms, b_by = bound(rows * cols * 8 + cols * 4 + rows * 12 + rows * k_pad * 6 + rows * 4,
-                       rows * cols * (6 + B1_ROW_PASSES) + 2 * rows * k * 30)
+    b_ms, b_by = b2_bisect_bound(rows, cols, k, k_pad)
     return dict(
         kernel=fused_compress.BISECT_KERNEL, max_abs_err=err, launches=launches,
         ms=time_ms(lambda: fused_compress.fused_compress(re, im, w, eps_rows, p_rows, k_keep=k),
@@ -500,6 +536,73 @@ def bisect_edge_rows(re, im, w, k: int) -> dict:
     w_t = torch.full_like(w, torch.finfo(torch.float32).max)
     return {"holding a NaN or +inf": (re_e, im_e, w),
             "tied, zero, FLT_MAX or with fewer than k non-NaN": (re_t, im_t, w_t)}
+
+
+def keep_count_phase(rows: int, dev) -> None:
+    """B1, B4, B2 (with a tau and with ``tau=None``) and B3 at the keep
+    counts a theta schedule gives them (KEEP_COUNT_THETAS: k = 615, 1332,
+    and 2049 = every bin, k_pad = 2176 slots past the row's 2049 columns),
+    on ``rows`` rows of the main path's spectrum, against their plain
+    versions: bitwise (B3 within 2e-6 * max|x| per row); with each one's
+    time at that k."""
+    from repro_torch.core import selection, sparsify
+    from repro_torch.kernels import (fused_compress, fused_decompress, sampled_threshold,
+                                     topk_threshold)
+
+    cols = 2049
+    re, im, w, mag, _ = spectrum(rows, 4096, dev, seed=7)
+    for theta in KEEP_COUNT_THETAS:
+        k = sparsify.keep_count(cols, theta)
+        label = f"theta={theta} k={k} k_pad={fused_compress.pad_k(k)}"
+        b1 = topk_threshold.threshold(mag, k=k)
+        check_bitwise(f"B1 topk_threshold, {label}", zip(
+            (t.view(torch.int32) for t in b1),
+            (t.view(torch.int32) for t in topk_threshold.threshold_plain(mag, k))))
+        lo, hi = selection.sample_bracket(selection.strided_sample(mag), k, cols)
+        s_tau, s_cnt = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
+        check_bitwise(f"B4 sampled_threshold, {label}", zip(
+            (s_tau, s_cnt), sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)))
+        tau, eps, p_codes = compress_params(mag, re, im, s_tau)
+        got = fused_compress.fused_compress(re, im, w, eps, p_codes, tau, k_keep=k)
+        check_bitwise(f"B2 fused_compress, {label}", zip(
+            got[:3], fused_compress.fused_compress_plain(re, im, w, eps, p_codes, tau,
+                                                         k_keep=k)[:3]))
+        bis = fused_compress.fused_compress(re, im, w, eps, p_codes, k_keep=k)
+        want = fused_compress.fused_compress_plain(re, im, w, eps, p_codes, k_keep=k)
+        check_bitwise(f"B2 fused_compress tau=None, {label}", zip(
+            (bis[0], bis[1], bis[2], bis[3].view(torch.int32)),
+            (want[0], want[1], want[2], want[3].view(torch.int32))))
+        check_bitwise(f"B2 fused_compress tau=None, {label}: its tau against B1's",
+                      [(bis[3].view(torch.int32), b1[0].view(torch.int32))])
+        del bis, want
+        rec, imc = got[0][:, :k].contiguous(), got[1][:, :k].contiguous()
+        idx16 = got[2][:, :k].to(torch.int16).contiguous()
+        y_k = fused_decompress.fused_decompress(rec, imc, idx16, eps, p_codes)
+        y_p = fused_decompress.fused_decompress_plain(rec, imc, idx16, eps, p_codes)
+        ratio = float(((y_k - y_p).abs().amax(dim=-1)
+                       / torch.clamp_min(y_p.abs().amax(dim=-1), 1e-30)).max())
+        log(f"[B3 fused_decompress, {label}] worst row err/max|x|={ratio:.3e} "
+            "(tolerance 2e-6)")
+        if not ratio <= 2e-6:
+            raise AssertionError(f"B3 disagrees with its plain version at k={k}: {ratio:.3e}")
+        del y_k, y_p
+        ms = {
+            "B1": time_ms(lambda: topk_threshold.threshold(mag, k=k), 5),
+            "B4": time_ms(lambda: sampled_threshold.sampled_threshold(mag, lo, hi, k=k), 5),
+            "B2": time_ms(lambda: fused_compress.fused_compress(re, im, w, eps, p_codes, tau,
+                                                                k_keep=k), 5),
+            "B2 tau=None": time_ms(lambda: fused_compress.fused_compress(
+                re, im, w, eps, p_codes, k_keep=k), 5),
+            "B3": time_ms(lambda: fused_decompress.fused_decompress(rec, imc, idx16, eps,
+                                                                    p_codes), 5)}
+        k_pad = fused_compress.pad_k(k)
+        bounds = {"B2": b2_bound(rows, cols, k, k_pad)[0],
+                  "B2 tau=None": b2_bisect_bound(rows, cols, k, k_pad)[0],
+                  "B3": b3_bound(rows, k)[0]}
+        log(f"[keep count {label}] kernel_ms at {rows} rows: "
+            + ", ".join(f"{name} {t:.4f}" for name, t in ms.items())
+            + "; bound_ms: " + ", ".join(f"{name} {t:.4f}" for name, t in bounds.items()))
+        del got, rec, imc, idx16
 
 
 def chunk2048_phase(rows: int, dev) -> None:
@@ -862,11 +965,13 @@ def api_train(dev, steps: int, **reducer_kwargs):
                       stream, TrainLoopConfig(total_steps=steps, log_every=1))
 
 
-def train_phase(run, counted, label: str, must_launch, profile: bool = False) -> dict:
+def train_phase(run, counted, label: str, must_launch, profile: bool = False,
+                must_not_launch: bool = False):
     """Run one training phase (``run()`` returns the loop's result) with the
     kernels' counts set to 0 just before; checks finite losses, no skipped
-    step and a launch of each kernel in ``must_launch``; returns each
-    kernel's launches in that run."""
+    step (a ``pjit`` row has no ``skipped``: none), a launch of each kernel
+    in ``must_launch`` and, with ``must_not_launch``, no launch of any
+    kernel; returns each kernel's launches in that run and the history."""
     import contextlib
 
     for kern in counted:
@@ -887,21 +992,57 @@ def train_phase(run, counted, label: str, must_launch, profile: bool = False) ->
     del result
     losses = [row["loss"] for row in history]
     for row in history:
-        log(f"[{label}] step {row['step']}: loss={row['loss']:.4f} "
-            f"step_ms={row['dt'] * 1e3:.1f} skipped={row['skipped']}")
+        log(f"[{label}] step {row['step']}: theta={row['theta']} loss={row['loss']:.4f} "
+            f"step_ms={row['dt'] * 1e3:.1f} skipped={row.get('skipped', 0.0)}")
     steady = [row["dt"] * 1e3 for row in history[1:]] or [row["dt"] * 1e3 for row in history]
     PHASE_MS[label] = sum(steady) / max(len(steady), 1)
     log(f"[{label}] wall={wall:.1f}s peak_memory={peak_gb:.2f} GB launches={launches} "
         f"steady step ms={PHASE_MS[label]:.1f}")
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: non-finite loss {losses}")
-    if any(row["skipped"] for row in history):
+    if any(row.get("skipped", 0.0) for row in history):
         raise AssertionError(f"{label}: the guard skipped a step")
     for name in must_launch:
         if launches[name] <= 0:
             raise AssertionError(f"{label} never launched {name}")
+    if must_not_launch and any(launches.values()):
+        raise AssertionError(f"{label} launched kernels: {launches}")
     torch.cuda.empty_cache()
-    return launches
+    return launches, history
+
+
+def dense_phases(kernels, fused, main_counts) -> None:
+    """Phase 7: the dense baseline (the CLI's defaults, ``--mode pjit``, and
+    ``compressed_dp`` with the ``dense`` reducer), neither launching a
+    kernel; ``psum``; the main path under ``--theta-schedule step``, whose
+    4 steps at theta 0.7, 0.7, 0.0, 0.0 launch B4, B2 and B3 4/3 as often
+    as ``train``'s 3 steps (each step launches them; a wrapper on a CUDA
+    tensor launches or raises); the ``timedomain`` and ``qsgd`` reducers,
+    plain as in the reference."""
+    from repro_torch.launch import train as train_cli
+
+    def cli(*args):
+        return lambda: train_cli.main(list(args))
+
+    train_phase(cli(*DENSE_ARGS, "--steps", "3"), kernels, "train-dense", (),
+                must_not_launch=True)
+    train_phase(cli(*DENSE_ARGS, "--mode", "compressed_dp", "--reducer", "dense", "--steps",
+                    "3"), kernels, "train-dense-dp", (), must_not_launch=True)
+    train_phase(cli(*TRAIN_ARGS, *PSUM, "--steps", "3"), kernels, "train-psum", fused)
+    counts, history = train_phase(
+        cli(*TRAIN_ARGS, *SEQUENCED, "--theta-schedule", "step", "--steps", "4"), kernels,
+        "train-theta-step", fused)
+    thetas = [row["theta"] for row in history]
+    if not all(math.isclose(a, b, abs_tol=1e-9) for a, b in zip(thetas, (0.7, 0.7, 0.0, 0.0))):
+        raise AssertionError(f"train-theta-step ran at theta {thetas}")
+    for name in fused:
+        if 3 * counts[name] != 4 * main_counts[name]:
+            raise AssertionError(f"train-theta-step launched {name} {counts[name]} times in 4 "
+                                 f"steps, train {main_counts[name]} in 3")
+    train_phase(cli(*TRAIN_ARGS, "--reducer", "timedomain", *SEQUENCED, "--steps", "3"),
+                kernels, "train-timedomain", (), must_not_launch=True)
+    train_phase(cli(*TRAIN_ARGS, "--reducer", "qsgd", *PSUM, "--steps", "3"), kernels,
+                "train-qsgd", (), must_not_launch=True)
 
 
 def main() -> int:
@@ -944,6 +1085,8 @@ def main() -> int:
     rows = args.rows or main_path_rows()
     results = kernel_phase(rows, dev, kernels)
     torch.cuda.empty_cache()
+    keep_count_phase(rows, dev)
+    torch.cuda.empty_cache()
     chunk2048_phase(args.rows or main_path_rows(2048), dev)
     torch.cuda.empty_cache()
     results += standalone_phase(rows, dev)
@@ -964,12 +1107,12 @@ def main() -> int:
             return lambda: train_cli.main(TRAIN_ARGS + list(extra))
 
         fused = ("fused_compress", "fused_decompress", "sampled_threshold")
-        main_counts = train_phase(cli(*SEQUENCED, "--steps", "3"), kernels, "train", fused,
-                                  profile=args.profile)
+        main_counts, _ = train_phase(cli(*SEQUENCED, "--steps", "3"), kernels, "train", fused,
+                                     profile=args.profile)
         for name in fused:
             launches[name] = main_counts[name]
-        bisect_counts = train_phase(cli(*SEQUENCED, "--selector", "bisect", "--steps", "1"),
-                                    kernels, "train-bisect", ("topk_threshold",))
+        bisect_counts, _ = train_phase(cli(*SEQUENCED, "--selector", "bisect", "--steps", "1"),
+                                       kernels, "train-bisect", ("topk_threshold",))
         launches["topk_threshold"] = bisect_counts["topk_threshold"]
         train_phase(cli("--transport", "allgather", "--steps", "3"), kernels,
                     "train-allgather", fused)
@@ -979,9 +1122,12 @@ def main() -> int:
                     "train-api-unquantized", ("pack",))
         train_phase(lambda: api_train(dev, 3, backend="cuda", chunk=2048), kernels,
                     "train-api-chunk2048", ("fused_compress", "range_quant_decode"))
+        dense_phases(kernels, fused, main_counts)
 
     if PHASE_MS:
-        log("[phase ms] " + ", ".join(f"{k}={v:.1f}" for k, v in PHASE_MS.items()))
+        order = [k for k in ("train", "train-dense") if k in PHASE_MS]
+        order += [k for k in PHASE_MS if k not in order]
+        log("[phase ms] " + ", ".join(f"{k}={PHASE_MS[k]:.1f}" for k in order))
     line = {"kernels": []}
     for r in results:
         kern = r["kernel"]

@@ -1,7 +1,13 @@
 """Gradient reducers (port of ``repro.comms.reducers``: ``flatten_tree``,
-``unflatten_tree``, the ``ReducerConfig`` fields the compressed exchange
-uses, and ``make_reducer`` for ``kind="fft"`` with and without error
-feedback).
+``unflatten_tree``, the ``ReducerConfig`` fields the exchange uses, and
+``make_reducer``).
+
+Kinds: ``dense`` (the mean over the group, the paper's "orig" baseline: one
+SUM all_reduce divided by the world size, as ``pmean``), ``fft`` (the
+paper's compressed exchange), ``timedomain`` (top-k of the raw values,
+Fig. 12), ``terngrad`` and ``qsgd`` (Table I).  The compressed kinds run
+with and without error feedback over the transports of
+``comms/transport.py``.
 
 A gradient tree here is a mapping from dotted parameter paths to tensors
 (``"layers.l0_attn_local_mlp.attn.wq"``).  :func:`flatten_tree` walks it in
@@ -10,8 +16,8 @@ every level, which is the order of the paths as tuples of their parts -- so
 bucket boundaries, per-bucket quantizer fits and the error-feedback residual
 cover the same coefficients in both packages.
 
-The scheduler, calibration, faults, validation and the degradation ladder
-are not ported yet (ROADMAP.md).
+The ``hierarchical`` kind, the scheduler, calibration, faults, validation
+and the degradation ladder are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,15 +26,21 @@ import dataclasses
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.comms import bucketing
 from repro_torch.comms.transport import TRANSPORT_NAMES, get_transport
-from repro_torch.core.compressor import FFTCompressor, FFTCompressorConfig
+from repro_torch.core import baselines
+from repro_torch.core.compressor import (FFTCompressor, FFTCompressorConfig,
+                                         TimeDomainCompressor)
 from repro_torch.core.selection import SELECTOR_NAMES
+from repro_torch.dist_util import world_size
 from repro_torch.kernels.engine import BACKEND_NAMES
 
-__all__ = ["ReducerConfig", "make_reducer", "flatten_tree", "unflatten_tree",
-           "leaf_order", "residual_size"]
+__all__ = ["ReducerConfig", "make_reducer", "dense_mean", "flatten_tree", "unflatten_tree",
+           "leaf_order", "residual_size", "REDUCER_KINDS"]
+
+REDUCER_KINDS = ("dense", "fft", "timedomain", "terngrad", "qsgd", "hierarchical")
 
 LeafSpec = Tuple[str, torch.Size, torch.dtype]
 
@@ -79,7 +91,7 @@ class ReducerConfig:
     fixed_range: Tuple[float, float] = (-1.0, 1.0)
     error_feedback: bool = False
     bucket_bytes: Optional[int] = None  # None: one monolithic bucket
-    transport: str = "allgather"  # allgather | sequenced (the ported ones)
+    transport: str = "allgather"  # allgather | sequenced | psum (the ported ones)
     backend: str = "reference"
     # batched bucket executor: every bucket in one batched pass and one
     # StackedPayload per exchange; False runs the per-bucket loop
@@ -89,6 +101,9 @@ class ReducerConfig:
     tau_refine_iters: int = 16
 
     def __post_init__(self):
+        if self.kind not in REDUCER_KINDS:
+            raise ValueError(f"unknown reducer kind {self.kind!r}; expected one of "
+                             f"{REDUCER_KINDS}")
         if self.selector not in SELECTOR_NAMES:
             raise ValueError(
                 f"unknown selector {self.selector!r}; expected one of {SELECTOR_NAMES}")
@@ -112,21 +127,49 @@ class ReducerConfig:
         return bucketing.build_layout(total, self.bucket_bytes, self.chunk)
 
 
-def make_reducer(config: ReducerConfig, group=None):
-    """Returns the reduce function for ``kind="fft"``.
+def dense_mean(grads: Mapping[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
+    """The mean of every worker's gradient tree: ONE SUM all_reduce of the
+    flattened tree, divided by the world size (``pmean`` divides, it does not
+    multiply by 1/P).  With one worker the tree comes back as it is, and no
+    collective runs."""
+    world = world_size(group)
+    if world == 1:
+        return dict(grads)
+    flat, specs = flatten_tree(grads)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    return unflatten_tree(flat / world, specs)
 
-    Without error feedback: ``reduce(grads) -> mean_grads``.
-    With error feedback:    ``reduce(grads, residual) -> (mean_grads, residual')``
-    where ``residual' = corrected - local_roundtrip(corrected)`` and
+
+def _make_compressor(config: ReducerConfig):
+    if config.kind == "fft":
+        return FFTCompressor(config.compressor_config())
+    if config.kind == "timedomain":
+        return TimeDomainCompressor(config.compressor_config())
+    if config.kind == "terngrad":
+        return baselines.TernGrad()
+    if config.kind == "qsgd":
+        return baselines.QSGD()
+    raise NotImplementedError(
+        f"reducer kind {config.kind!r} is not ported yet; see ROADMAP.md")
+
+
+def make_reducer(config: ReducerConfig, group=None):
+    """Returns the reduce function of ``config.kind``.
+
+    ``dense``: ``reduce(grads) -> mean_grads``; it raises with error
+    feedback, which has nothing to accumulate.  The compressed kinds:
+    without error feedback ``reduce(grads) -> mean_grads``; with it
+    ``reduce(grads, residual) -> (mean_grads, residual')`` where
+    ``residual' = corrected - local_roundtrip(corrected)`` and
     ``corrected = flat(grads) + residual``.
 
     ``group`` is the ``torch.distributed`` group the mean runs over (the
     default group when one is initialized, else one worker)."""
-    if config.kind != "fft":
-        raise NotImplementedError(
-            f"reducer kind {config.kind!r} is not ported yet (ported: 'fft'); "
-            "see ROADMAP.md")
-    comp = FFTCompressor(config.compressor_config())
+    if config.kind == "dense":
+        if config.error_feedback:
+            raise ValueError("error feedback is meaningless for dense reduction")
+        return lambda grads: dense_mean(grads, group)
+    comp = _make_compressor(config)
     transport = get_transport(config.transport)
 
     def _run(flat, local: bool):

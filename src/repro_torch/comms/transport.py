@@ -1,30 +1,39 @@
 """Exchange strategies for compressed gradient buckets (port of
-``repro.comms.transport``: ``Transport.run(layout=...)``, the ``allgather``
-and ``sequenced`` transports, and the per-bucket loop).
+``repro.comms.transport``: ``Transport.run(layout=...)``, the ``allgather``,
+``sequenced`` and ``psum`` transports, and the per-bucket loop).
 
 ``run(flat, comp=..., layout=..., group=...)`` with ``group=None`` and no
 ``torch.distributed`` process group is a one-worker exchange (the worker
-axis has length 1); with ``local=True`` it is the local compress ->
-decompress roundtrip that error feedback accumulates against, at the
-transport's own granularity.
+axis has length 1, and no collective runs); with ``local=True`` it is the
+local compress -> decompress roundtrip that error feedback accumulates
+against, at the transport's own granularity.
 
-Every exchange all_gathers payloads one plane at a time
-(``torch.distributed.all_gather_into_tensor``), dequantizes and scatters
-each worker's payload into its spectrum (``decompress_spectrum``), averages
-the spectra in worker order by a left-to-right fold, and returns to the
-time domain with one irfft per chunk row (FFT linearity).
+The gather transports all_gather payloads one plane at a time
+(``torch.distributed.all_gather_into_tensor``).  For a spectral compressor
+(one with ``decompress_spectrum``) they dequantize and scatter each
+worker's payload into its spectrum, average the spectra in worker order by
+a left-to-right fold, and return to the time domain with one irfft per
+chunk row (FFT linearity); for any other compressor (the time-domain and
+quantization baselines) they average the workers' decompressed buffers in
+the same order.
 
 * ``allgather`` -- ONE monolithic payload of the whole buffer, one
   quantizer fit over all of it (the reference CLI's default).
 * ``sequenced`` -- per-bucket quantizer fits.  ``stacked=True`` compresses
   every bucket in one batched pass (``compress_stacked``) and gathers the
-  one ``StackedPayload``; ``stacked=False`` is the per-bucket loop, one
-  payload and one gather per bucket.  Both give the same mean; the loop is
-  slower (one round of launches per bucket) but holds one bucket's spectrum
-  at a time, so it peaks lower in device memory.
+  one ``StackedPayload``; ``stacked=False`` (or a compressor without
+  ``compress_stacked``) is the per-bucket loop, one payload and one gather
+  per bucket.  Both give the same mean; the loop is slower (one round of
+  launches per bucket) but holds one bucket's spectrum at a time, so it
+  peaks lower in device memory.
+* ``psum`` -- each worker dequantizes its own payload and ONE SUM
+  all_reduce of the dense ``stack([spec.real, spec.imag])`` planes, times
+  1/P, gives the mean spectrum; then one irfft.  The stacked path reduces
+  every bucket's planes in one collective, the loop one per bucket.  With
+  two workers its mean is bitwise the ``sequenced`` one.
 
-The ``psum``, ``hierarchical`` and ``reduce_scatter`` transports and the
-streamed ``plan=`` dispatch are not ported yet.
+The ``hierarchical`` and ``reduce_scatter`` transports and the streamed
+``plan=`` dispatch are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,17 +47,37 @@ import torch.distributed as dist
 from repro_torch.comms import bucketing
 from repro_torch.core import fft as cfft
 from repro_torch.core.compressor import StackedPayload
+from repro_torch.core.quantizer import FittedQuantizer
+from repro_torch.dist_util import world_size
 
-__all__ = ["Transport", "AllGatherTransport", "SequencedTransport", "get_transport",
-           "TRANSPORT_NAMES", "PORTED_TRANSPORTS"]
+__all__ = ["Transport", "AllGatherTransport", "SequencedTransport", "SpectrumPsumTransport",
+           "get_transport", "all_gather_payload", "TRANSPORT_NAMES",
+           "PORTED_TRANSPORTS"]
 
 TRANSPORT_NAMES = ("allgather", "sequenced", "psum", "hierarchical", "reduce_scatter")
-PORTED_TRANSPORTS = ("allgather", "sequenced")
+PORTED_TRANSPORTS = ("allgather", "sequenced", "psum")
+
+
+def _compress_all(buckets, comp) -> list:
+    """Per-bucket payloads, one quantizer fit per bucket."""
+    if hasattr(comp, "compress_buckets"):
+        return comp.compress_buckets(buckets)
+    return [comp.compress(b) for b in buckets]
+
+
+def _can_stack(comp) -> bool:
+    return hasattr(comp, "compress_stacked")
 
 
 def _compress_stacked(flat: torch.Tensor, layout, comp) -> StackedPayload:
     """ONE batched compress of every bucket (one quantizer fit per bucket)."""
     return comp.compress_stacked(bucketing.stack_buckets(flat, layout), layout.sizes())
+
+
+def _stacked_roundtrip(flat: torch.Tensor, layout, comp) -> torch.Tensor:
+    """This worker's stacked compress -> decompress, back to the flat layout."""
+    payload = _compress_stacked(flat, layout, comp)
+    return bucketing.unstack_buckets(comp.decompress_stacked(payload), layout)
 
 
 def _ordered_worker_mean(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -61,17 +90,22 @@ def _ordered_worker_mean(parts: List[torch.Tensor]) -> torch.Tensor:
     return acc * (1.0 / len(parts))
 
 
-def _world(group) -> int:
-    if not dist.is_available() or not dist.is_initialized():
-        return 1
-    return dist.get_world_size(group)
+def _sum_over_workers(t: torch.Tensor, group) -> torch.Tensor:
+    """SUM all_reduce of ``t`` (a fresh buffer, reduced in place); no
+    collective with one worker."""
+    if world_size(group) > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
 
 
 def _gather_plane(t: torch.Tensor, world: int, group) -> torch.Tensor:
     """all_gather one plane -> (world, *t.shape).  The plane travels as raw
-    bytes, so every dtype (int16 indices, uint8 codes) takes the same path on
-    every backend."""
+    bytes, so every dtype (int16 indices, uint8 or int8 codes) takes the
+    same path on every backend; an empty plane (a real payload's ``im``)
+    moves nothing."""
     src = t.contiguous()
+    if src.numel() == 0:
+        return src.new_empty((world,) + tuple(src.shape))
     raw = src.reshape(-1).view(torch.uint8)
     out = torch.empty((world * raw.numel(),), dtype=torch.uint8, device=raw.device)
     dist.all_gather_into_tensor(out, raw, group=group)
@@ -79,39 +113,77 @@ def _gather_plane(t: torch.Tensor, world: int, group) -> torch.Tensor:
 
 
 def all_gather_payload(payload, group=None) -> list:
-    """The payloads (``FFTPayload`` or ``StackedPayload``) of every worker,
-    in rank order (one all_gather per plane and per fit leaf);
-    ``[payload]`` when there is one worker."""
-    world = _world(group)
+    """The payloads of every worker, in rank order: one all_gather per tensor
+    field of the payload dataclass (``FFTPayload``, ``StackedPayload``,
+    ``ScaledCodes``) and per leaf of its quantizer fit; ``[payload]`` when
+    there is one worker."""
+    world = world_size(group)
     if world == 1:
         return [payload]
-    planes = [_gather_plane(t, world, group) for t in (payload.re, payload.im, payload.idx)]
-    quant = None
-    if payload.quant is not None:
-        q = payload.quant
-        leaves = [_gather_plane(t, world, group) for t in (q.eps, q.p_codes, q.vmax, q.vmin)]
-    out = []
-    for w in range(world):
-        if payload.quant is not None:
-            quant = type(payload.quant)(payload.quant.config, *(leaf[w] for leaf in leaves))
-        out.append(dataclasses.replace(payload, re=planes[0][w], im=planes[1][w],
-                                       idx=planes[2][w], quant=quant))
-    return out
+    gathered = {}
+    for field in dataclasses.fields(payload):
+        value = getattr(payload, field.name)
+        if isinstance(value, torch.Tensor):
+            gathered[field.name] = _gather_plane(value, world, group)
+        elif isinstance(value, FittedQuantizer):
+            gathered[field.name] = value.map(lambda t: _gather_plane(t, world, group))
+    return [dataclasses.replace(payload, **{
+        name: value.map(lambda t: t[w]) if isinstance(value, FittedQuantizer) else value[w]
+        for name, value in gathered.items()}) for w in range(world)]
 
 
-def _gather_mean_payload(payload, comp, group) -> torch.Tensor:
-    """All_gather one monolithic payload -> the flat mean reconstruction:
-    the worker-ordered mean of the decompressed spectra, one irfft."""
-    spectra = [comp.decompress_spectrum(p) for p in all_gather_payload(payload, group)]
-    mean = _ordered_worker_mean(spectra)
-    del spectra
-    return cfft.chunked_irfft(mean, payload.orig_len, payload.chunk)
+def _decompress(comp, payload, stacked: bool) -> torch.Tensor:
+    """What the workers' mean runs over: the payload's spectrum where the
+    compressor has ``decompress_spectrum`` (the mean then takes one irfft),
+    else its decompressed buffer."""
+    if hasattr(comp, "decompress_spectrum"):
+        return comp.decompress_spectrum(payload)
+    return comp.decompress_stacked(payload) if stacked else comp.decompress(payload)
+
+
+def _gather_mean_payload(payload, comp, group, stacked: bool = False) -> torch.Tensor:
+    """All_gather one payload -> the worker-ordered mean of the decompressed
+    spectra (or buffers)."""
+    gathered = all_gather_payload(payload, group)
+    del payload
+    return _ordered_worker_mean([_decompress(comp, p, stacked) for p in gathered])
+
+
+def _psum_mean_payload(payload, comp, group, stacked: bool = False) -> torch.Tensor:
+    """Decompress locally -> SUM all_reduce -> * 1/P.  A spectrum travels
+    as its stacked real and imag planes: the all_reduce moves the DENSE
+    dequantized spectrum, as the reference's ``psum`` does (its semantics,
+    not a sparse all-reduce)."""
+    inv_p = 1.0 / world_size(group)
+    local = _decompress(comp, payload, stacked)
+    del payload
+    if not local.is_complex():
+        return _sum_over_workers(local, group) * inv_p
+    summed = _sum_over_workers(torch.stack([local.real, local.imag]), group)
+    del local
+    return torch.complex(summed[0], summed[1]) * inv_p
+
+
+def _bucket_buffer(mean: torch.Tensor, payload) -> torch.Tensor:
+    """One payload's mean as its flat buffer: a mean spectrum takes one
+    chunked irfft."""
+    if mean.is_complex():
+        return cfft.chunked_irfft(mean, payload.orig_len, payload.chunk)
+    return mean
+
+
+def _stacked_buffer(mean: torch.Tensor, layout) -> torch.Tensor:
+    """The stacked mean back to the flat layout: a mean spectrum
+    ``(n_buckets, max_chunks, f)`` takes one batched irfft."""
+    if mean.is_complex():
+        mean = cfft.irfft_rows(mean, layout.chunk)
+    return bucketing.unstack_buckets(mean, layout)
 
 
 class Transport:
     """Exchange interface; :meth:`run` is the single public entry point.
-    Subclasses implement the flat hooks (whole buffer + bucket layout) and
-    the per-bucket loop hooks."""
+    A subclass sets ``_reduce``, its worker reduction of one payload, and
+    overrides the flat hooks where its granularity is not the bucket's."""
 
     name = "base"
 
@@ -126,25 +198,28 @@ class Transport:
             return self._roundtrip_flat(flat, layout, comp, stacked)
         return self._exchange_flat(flat, layout, comp, group, stacked)
 
-    # -- per-bucket loop hooks ----------------------------------------------
-
-    def _exchange_buckets(self, buckets, comp, group) -> List[torch.Tensor]:
-        raise NotImplementedError
-
-    def _roundtrip_buckets(self, buckets, comp) -> List[torch.Tensor]:
-        return [comp.decompress(p) for p in comp.compress_buckets(buckets)]
-
-    # -- flat hooks: the per-bucket loop unless a transport overrides them --
+    # (payload, comp, group, stacked=False) -> the workers' mean spectrum or buffer
+    _reduce = None
 
     def _exchange_flat(self, flat, layout, comp, group, stacked: bool = True) -> torch.Tensor:
-        del stacked  # the loop ignores the flag
+        """ONE reduction of the stacked payload, or one per bucket (the loop,
+        also for a compressor without ``compress_stacked``)."""
+        if stacked and _can_stack(comp):
+            # the payload is handed on unnamed, so the reduction frees it
+            # once it is decompressed
+            return _stacked_buffer(
+                self._reduce(_compress_stacked(flat, layout, comp), comp, group, True), layout)
         buckets = bucketing.split_buckets(flat, layout)
-        return bucketing.concat_buckets(self._exchange_buckets(buckets, comp, group), layout)
+        return bucketing.concat_buckets(
+            [_bucket_buffer(self._reduce(p, comp, group), p)
+             for p in _compress_all(buckets, comp)], layout)
 
     def _roundtrip_flat(self, flat, layout, comp, stacked: bool = True) -> torch.Tensor:
-        del stacked
+        if stacked and _can_stack(comp):
+            return _stacked_roundtrip(flat, layout, comp)
         buckets = bucketing.split_buckets(flat, layout)
-        return bucketing.concat_buckets(self._roundtrip_buckets(buckets, comp), layout)
+        return bucketing.concat_buckets(
+            [comp.decompress(p) for p in _compress_all(buckets, comp)], layout)
 
 
 class AllGatherTransport(Transport):
@@ -152,9 +227,11 @@ class AllGatherTransport(Transport):
     bucket layout and ``stacked`` play no part."""
 
     name = "allgather"
+    _reduce = staticmethod(_gather_mean_payload)
 
     def _exchange_flat(self, flat, layout, comp, group, stacked=True):
-        return _gather_mean_payload(comp.compress(flat), comp, group)
+        payload = comp.compress(flat)
+        return _bucket_buffer(self._reduce(payload, comp, group), payload)
 
     def _roundtrip_flat(self, flat, layout, comp, stacked=True):
         return comp.decompress(comp.compress(flat))
@@ -166,29 +243,20 @@ class SequencedTransport(Transport):
     (the loop)."""
 
     name = "sequenced"
-
-    def _exchange_buckets(self, buckets, comp, group):
-        return [_gather_mean_payload(p, comp, group) for p in comp.compress_buckets(buckets)]
-
-    def _exchange_flat(self, flat, layout, comp, group, stacked=True):
-        if not stacked:
-            return super()._exchange_flat(flat, layout, comp, group, stacked)
-        payload = _compress_stacked(flat, layout, comp)
-        gathered = all_gather_payload(payload, group)
-        del payload
-        spectra = [comp.decompress_spectrum(p) for p in gathered]
-        mean = _ordered_worker_mean(spectra)  # (B, max_chunks, f)
-        del spectra
-        return bucketing.unstack_buckets(cfft.irfft_rows(mean, layout.chunk), layout)
-
-    def _roundtrip_flat(self, flat, layout, comp, stacked=True):
-        if not stacked:
-            return super()._roundtrip_flat(flat, layout, comp, stacked)
-        payload = _compress_stacked(flat, layout, comp)
-        return bucketing.unstack_buckets(comp.decompress_stacked(payload), layout)
+    _reduce = staticmethod(_gather_mean_payload)
 
 
-_TRANSPORTS = {t.name: t for t in (AllGatherTransport(), SequencedTransport())}
+class SpectrumPsumTransport(Transport):
+    """Psum of dequantized spectra: ONE SUM all_reduce of the
+    ``(2, n_buckets, max_chunks, f)`` plane stack (stacked), then one batched
+    irfft; or one all_reduce per bucket (the loop)."""
+
+    name = "psum"
+    _reduce = staticmethod(_psum_mean_payload)
+
+
+_TRANSPORTS = {t.name: t for t in (AllGatherTransport(), SequencedTransport(),
+                                   SpectrumPsumTransport())}
 
 
 def get_transport(name: str) -> Transport:
@@ -197,5 +265,5 @@ def get_transport(name: str) -> Transport:
     if name in TRANSPORT_NAMES + ("auto",):
         raise NotImplementedError(
             f"transport {name!r} is not ported yet (ported: {PORTED_TRANSPORTS}); "
-            "see ROADMAP.md queue 1 for the order the rest arrive in")
+            "see ROADMAP.md")
     raise ValueError(f"unknown transport {name!r}; expected one of {TRANSPORT_NAMES}")

@@ -1,5 +1,4 @@
-"""The compressor protocol and payloads (port of ``repro.core.compressor``:
-``FFTCompressor`` and its payloads).
+"""The compressor protocol and payloads (port of ``repro.core.compressor``).
 
     gradient --rFFT--> spectrum --theta-drop--> sparse --range-quant--> codes
              --pack--> (values, indices) payload --> wire
@@ -12,8 +11,13 @@ backend emits the same payload layout.  The entry points are the monolithic
 ``compress``/``decompress`` (one quantizer fit for the whole buffer), the
 per-bucket loop ``compress_buckets`` (one fit per bucket) and the stacked
 bucket executor ``compress_stacked``/``decompress_stacked`` (one fit per
-bucket, one batched pass).  ``TimeDomainCompressor`` and the other
-baselines are not ported yet (ROADMAP).
+bucket, one batched pass).
+
+The paper's comparison compressors share the protocol (``compress``,
+``decompress``, ``wire_bits``, ``ratio``): ``TimeDomainCompressor`` (top-k
+of the raw chunk values with the same range quantizer; Fig. 12),
+``QuantOnlyCompressor`` and ``NoCompression``; ``core/baselines.py`` holds
+the rest.  They are plain PyTorch, as the reference's are plain ``jnp``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,14 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import fft as cfft
-from repro_torch.core.quantizer import FittedQuantizer
+from repro_torch.core import packing, selection, sparsify
+from repro_torch.core.quantizer import (
+    FittedQuantizer,
+    RangeQuantConfig,
+    decode as q_decode,
+    encode as q_encode,
+    fit_quantizer,
+)
 
 __all__ = [
     "FFTCompressorConfig",
@@ -33,6 +44,9 @@ __all__ = [
     "stack_bucket_quant",
     "valid_chunk_mask",
     "FFTCompressor",
+    "TimeDomainCompressor",
+    "QuantOnlyCompressor",
+    "NoCompression",
 ]
 
 
@@ -51,14 +65,17 @@ def stack_bucket_quant(q: FittedQuantizer) -> FittedQuantizer:
 
 @dataclasses.dataclass
 class FFTPayload:
-    """One payload: quantized kept spectrum + int16 bin indices + fit."""
+    """One payload: quantized kept spectrum + int16 bin indices + fit.
+    ``has_im=False`` marks a purely real (time-domain) payload, whose ``im``
+    plane is empty, ``(c, 0)``, so the collectives move one value plane."""
 
     re: torch.Tensor  # (c, k) codes, or f32 when quantization is off
-    im: torch.Tensor
+    im: torch.Tensor  # (c, k), or (c, 0) when has_im is False
     idx: torch.Tensor  # (c, k) int16
     quant: Optional[FittedQuantizer]
     orig_len: int
     chunk: int
+    has_im: bool = True
 
 
 @dataclasses.dataclass
@@ -75,6 +92,7 @@ class StackedPayload:
     quant: Optional[FittedQuantizer]
     sizes: Tuple[int, ...]
     chunk: int
+    has_im: bool = True
 
     def chunk_counts(self) -> Tuple[int, ...]:
         return tuple(-(-s // self.chunk) for s in self.sizes)
@@ -85,7 +103,7 @@ class StackedPayload:
         for b, (size, c_b) in enumerate(zip(self.sizes, self.chunk_counts())):
             q = None if self.quant is None else self.quant.map(lambda t: t[b, 0, 0])
             out.append(FFTPayload(self.re[b, :c_b], self.im[b, :c_b], self.idx[b, :c_b],
-                                  q, size, self.chunk))
+                                  q, size, self.chunk, self.has_im))
         return out
 
 
@@ -169,3 +187,130 @@ class FFTCompressor:
         from repro_torch.kernels import engine
 
         return engine.wire_bits(self.config, n)
+
+
+def _empty_im(vals: torch.Tensor) -> torch.Tensor:
+    """The empty imaginary plane of a purely real payload."""
+    return vals.new_zeros(vals.shape[:-1] + (0,))
+
+
+class TimeDomainCompressor:
+    """DGC/Aji-style top-k of the raw chunk values with the same range
+    quantizer (the paper's Fig. 12: frequency against time domain at the
+    same theta).  Plain PyTorch, as the reference's is plain ``jnp``."""
+
+    def __init__(self, config: Optional[FFTCompressorConfig] = None):
+        self.config = config if config is not None else FFTCompressorConfig()
+        self._qcfg = RangeQuantConfig(self.config.n_bits, self.config.m_bits)
+
+    def _select(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        cfg = self.config
+        idx, _ = selection.select_indices(
+            torch.abs(x), k, cfg.selector, sample_rate=cfg.sample_rate,
+            refine_iters=cfg.tau_refine_iters, seed=cfg.selector_seed)
+        return idx
+
+    def compress(self, x_flat: torch.Tensor, generator=None) -> FFTPayload:
+        """One payload of the whole buffer, one quantizer fit; deterministic
+        (``generator`` is accepted for the protocol and unused)."""
+        del generator
+        cfg = self.config
+        x2d, n = cfft.pad_to_chunks(x_flat.float(), cfg.chunk)
+        k = sparsify.keep_count(cfg.chunk, cfg.theta)
+        idx = self._select(x2d, k)
+        vals = packing.pack_by_indices(x2d, idx)
+        quant = None
+        if cfg.quantize:
+            quant = fit_quantizer(vals.min(), vals.max(), self._qcfg)
+            vals = q_encode(vals, quant)
+        return FFTPayload(vals, _empty_im(vals), idx.to(torch.int16), quant, n, cfg.chunk,
+                          has_im=False)
+
+    def decompress(self, payload: FFTPayload) -> torch.Tensor:
+        vals = payload.re
+        if payload.quant is not None:
+            vals = q_decode(vals, payload.quant)
+        dense = packing.unpack_by_indices(vals.float(), payload.idx, payload.chunk)
+        return dense.reshape(-1)[: payload.orig_len]
+
+    def compress_stacked(self, stacked: torch.Tensor, sizes) -> StackedPayload:
+        """One batched selection over the ``(n_buckets, padded_size)``
+        matrix and one quantizer fit per bucket, the padding chunks masked
+        out of its range."""
+        cfg = self.config
+        sizes = tuple(int(s) for s in sizes)
+        n_buckets, padded = stacked.shape
+        c_max = padded // cfg.chunk
+        x3 = stacked.reshape(n_buckets, c_max, cfg.chunk).float()
+        k = sparsify.keep_count(cfg.chunk, cfg.theta)
+        idx = self._select(x3, k)
+        vals = packing.pack_by_indices(x3, idx)
+        quant = None
+        if cfg.quantize:
+            valid = valid_chunk_mask(sizes, c_max, cfg.chunk, stacked.device)
+            lo = torch.where(valid, vals, float("inf")).amin(dim=(1, 2))
+            hi = torch.where(valid, vals, -float("inf")).amax(dim=(1, 2))
+            quant = stack_bucket_quant(fit_quantizer(lo, hi, self._qcfg))
+            vals = q_encode(vals, quant)
+        return StackedPayload(vals, _empty_im(vals), idx.to(torch.int16), quant, sizes,
+                              cfg.chunk, has_im=False)
+
+    def decompress_stacked(self, payload: StackedPayload) -> torch.Tensor:
+        vals = payload.re
+        if payload.quant is not None:
+            vals = q_decode(vals, payload.quant)
+        n_buckets, c_max, k = vals.shape
+        dense = packing.unpack_by_indices(vals.float().reshape(n_buckets * c_max, k),
+                                          payload.idx.reshape(n_buckets * c_max, k),
+                                          payload.chunk)
+        return dense.reshape(n_buckets, c_max * payload.chunk)
+
+    def wire_bits(self, n: int) -> int:
+        cfg = self.config
+        n_chunks = max(1, -(-n // cfg.chunk))
+        k = sparsify.keep_count(cfg.chunk, cfg.theta)
+        value_bits = cfg.n_bits if cfg.quantize else 32
+        return n_chunks * k * (value_bits + cfg.index_bits) + 4 * 32
+
+    def ratio(self, n: int) -> float:
+        return 32.0 * n / self.wire_bits(n)
+
+
+class QuantOnlyCompressor:
+    """Range-based N-bit quantization without sparsification (ablation)."""
+
+    def __init__(self, n_bits: int = 8, m_bits: int = 3):
+        self._qcfg = RangeQuantConfig(n_bits, m_bits)
+        self.n_bits = n_bits
+
+    def compress(self, x_flat: torch.Tensor, generator=None):
+        del generator
+        quant = fit_quantizer(x_flat.min(), x_flat.max(), self._qcfg)
+        return q_encode(x_flat, quant), quant
+
+    def decompress(self, payload):
+        codes, quant = payload
+        return q_decode(codes, quant)
+
+    def wire_bits(self, n: int) -> int:
+        return n * self.n_bits + 4 * 32
+
+    def ratio(self, n: int) -> float:
+        return 32.0 * n / self.wire_bits(n)
+
+
+class NoCompression:
+    """Identity compressor (the paper's 'orig' baseline)."""
+
+    def compress(self, x_flat: torch.Tensor, generator=None):
+        del generator
+        return x_flat
+
+    def decompress(self, payload):
+        return payload
+
+    def wire_bits(self, n: int) -> int:
+        return 32 * n
+
+    def ratio(self, n: int) -> float:
+        return 1.0

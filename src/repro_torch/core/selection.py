@@ -21,10 +21,12 @@ held bitwise against these functions: it is only compare, count and halve.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.sparsify import topk_select
 
 __all__ = [
     "SELECTOR_NAMES",
@@ -43,6 +45,7 @@ __all__ = [
     "sampled_tau",
     "selector_tau",
     "count_compact",
+    "select_indices",
 ]
 
 SELECTOR_NAMES = ("sort", "sampled", "bisect", "auto")
@@ -198,3 +201,20 @@ def count_compact(mag: torch.Tensor, tau: torch.Tensor, k: int) -> torch.Tensor:
         found = torch.gather(cum, -1, mid) >= targets
         lo, hi = torch.where(found, lo, mid + 1), torch.where(found, mid, hi)
     return lo.to(torch.int32).reshape(lead + (k,))
+
+
+def select_indices(mag: torch.Tensor, k: int, selector: str, *,
+                   sample_rate: float = DEFAULT_SAMPLE_RATE,
+                   refine_iters: int = DEFAULT_REFINE_ITERS,
+                   seed: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One-call selection: indices (..., k) and tau (..., 1).
+
+    ``sort`` gives magnitude-descending indices (the stable
+    :func:`topk_select`) and ``tau=None``; the threshold selectors give the
+    index-ascending compaction of ``mag >= tau`` and that tau."""
+    resolved = resolve_selector(selector, mag.shape[-1])
+    if resolved == "sort":
+        return topk_select(mag, k), None
+    tau = selector_tau(mag, k, resolved, sample_rate=sample_rate,
+                       refine_iters=refine_iters, seed=seed)
+    return count_compact(mag, tau, k), tau

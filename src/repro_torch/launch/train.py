@@ -1,9 +1,13 @@
 """Training CLI of the port (same flags and defaults as ``repro.launch.train``).
 
-The ported path is compressed data-parallel training with the ``fft``
-reducer over the ``allgather`` transport (the default: one monolithic
-payload) or the ``sequenced`` one (bucketed; ``--no-stacked`` runs its
-per-bucket loop instead of the batched executor):
+The default, ``--mode pjit``, is the dense baseline: AdamW on the mean
+gradient, no reducer and no theta schedule.  ``--mode compressed_dp`` is
+the paper's setting, with ``--reducer fft|timedomain|terngrad|qsgd|dense``
+over the ``allgather`` transport (the default: one monolithic payload),
+``sequenced`` (bucketed all_gather) or ``psum`` (one all_reduce of the
+dense spectra); ``--no-stacked`` runs the per-bucket loop instead of the
+batched executor, and ``--theta-schedule constant|step|thm35`` sets theta
+step by step:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b \\
       --n-layers 4 --steps 3 --batch 4 --seq 512 --mode compressed_dp \\
@@ -28,6 +32,7 @@ import torch.distributed as dist
 
 from repro_torch import configs, device as device_mod
 from repro_torch.comms.reducers import ReducerConfig
+from repro_torch.core import schedules as theta_schedules
 from repro_torch.data import SyntheticConfig, SyntheticStream
 from repro_torch.models import build
 from repro_torch.optim import OptConfig, lr_schedules
@@ -88,14 +93,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(ap, args) -> None:
-    if args.mode != "compressed_dp":
+    if args.mode == "hierarchical":
         _not_ported(ap, f"--mode {args.mode}")
-    if args.reducer != "fft":
-        _not_ported(ap, f"--reducer {args.reducer}")
-    if args.transport not in ("allgather", "sequenced"):
+    if args.transport not in ("allgather", "sequenced", "psum"):
         _not_ported(ap, f"--transport {args.transport}")
-    if args.theta_schedule != "constant":
-        _not_ported(ap, f"--theta-schedule {args.theta_schedule}")
     if args.schedule != "stacked" or args.stream_groups is not None:
         _not_ported(ap, "streamed dispatch (--schedule/--stream-groups)")
     for flag, value in (("--calibrate", args.calibrate),
@@ -108,9 +109,17 @@ def _check_ported(ap, args) -> None:
         _not_ported(ap, f"--mesh {args.mesh}")
 
 
-def quantize_theta(theta: float, granularity: float = 0.05) -> float:
-    """Snap theta to the reference's grid (``core.schedules.quantize_theta``)."""
-    return min(0.95, max(0.0, round(theta / granularity) * granularity))
+def _theta_schedule(args):
+    """The theta schedule of ``--theta-schedule``, as the reference builds
+    it; None in ``--mode pjit``, which compresses nothing."""
+    if args.mode == "pjit":
+        return None
+    if args.theta_schedule == "constant":
+        return theta_schedules.constant(args.theta)
+    if args.theta_schedule == "step":
+        return theta_schedules.step_decay([(0, args.theta), (args.steps // 2, 0.0)])
+    return theta_schedules.thm35_schedule(
+        1.0, lambda s: args.lr * lr_schedules.rsqrt_decay()(s))
 
 
 def main(argv=None):
@@ -133,20 +142,23 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = build(cfg, device=dev, generator=gen)
 
-    theta = quantize_theta(args.theta)
-    reducer = ReducerConfig(
-        kind=args.reducer, theta=theta, error_feedback=args.error_feedback,
-        bucket_bytes=int(args.bucket_mb * (1 << 20)) if args.bucket_mb else None,
-        transport=args.transport, backend=args.backend, stacked=not args.no_stacked,
-        selector=args.selector, sample_rate=args.sample_rate)
+    reducer = None
+    if args.mode != "pjit":
+        reducer = ReducerConfig(
+            kind=args.reducer, theta=args.theta, error_feedback=args.error_feedback,
+            bucket_bytes=int(args.bucket_mb * (1 << 20)) if args.bucket_mb else None,
+            transport=args.transport, backend=args.backend, stacked=not args.no_stacked,
+            selector=args.selector, sample_rate=args.sample_rate)
     step_cfg = StepConfig(mode=args.mode, reducer=reducer)
     opt_cfg = OptConfig(kind="adamw", lr=args.lr)
     stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                              global_batch=args.batch, seed=args.seed),
                              device=dev)
-    state = init_state(model, opt_cfg, error_feedback=args.error_feedback)
+    state = init_state(model, opt_cfg,
+                       error_feedback=reducer is not None and reducer.error_feedback)
     loop_cfg = TrainLoopConfig(
         total_steps=args.steps, log_every=max(1, args.steps // 20),
+        theta_schedule=_theta_schedule(args),
         lr_schedule=lr_schedules.warmup_cosine(max(2, args.steps // 10), args.steps))
     result = train_loop(model, opt_cfg, step_cfg, state, stream, loop_cfg, group=group)
     for row in result["history"]:

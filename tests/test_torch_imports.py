@@ -53,11 +53,13 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(monkeypatch):
     assert device.resolve("cpu").type == "cpu"
 
 
-def test_cli_refuses_unported_flags():
+def test_cli_refuses_unported_flags(capsys):
     from repro_torch.launch import train
 
-    with pytest.raises(SystemExit):
-        train.main(["--reduced", "--device", "cpu", "--mode", "pjit"])
-    with pytest.raises(SystemExit):
-        train.main(["--reduced", "--device", "cpu", "--mode", "compressed_dp",
-                    "--transport", "psum"])
+    for flags in (["--mode", "hierarchical"],
+                  ["--mode", "compressed_dp", "--transport", "reduce_scatter"],
+                  ["--mode", "compressed_dp", "--transport", "auto"],
+                  ["--schedule", "streamed"], ["--ckpt-dir", "ckpt"], ["--nodes", "2"]):
+        with pytest.raises(SystemExit):
+            train.main(["--reduced", "--device", "cpu", "--steps", "1", *flags])
+        assert "ROADMAP" in capsys.readouterr().err

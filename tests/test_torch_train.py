@@ -189,12 +189,21 @@ def test_two_worker_sequenced_ef_exchange_matches_reference(tmp_path):
                                   np.load(path + ".1.npz")["means"])
 
 
-def test_reducer_config_refuses_unported_paths():
+def test_reducer_config_refuses_unported_paths(capsys):
+    from repro_torch.comms.reducers import make_reducer
+    from repro_torch.launch import train
+
+    for transport in ("hierarchical", "reduce_scatter"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_reducer(dataclasses.replace(TRC(kind="fft"), transport=transport))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from repro_torch.comms.reducers import make_reducer
-        make_reducer(dataclasses.replace(TRC(kind="fft"), transport="psum"))
+        make_reducer(TRC(kind="hierarchical"))
+    tmodel = LM(configs.get_config("gemma2_2b").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_reducer(TRC(kind="dense"))
+        t_build(tmodel, TOpt(), TStep(mode="hierarchical", reducer=TRC(kind="fft")))
+    with pytest.raises(SystemExit):
+        train.main(["--reduced", "--device", "cpu", "--mode", "hierarchical"])
+    assert "ROADMAP" in capsys.readouterr().err
 
 
 def test_cli_trains_two_gloo_workers_in_lockstep(tmp_path):

@@ -1,15 +1,19 @@
-"""Port parity of the exchange paths this slice adds: the ``allgather``
-transport (one monolithic payload), the per-bucket loop (``sequenced``
-with ``stacked=False``) and ``ReducerConfig``'s fixed quantizer range
-(``range_mode="fixed"``), each with error feedback, over 2
-gloo workers against the reference on 2 fake CPU devices; and, in one
-process, the per-bucket loop against the batched executor.
+"""Port parity of the exchange paths: the ``allgather`` transport (one
+monolithic payload), ``sequenced`` stacked and as the per-bucket loop,
+``psum`` stacked and as the loop, ``ReducerConfig``'s fixed quantizer range
+(``range_mode="fixed"``), and the ``timedomain``, ``terngrad`` and ``qsgd``
+reducers, each with error feedback, and the ``dense`` reducer without it,
+over 2 gloo workers against the reference on 2 fake CPU devices; and, in
+one process, the per-bucket loop against the batched executor.
 
 Tolerances:
 * 2 workers, 2 EF steps (no model, so no bf16): the mean and each worker's
   residual within relative L2 error 1e-3 of the reference (the two FFT
   libraries agree to ~1e-6, which moves a few codes by one step); every
-  worker holds the same mean, bitwise (the left-to-right worker fold);
+  worker holds the same mean, bitwise (the left-to-right worker fold, or
+  one SUM all_reduce); within the port, ``psum``'s mean and residuals are
+  bitwise ``sequenced``'s (the reference's own claim,
+  ``tests/test_transports.py``);
 * one process: the loop and the batched executor give bitwise the same
   local roundtrip and the same mean (per-bucket fits over the same values,
   row-for-row the same transforms).
@@ -31,12 +35,22 @@ from repro_torch.comms import transport as tt
 from repro_torch.core import compressor as tc
 
 N = 2 * 4096 + 173
+BUCKETS = dict(bucket_bytes=4096 * 4)
 CASES = {
     "allgather": dict(transport="allgather"),
-    "loop": dict(transport="sequenced", stacked=False, bucket_bytes=4096 * 4),
+    "loop": dict(transport="sequenced", stacked=False, **BUCKETS),
     # ReducerConfig's fixed quantizer range through the batched executor
-    "fixed": dict(transport="sequenced", bucket_bytes=4096 * 4, range_mode="fixed",
-                  fixed_range=[-2.0, 2.0]),
+    "fixed": dict(transport="sequenced", range_mode="fixed", fixed_range=[-2.0, 2.0],
+                  **BUCKETS),
+    "sequenced": dict(transport="sequenced", **BUCKETS),
+    "psum": dict(transport="psum", **BUCKETS),
+    "psum_loop": dict(transport="psum", stacked=False, **BUCKETS),
+    # the baselines: a stacked non-spectral compressor, and two without
+    # compress_stacked (the loop), over each gather shape
+    "timedomain": dict(kind="timedomain", transport="sequenced", **BUCKETS),
+    "terngrad": dict(kind="terngrad", transport="allgather"),
+    "qsgd": dict(kind="qsgd", transport="psum", **BUCKETS),
+    "dense": dict(kind="dense", error_feedback=False),
 }
 
 _PORT_WORKER = r"""
@@ -54,7 +68,11 @@ for name, cfg in cases.items():
     res = torch.zeros(grads.shape[1])
     means = []
     for _ in range(2):
-        mean, res = reduce({"w": torch.from_numpy(grads[rank].copy())}, res)
+        g = {"w": torch.from_numpy(grads[rank].copy())}
+        if cfg["error_feedback"]:
+            mean, res = reduce(g, res)
+        else:
+            mean = reduce(g)
         means.append(mean["w"].numpy())
     np.savez(out + f".{name}.{rank}.npz", means=np.stack(means), res=res.numpy())
 dist.destroy_process_group()
@@ -73,7 +91,10 @@ for name, cfg in json.loads({cases!r}).items():
     cfg = {{k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()}}
     r = make_reducer(ReducerConfig(axis="data", backend="pallas", **cfg))
     def step(g, res):
-        out, new_res = r(jax.tree.map(lambda x: x[0], g), res[0])
+        g = jax.tree.map(lambda x: x[0], g)
+        if not cfg["error_feedback"]:
+            return r(g)["w"], res
+        out, new_res = r(g, res[0])
         return out["w"], new_res[None]
     f = jax.jit(smap(step, mesh=mesh, in_specs=(P("data"), P("data")),
                      out_specs=(P(), P("data"))))
@@ -93,7 +114,7 @@ def two_worker_runs(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("exchange") / "x")
     grads = (np.random.default_rng(0).standard_normal((2, N)) * 0.1).astype(np.float32)
     np.save(path + ".in.npy", grads)
-    cases = {name: dict(kind="fft", theta=0.7, error_feedback=True, selector="auto", **cfg)
+    cases = {name: {**dict(kind="fft", theta=0.7, error_feedback=True, selector="auto"), **cfg}
              for name, cfg in CASES.items()}
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -122,8 +143,22 @@ def test_two_worker_ef_exchange_matches_reference(two_worker_runs, name):
     for rank in range(2):
         for step in range(2):
             assert _rel(got[rank]["means"][step], ref["means"][step]) <= 1e-3
-        assert _rel(got[rank]["res"], ref["res"][rank]) <= 1e-3
+        if CASES[name].get("error_feedback", True):
+            assert np.linalg.norm(ref["res"][rank]) > 0
+            assert _rel(got[rank]["res"], ref["res"][rank]) <= 1e-3
     np.testing.assert_array_equal(got[0]["means"], got[1]["means"])
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_psum_mean_bitwise_equals_sequenced(two_worker_runs, stacked):
+    """psum reduces what sequenced gathers: each worker's dequantized
+    spectrum, summed and times 1/2 -- bitwise the same mean and residual."""
+    seq, psum = ("sequenced", "psum") if stacked else ("loop", "psum_loop")
+    for rank in range(2):
+        a = np.load(f"{two_worker_runs}.{seq}.{rank}.npz")
+        b = np.load(f"{two_worker_runs}.{psum}.{rank}.npz")
+        np.testing.assert_array_equal(a["means"], b["means"])
+        np.testing.assert_array_equal(a["res"], b["res"])
 
 
 @pytest.mark.parametrize("backend,quantize", [("cuda", True), ("reference", True),
@@ -157,7 +192,7 @@ def test_allgather_roundtrip_is_one_monolithic_payload():
         assert torch.equal(ag.run(flat, comp=comp, layout=layout, local=True), want)
         assert torch.equal(ag.run(flat, comp=comp, layout=layout), want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.get_transport("psum")
+        tt.get_transport("hierarchical")
 
 
 @pytest.mark.parametrize("flags", [["--transport", "allgather"],

@@ -4,6 +4,7 @@ alternating, then each phase's medians.
 
     python3 tools/phase_ab.py A=DIR B=DIR [--pairs 10] [--rows 16384] [--out DIR]
         [--cli bisect|no-stacked] [--cli-only]
+    python3 tools/phase_ab.py --from-log FILE
 
 Each ``DIR`` is a checkout (for instance ``git archive`` of a commit unpacked
 into ``build/``, which ``.gitignore`` lists); its own ``chip_smoke.py`` and
@@ -16,10 +17,12 @@ the per-bucket loop (``--no-stacked``, selector auto) instead ("no-stacked
 CLI"), and ``--cli-only`` leaves out ``chip_smoke.py``.  Every run's output goes to
 ``--out`` (default ``build/phase_ab``).  For each phase it prints A's
 and B's medians, A's interquartile range, and the pairs in which B was
-faster.  B's gain is claimed where B is faster in at least 9 of 10 pairs
-and the medians differ by more than A's interquartile range; a loss is
-shown where B is faster in at most 1 of 10 and slower by more than that
-range.  A run that fails stops the tool.
+faster; for a phase that only one tree has, its median and interquartile
+range.  ``--from-log FILE`` prints the same from the ``[pair ...]`` lines
+of an earlier run's output, running nothing.  B's gain is claimed where B
+is faster in at least 9 of 10 pairs and the medians differ by more than
+A's interquartile range; a loss is shown where B is faster in at most 1 of
+10 and slower by more than that range.  A run that fails stops the tool.
 """
 
 from __future__ import annotations
@@ -72,15 +75,59 @@ def quartiles(xs):
     return q[0], q[2]
 
 
+def summarize(results, a_name: str, b_name: str, pairs: int) -> None:
+    print(f"{pairs} pairs; medians {a_name} -> {b_name} (ms), {b_name} faster in, "
+          f"{a_name} IQR, verdict:")
+    for phase in [p for p in results[a_name][0] if p in results[b_name][0]]:
+        a = [r[phase] for r in results[a_name]]
+        b = [r[phase] for r in results[b_name]]
+        q1, q3 = quartiles(a)
+        wins = sum(y < x for x, y in zip(a, b))
+        gap = statistics.median(a) - statistics.median(b)
+        if wins >= 0.9 * pairs and gap > q3 - q1:
+            verdict = f"{b_name} faster: claimed"
+        elif wins <= 0.1 * pairs and -gap > q3 - q1:
+            verdict = f"{b_name} slower, beyond {a_name}'s spread"
+        else:
+            verdict = "not resolved"
+        print(f"[ab {phase}] {statistics.median(a):.1f} -> {statistics.median(b):.1f} "
+              f"({wins}/{pairs}; IQR {q3 - q1:.1f}) {verdict}")
+    for name, other in ((a_name, b_name), (b_name, a_name)):
+        for phase in results[name][0]:
+            if phase not in results[other][0]:
+                xs = [r[phase] for r in results[name]]
+                q1, q3 = quartiles(xs)
+                print(f"[only {name} {phase}] median {statistics.median(xs):.2f} "
+                      f"(IQR {q3 - q1:.2f})")
+
+
+def read_log(path: str):
+    """The trees' names and each one's phases by pair, from the ``[pair i
+    NAME] phase=ms, ...`` lines of a run's output."""
+    results = {}
+    for line in open(path):
+        m = re.match(r"\[pair \d+ (\S+)\] (.*)", line)
+        if m:
+            results.setdefault(m.group(1), []).append(
+                {k: float(v) for k, v in (kv.rsplit("=", 1) for kv in m.group(2).split(", "))})
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("trees", nargs=2, help="A=DIR B=DIR")
+    ap.add_argument("trees", nargs="*", help="A=DIR B=DIR")
+    ap.add_argument("--from-log", help="summarize an earlier run's output instead")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--rows", type=int, default=16384)
     ap.add_argument("--out", default=str(ROOT / "build" / "phase_ab"))
     ap.add_argument("--cli", choices=sorted(CLIS), default="bisect")
     ap.add_argument("--cli-only", action="store_true", help="leave out chip_smoke.py")
     args = ap.parse_args()
+    if args.from_log:
+        results = read_log(args.from_log)
+        a_name, b_name = results
+        summarize(results, a_name, b_name, len(results[a_name]))
+        return 0
     (a_name, a_dir), (b_name, b_dir) = (t.split("=", 1) for t in args.trees)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -95,22 +142,7 @@ def main() -> int:
             results[name].append(phases)
             print(f"[pair {i} {name}] " + ", ".join(f"{k}={v:.1f}" for k, v in phases.items()),
                   flush=True)
-    print(f"{args.pairs} pairs; medians {a_name} -> {b_name} (ms), {b_name} faster in, "
-          f"{a_name} IQR, verdict:")
-    for phase in results[a_name][0]:
-        a = [r[phase] for r in results[a_name]]
-        b = [r[phase] for r in results[b_name]]
-        q1, q3 = quartiles(a)
-        wins = sum(y < x for x, y in zip(a, b))
-        gap = statistics.median(a) - statistics.median(b)
-        if wins >= 0.9 * args.pairs and gap > q3 - q1:
-            verdict = f"{b_name} faster: claimed"
-        elif wins <= 0.1 * args.pairs and -gap > q3 - q1:
-            verdict = f"{b_name} slower, beyond {a_name}'s spread"
-        else:
-            verdict = "not resolved"
-        print(f"[ab {phase}] {statistics.median(a):.1f} -> {statistics.median(b):.1f} "
-              f"({wins}/{args.pairs}; IQR {q3 - q1:.1f}) {verdict}")
+    summarize(results, a_name, b_name, args.pairs)
     return 0
 
 
