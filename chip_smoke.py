@@ -50,7 +50,26 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    main path under ``--theta-schedule step`` (theta 0.7, 0.7, 0.0, 0.0),
    launching B4, B2 and B3 at both; 3 steps each of the ``timedomain``
    (sequenced) and ``qsgd`` (psum) reducers, which run no kernel, as in
-   the reference.
+   the reference;
+8. 3 steps each of ``--schedule streamed --stream-groups 6`` over
+   ``sequenced`` and ``psum``: B4, B2 and B3 launched 6x as often as in
+   ``train`` and ``train-psum``, whose losses and final parameters and
+   residual (sha256 digests) they must equal bitwise;
+9. ``--schedule auto --calibrate --calibration-path P``, one step, twice:
+   the first run fits alpha-beta over a one-rank NCCL group, measures the
+   compression throughput through the fused kernels' roundtrip and the
+   backward pass and writes P, the second loads P without profiling; both
+   print the same decision, ``stacked``;
+10. the resilient loop through the API at 2 layers: 6 steps with
+   ``validate="full"``, a poisoned gradient (step 1) and a corrupted
+   payload (step 2) skipped, a crash at step 5 rolled back to the step-4
+   checkpoint, bitwise an uninterrupted run; then 8 steps with a gradient
+   poisoned at every step from 1, where the ladder takes exactly one rung,
+   ``kind:fft->dense`` (on the card it never trades the kernels for their
+   plain versions).
+
+Every training phase fails on a skipped step or a ladder transition it did
+not plan.
 
 Then each training phase's mean steady step (``train-dense`` beside
 ``train``) and the ops phase's time, one JSON line with every kernel's numbers, and as the last line
@@ -89,6 +108,10 @@ SEQUENCED = ["--transport", "sequenced", "--bucket-mb", str(BUCKET_MB)]
 # the CLI's defaults (--mode pjit: the dense baseline) at the same model and batch
 DENSE_ARGS = TRAIN_ARGS[:8]
 PSUM = ["--transport", "psum", "--bucket-mb", str(BUCKET_MB)]
+# readiness groups of the streamed phases: 54 buckets in 6 groups of 9
+STREAM_GROUPS = 6
+# the chaos phase's depth: gemma2's local/global pattern is 2 layers long
+CHAOS_LAYERS = 2
 # the thetas whose keep counts B1, B4, B2 and B3 run at on the main path's
 # rows (KEEP_THETA's k = 615 again on the same data, as the yardstick of the
 # others' times)
@@ -941,10 +964,12 @@ def ops_phase(dev, counted) -> dict:
     return launches
 
 
-def api_train(dev, steps: int, **reducer_kwargs):
+def api_train(dev, steps: int, n_layers: int = N_LAYERS, loop=None, **reducer_kwargs):
     """Training through the port's Python API, built as the CLI builds it:
     ReducerConfig -> StepConfig -> train_loop (sequenced, 64 MB buckets,
-    EF, selector auto)."""
+    EF, selector auto); ``loop`` holds more TrainLoopConfig fields."""
+    import dataclasses
+
     from repro_torch.comms.reducers import ReducerConfig
     from repro_torch.data import SyntheticConfig, SyntheticStream
     from repro_torch.models import build
@@ -952,26 +977,48 @@ def api_train(dev, steps: int, **reducer_kwargs):
     from repro_torch.train import TrainLoopConfig, init_state, train_loop
     from repro_torch.train.step import StepConfig
 
-    cfg = model_config()
+    cfg = dataclasses.replace(model_config(), n_layers=n_layers)
     model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
-    reducer = ReducerConfig(kind="fft", theta=KEEP_THETA, error_feedback=True,
-                            bucket_bytes=int(BUCKET_MB * (1 << 20)), transport="sequenced",
-                            selector="auto", **reducer_kwargs)
+    reducer = ReducerConfig(**{**dict(kind="fft", theta=KEEP_THETA, error_feedback=True,
+                                      bucket_bytes=int(BUCKET_MB * (1 << 20)),
+                                      transport="sequenced", selector="auto"),
+                               **reducer_kwargs})
     opt = OptConfig(kind="adamw", lr=3e-4)
     stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
                                              global_batch=BATCH, seed=0), device=dev)
-    state = init_state(model, opt, error_feedback=True)
+    state = init_state(model, opt, error_feedback=reducer.error_feedback)
     return train_loop(model, opt, StepConfig(mode="compressed_dp", reducer=reducer), state,
-                      stream, TrainLoopConfig(total_steps=steps, log_every=1))
+                      stream, TrainLoopConfig(total_steps=steps, log_every=1, **(loop or {})))
+
+
+def state_digests(state) -> dict:
+    """sha256 of every final parameter and of the residual, by name (the
+    card's state of a 4-layer phase is ~7 GB: digests stand in for a copy)."""
+    import hashlib
+
+    tensors = dict(state["model"].leaves())
+    if "residual" in state:
+        tensors["residual"] = state["residual"]
+    return {name: hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy())
+            .hexdigest() for name, t in tensors.items()}
+
+
+# each digest-keeping phase's (losses, state digests), for the phases held
+# bitwise against it
+DIGESTS = {}
 
 
 def train_phase(run, counted, label: str, must_launch, profile: bool = False,
-                must_not_launch: bool = False):
+                must_not_launch: bool = False, digest: bool = False, skips=(),
+                transitions=()):
     """Run one training phase (``run()`` returns the loop's result) with the
-    kernels' counts set to 0 just before; checks finite losses, no skipped
-    step (a ``pjit`` row has no ``skipped``: none), a launch of each kernel
-    in ``must_launch`` and, with ``must_not_launch``, no launch of any
-    kernel; returns each kernel's launches in that run and the history."""
+    kernels' counts set to 0 just before; checks finite losses, that the
+    guard skipped exactly the steps in ``skips`` and the degradation ladder
+    took exactly the rungs in ``transitions`` (none unless planned), a
+    launch of each kernel in ``must_launch`` and, with ``must_not_launch``,
+    no launch of any kernel; with ``digest`` keeps the losses and the final
+    state's digests in ``DIGESTS``; returns each kernel's launches in that
+    run and the history."""
     import contextlib
 
     for kern in counted:
@@ -988,20 +1035,26 @@ def train_phase(run, counted, label: str, must_launch, profile: bool = False,
         _print_profile(prof, label)
     launches = {kern.name: kern.launches for kern in counted}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    history = result["history"]
-    del result
+    history, health = result["history"], result["health"]
     losses = [row["loss"] for row in history]
+    if digest:
+        DIGESTS[label] = (losses, state_digests(result["state"]))
+    del result
     for row in history:
         log(f"[{label}] step {row['step']}: theta={row['theta']} loss={row['loss']:.4f} "
             f"step_ms={row['dt'] * 1e3:.1f} skipped={row.get('skipped', 0.0)}")
     steady = [row["dt"] * 1e3 for row in history[1:]] or [row["dt"] * 1e3 for row in history]
     PHASE_MS[label] = sum(steady) / max(len(steady), 1)
     log(f"[{label}] wall={wall:.1f}s peak_memory={peak_gb:.2f} GB launches={launches} "
-        f"steady step ms={PHASE_MS[label]:.1f}")
+        f"steady step ms={PHASE_MS[label]:.1f} health={health}")
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: non-finite loss {losses}")
-    if any(row.get("skipped", 0.0) for row in history):
-        raise AssertionError(f"{label}: the guard skipped a step")
+    if health["skip_steps"] != list(skips):
+        raise AssertionError(f"{label}: the guard skipped steps {health['skip_steps']}, "
+                             f"planned {list(skips)}")
+    rungs = [t["rung"] for t in health["transitions"]]
+    if rungs != list(transitions):
+        raise AssertionError(f"{label}: the ladder took {rungs}, planned {list(transitions)}")
     for name in must_launch:
         if launches[name] <= 0:
             raise AssertionError(f"{label} never launched {name}")
@@ -1028,7 +1081,8 @@ def dense_phases(kernels, fused, main_counts) -> None:
                 must_not_launch=True)
     train_phase(cli(*DENSE_ARGS, "--mode", "compressed_dp", "--reducer", "dense", "--steps",
                     "3"), kernels, "train-dense-dp", (), must_not_launch=True)
-    train_phase(cli(*TRAIN_ARGS, *PSUM, "--steps", "3"), kernels, "train-psum", fused)
+    train_phase(cli(*TRAIN_ARGS, *PSUM, "--steps", "3"), kernels, "train-psum", fused,
+                digest=True)
     counts, history = train_phase(
         cli(*TRAIN_ARGS, *SEQUENCED, "--theta-schedule", "step", "--steps", "4"), kernels,
         "train-theta-step", fused)
@@ -1043,6 +1097,133 @@ def dense_phases(kernels, fused, main_counts) -> None:
                 kernels, "train-timedomain", (), must_not_launch=True)
     train_phase(cli(*TRAIN_ARGS, "--reducer", "qsgd", *PSUM, "--steps", "3"), kernels,
                 "train-qsgd", (), must_not_launch=True)
+
+
+def streamed_phases(kernels, fused, main_counts) -> None:
+    """Phase 8: ``--schedule streamed --stream-groups 6`` over ``sequenced``
+    and ``psum``: 54 buckets in 6 groups of 9, each group's compress,
+    exchange and EF roundtrip on its own, so B4, B2 and B3 launch 6x as
+    often as in the stacked ``train`` (and ``train-psum``), with losses and
+    final parameters and residual bitwise theirs."""
+    from repro_torch.launch import train as train_cli
+
+    for label, base, transport in (("train-streamed", "train", SEQUENCED),
+                                   ("train-streamed-psum", "train-psum", PSUM)):
+        counts, _ = train_phase(
+            lambda: train_cli.main(TRAIN_ARGS + transport + [
+                "--schedule", "streamed", "--stream-groups", str(STREAM_GROUPS),
+                "--steps", "3"]), kernels, label, fused, digest=True)
+        for name in fused:
+            if counts[name] != STREAM_GROUPS * main_counts[name]:
+                raise AssertionError(f"{label} launched {name} {counts[name]} times, "
+                                     f"{STREAM_GROUPS} x train's {main_counts[name]}")
+        (losses, digests), (base_losses, base_digests) = DIGESTS.pop(label), DIGESTS.pop(base)
+        if losses != base_losses:
+            raise AssertionError(f"{label} losses {losses} != {base}'s {base_losses}")
+        differ = sorted(k for k in base_digests if digests.get(k) != base_digests[k])
+        if differ or set(digests) != set(base_digests):
+            raise AssertionError(f"{label}: final state differs from {base}'s in {differ[:5]}")
+        log(f"[{label}] losses and {len(digests)} final tensors bitwise {base}'s")
+
+
+def auto_phase(kernels, fused) -> None:
+    """Phase 9: ``--schedule auto --calibrate --calibration-path P``, one
+    step: the pass fits alpha-beta over a one-rank NCCL group (its launch
+    cost: one rank has no link), measures the compression throughput through
+    the exchange's own roundtrip (the fused kernels) and the model's backward
+    pass and writes P; the policy decides from them, and must pick
+    ``stacked``: the streamed step here has no overlap with the backward
+    pass, so it costs a launch per group more.  A second run with the same
+    flags loads P and does not profile again."""
+    import tempfile
+
+    from repro_torch.launch import train as train_cli
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-calibration-")
+    path = os.path.join(tmp, "h100.calibration.json")
+    args = TRAIN_ARGS + SEQUENCED + ["--schedule", "auto", "--calibrate",
+                                     "--calibration-path", path, "--steps", "1"]
+    runs = []
+    try:
+        def run():
+            result = train_cli.main(list(args))
+            runs.append((result["calibration"], result["schedule_decision"]))
+            return result
+
+        for label in ("train-auto", "train-auto-reload"):
+            train_phase(run, kernels, label, ())
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    (first, decision), (second, decision2) = runs
+    if not first["profiled"] or second["profiled"]:
+        raise AssertionError(f"train-auto profiled {first['profiled']}, "
+                             f"the reload {second['profiled']}")
+    if decision is None or decision2 is None or decision2 != decision:
+        raise AssertionError(f"train-auto decisions {decision} / {decision2}")
+    if decision.schedule != "stacked":
+        raise AssertionError(f"train-auto chose {decision.schedule}: with no overlap the "
+                             f"streamed step cannot be faster ({decision.to_dict()})")
+    if second["profile"] != first["profile"]:
+        raise AssertionError("the reloaded calibration differs from the one written")
+    prof = first["profile"]
+    log(f"[train-auto] key {prof['key']}")
+    for fit in prof["fits"]:
+        log(f"[train-auto] {fit['family']}: alpha={fit['alpha_s'] * 1e6:.3f} us "
+            f"beta={fit['beta_s_per_byte']:.6e} s/B (1/beta {fit['t_comm_bytes_per_s']:.6e} B/s, "
+            f"{fit['n_points']} points)")
+    log(f"[train-auto] throughputs (B/s) {prof['throughputs']}")
+    log(f"[train-auto] backprop {prof['backprop_flops_per_s']:.6e} FLOP/s")
+    log(f"[train-auto] decision {decision.to_dict()}")
+
+
+def chaos_phase(dev, kernels, fused) -> None:
+    """Phase 10: the resilient loop through the API at full width, 2 layers
+    (one of gemma2's local/global pairs), ``validate="full"``, sequenced,
+    stacked, EF.  (a) 6 steps with checkpoints every 4 (keep 1, ~12 GB on
+    the host) of a plan with
+    ``nan_grad`` at step 1 and ``payload_corrupt`` (values) at step 2 on
+    worker 0, both skipped, and a ``step_crash`` at 5: the loop rolls back
+    to the step-4 checkpoint and runs 4 and 5 again; its final parameters
+    and residual are bitwise those of the same plan without the crash.
+    (b) No checkpoint, 8 steps with ``nan_grad`` at every step from 1: after
+    3 skips in a row the ladder takes ``kind:fft->dense`` (which drops the
+    residual) and no other rung: on the card it has no ``backend`` rung."""
+    import shutil
+    import tempfile
+
+    from repro_torch.comms import faults
+
+    clean = (faults.NanGrad(1, 0), faults.PayloadCorrupt(2, 0, "values"))
+    crash = faults.FaultPlan(clean + (faults.StepCrash(5),))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        _, history = train_phase(
+            lambda: api_train(dev, 6, n_layers=CHAOS_LAYERS, backend="auto", validate="full",
+                              faults=crash,
+                              loop=dict(faults=crash, ckpt_dir=tmp, ckpt_every=4, ckpt_keep=1)),
+            kernels, "train-chaos", fused, digest=True, skips=(1, 2))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if [row["step"] for row in history] != [0, 1, 2, 3, 4, 4, 5]:
+        raise AssertionError(f"train-chaos ran steps {[row['step'] for row in history]}")
+    plan = faults.FaultPlan(clean)
+    train_phase(lambda: api_train(dev, 6, n_layers=CHAOS_LAYERS, backend="auto",
+                                  validate="full", faults=plan, loop=dict(faults=plan)),
+                kernels, "train-chaos-uninterrupted", fused, digest=True, skips=(1, 2))
+    (_, digests), (_, clean_digests) = (DIGESTS.pop("train-chaos"),
+                                        DIGESTS.pop("train-chaos-uninterrupted"))
+    if digests != clean_digests:
+        differ = sorted(k for k in clean_digests if digests.get(k) != clean_digests[k])
+        raise AssertionError(f"train-chaos: rollback's final state differs in {differ[:5]}")
+    log(f"[train-chaos] rolled back to step 4; {len(digests)} final tensors bitwise "
+        f"the uninterrupted run's")
+    nan = faults.FaultPlan(tuple(faults.NanGrad(s, 0) for s in range(1, 8)))
+    train_phase(lambda: api_train(dev, 8, n_layers=CHAOS_LAYERS, backend="auto",
+                                  validate="full", faults=nan, loop=dict(faults=nan)),
+                kernels, "train-chaos-ladder", fused, skips=tuple(range(1, 8)),
+                transitions=("kind:fft->dense",))
 
 
 def main() -> int:
@@ -1108,7 +1289,7 @@ def main() -> int:
 
         fused = ("fused_compress", "fused_decompress", "sampled_threshold")
         main_counts, _ = train_phase(cli(*SEQUENCED, "--steps", "3"), kernels, "train", fused,
-                                     profile=args.profile)
+                                     profile=args.profile, digest=True)
         for name in fused:
             launches[name] = main_counts[name]
         bisect_counts, _ = train_phase(cli(*SEQUENCED, "--selector", "bisect", "--steps", "1"),
@@ -1123,6 +1304,9 @@ def main() -> int:
         train_phase(lambda: api_train(dev, 3, backend="cuda", chunk=2048), kernels,
                     "train-api-chunk2048", ("fused_compress", "range_quant_decode"))
         dense_phases(kernels, fused, main_counts)
+        streamed_phases(kernels, fused, main_counts)
+        auto_phase(kernels, fused)
+        chaos_phase(dev, kernels, fused)
 
     if PHASE_MS:
         order = [k for k in ("train", "train-dense") if k in PHASE_MS]

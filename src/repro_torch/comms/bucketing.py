@@ -1,7 +1,7 @@
 """Deterministic, chunk-aligned bucketing of the flat gradient space (port of
 ``repro.comms.bucketing``: ``BucketLayout``, ``build_layout``,
 ``split_buckets``, ``concat_buckets``, ``stack_buckets``,
-``unstack_buckets``).
+``unstack_buckets``, ``sub_layout``).
 
 ``[0, total)`` is cut into size-targeted buckets whose interior boundaries
 are multiples of the FFT chunk, so per-chunk selection is the same at any
@@ -19,7 +19,7 @@ import torch
 from repro_torch.core import fft as cfft
 
 __all__ = ["BucketLayout", "build_layout", "split_buckets", "concat_buckets",
-           "stack_buckets", "unstack_buckets"]
+           "stack_buckets", "unstack_buckets", "sub_layout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,3 +121,16 @@ def unstack_buckets(stacked: torch.Tensor, layout: BucketLayout) -> torch.Tensor
     if layout.uniform:
         return stacked.reshape(-1)
     return torch.cat([stacked[b, :s] for b, s in enumerate(layout.sizes())])
+
+
+def sub_layout(layout: BucketLayout, lo_bucket: int, hi_bucket: int) -> BucketLayout:
+    """The layout of buckets ``[lo_bucket, hi_bucket)`` over their own flat
+    slice, re-based to 0: the same bucket boundaries, so the same payload
+    codes and per-bucket quantizer fits as in the whole layout (a streamed
+    dispatch group runs every flat entry point on its slice)."""
+    if not 0 <= lo_bucket < hi_bucket <= layout.n_buckets:
+        raise ValueError(f"bad bucket range [{lo_bucket}, {hi_bucket}) for "
+                         f"{layout.n_buckets} buckets")
+    base = layout.boundaries[lo_bucket]
+    bounds = tuple(x - base for x in layout.boundaries[lo_bucket: hi_bucket + 1])
+    return BucketLayout(bounds[-1], bounds, layout.chunk)

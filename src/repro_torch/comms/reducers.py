@@ -1,6 +1,6 @@
 """Gradient reducers (port of ``repro.comms.reducers``: ``flatten_tree``,
-``unflatten_tree``, the ``ReducerConfig`` fields the exchange uses, and
-``make_reducer``).
+``unflatten_tree``, ``ReducerConfig``, ``make_reducer`` and
+``degrade_config``).
 
 Kinds: ``dense`` (the mean over the group, the paper's "orig" baseline: one
 SUM all_reduce divided by the world size, as ``pmean``), ``fft`` (the
@@ -16,8 +16,24 @@ every level, which is the order of the paths as tuples of their parts -- so
 bucket boundaries, per-bucket quantizer fits and the error-feedback residual
 cover the same coefficients in both packages.
 
-The ``hierarchical`` kind, the scheduler, calibration, faults, validation
-and the degradation ladder are not ported yet (ROADMAP.md).
+``ReducerConfig.schedule`` picks the exchange's dispatch shape
+(``comms/scheduler.py``): ``stacked`` (one dispatch over the whole layout),
+``streamed`` (one per readiness group, bitwise the same result) or ``auto``
+(the cost model decides).  ``auto`` is resolved in one place, when the
+train step is built (``scheduler.resolve_schedule`` with the model's
+parameter count, the batch's tokens, the group's size and, given one, a
+measured ``calibrate.CostProfile``); :func:`make_reducer` takes a resolved
+schedule and refuses ``auto``.
+
+The resilience layer (``comms/faults.py``): with ``validate != "off"`` or a
+``FaultPlan`` holding payload corruption (``config.resilient``) the reduce
+functions take ``step=`` and return one more value, ``ok``: this worker's
+AND of every payload verdict, which the step's guard folds across workers.
+:func:`degrade_config` is one rung down the degradation ladder the train
+loop walks; on the card it has no ``backend`` rung, since the kernels are
+the only path there.
+
+The ``hierarchical`` kind is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,17 +44,18 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.comms import bucketing
+from repro_torch.comms import bucketing, scheduler
+from repro_torch.comms import faults as faults_mod
 from repro_torch.comms.transport import TRANSPORT_NAMES, get_transport
 from repro_torch.core import baselines
 from repro_torch.core.compressor import (FFTCompressor, FFTCompressorConfig,
                                          TimeDomainCompressor)
 from repro_torch.core.selection import SELECTOR_NAMES
-from repro_torch.dist_util import world_size
+from repro_torch.dist_util import rank_and_world, world_size
 from repro_torch.kernels.engine import BACKEND_NAMES
 
-__all__ = ["ReducerConfig", "make_reducer", "dense_mean", "flatten_tree", "unflatten_tree",
-           "leaf_order", "residual_size", "REDUCER_KINDS"]
+__all__ = ["ReducerConfig", "make_reducer", "degrade_config", "dense_mean", "flatten_tree",
+           "unflatten_tree", "leaf_order", "residual_size", "REDUCER_KINDS"]
 
 REDUCER_KINDS = ("dense", "fft", "timedomain", "terngrad", "qsgd", "hierarchical")
 
@@ -78,8 +95,8 @@ def residual_size(params: Mapping[str, torch.Tensor]) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ReducerConfig:
-    """The reference's reducer knobs that the ported exchange reads; the
-    schedule, calibration and resilience knobs are not ported yet."""
+    """The reference's reducer knobs, but the mesh axes: the port's exchange
+    runs over a ``torch.distributed`` group."""
 
     kind: str = "dense"
     theta: float = 0.7
@@ -96,9 +113,27 @@ class ReducerConfig:
     # batched bucket executor: every bucket in one batched pass and one
     # StackedPayload per exchange; False runs the per-bucket loop
     stacked: bool = True
+    # dispatch schedule: stacked | streamed | auto (comms/scheduler.py)
+    schedule: str = "stacked"
+    # streamed readiness groups (None: one group per bucket)
+    stream_groups: Optional[int] = None
     selector: str = "sort"
     sample_rate: float = 1.0 / 64.0
     tau_refine_iters: int = 16
+    # resilience: payload validation level (off | cheap | full) and a
+    # deterministic FaultPlan (comms/faults.py)
+    validate: str = "off"
+    faults: Optional[faults_mod.FaultPlan] = None
+
+    @property
+    def resilient(self) -> bool:
+        """True when the reduce functions take ``step=`` and return ``ok``.
+        A dense config (also one the ladder reached, which keeps the plan
+        for its gradient-level events) has no payloads: never resilient."""
+        if self.kind == "dense":
+            return False
+        return (self.validate != "off"
+                or (self.faults is not None and bool(self.faults.corrupt_events)))
 
     def __post_init__(self):
         if self.kind not in REDUCER_KINDS:
@@ -115,6 +150,22 @@ class ReducerConfig:
         if self.backend not in BACKEND_NAMES:
             raise ValueError(
                 f"unknown backend {self.backend!r}; expected one of {BACKEND_NAMES}")
+        if self.schedule not in scheduler.SCHEDULE_NAMES:
+            raise ValueError(f"unknown schedule {self.schedule!r}; expected one of "
+                             f"{scheduler.SCHEDULE_NAMES}")
+        # allgather fits ONE quantizer over the whole buffer; per-group fits
+        # would change the numerics
+        if self.schedule == "streamed" and self.transport == "allgather":
+            raise ValueError("schedule='streamed' needs a bucketed transport "
+                             "(sequenced|psum); allgather is monolithic by definition")
+        if self.stream_groups is not None and self.stream_groups < 1:
+            raise ValueError(f"stream_groups must be >= 1, got {self.stream_groups}")
+        if self.validate not in faults_mod.VALIDATE_LEVELS:
+            raise ValueError(f"unknown validate level {self.validate!r}; expected one of "
+                             f"{faults_mod.VALIDATE_LEVELS}")
+        if self.faults is not None and not isinstance(self.faults, faults_mod.FaultPlan):
+            raise TypeError(f"faults must be a comms.faults.FaultPlan, got "
+                            f"{type(self.faults).__name__}")
 
     def compressor_config(self) -> FFTCompressorConfig:
         return FFTCompressorConfig(
@@ -161,35 +212,100 @@ def make_reducer(config: ReducerConfig, group=None):
     without error feedback ``reduce(grads) -> mean_grads``; with it
     ``reduce(grads, residual) -> (mean_grads, residual')`` where
     ``residual' = corrected - local_roundtrip(corrected)`` and
-    ``corrected = flat(grads) + residual``.
+    ``corrected = flat(grads) + residual``, the roundtrip at the exchange's
+    own dispatch granularity.  When ``config.resilient`` both take
+    ``step=`` (this step's counter, which the FaultPlan matches) and return
+    one more value, this worker's payload verdict ``ok``.
 
     ``group`` is the ``torch.distributed`` group the mean runs over (the
-    default group when one is initialized, else one worker)."""
+    default group when one is initialized, else one worker); this worker's
+    rank in it is the FaultPlan's worker coordinate.  ``config.schedule``
+    must be resolved (``stacked`` or ``streamed``): ``auto`` is priced once,
+    by ``scheduler.resolve_schedule`` (the train step calls it)."""
+    if config.schedule == "auto":
+        raise ValueError("make_reducer needs a resolved schedule; resolve schedule='auto' "
+                         "with scheduler.resolve_schedule first (build_train_step does)")
     if config.kind == "dense":
         if config.error_feedback:
             raise ValueError("error feedback is meaningless for dense reduction")
         return lambda grads: dense_mean(grads, group)
     comp = _make_compressor(config)
     transport = get_transport(config.transport)
+    resilient = config.resilient
+    dispatch = {}
 
-    def _run(flat, local: bool):
-        return transport.run(flat, comp=comp, layout=config.layout_for(flat.shape[0]),
-                             local=local, group=group, stacked=config.stacked)
+    def _dispatch_spec(total: int) -> dict:
+        """``layout=`` or ``plan=`` for ``Transport.run``: a plan when the
+        schedule streams a multi-bucket layout."""
+        if total not in dispatch:
+            layout = config.layout_for(total)
+            if config.schedule == "streamed" and layout.n_buckets > 1:
+                dispatch[total] = {"plan": scheduler.build_plan(layout, config.stream_groups)}
+            else:
+                dispatch[total] = {"layout": layout}
+        return dispatch[total]
 
-    def compressed_reduce(grads):
+    def _monitor(step):
+        """One ExchangeMonitor per reduce call (None when not resilient)."""
+        if not resilient:
+            return None
+        corrupt = config.faults.corrupt_events if config.faults is not None else ()
+        return faults_mod.ExchangeMonitor(config.validate, step=-1 if step is None else step,
+                                          worker=rank_and_world(group)[0], corrupt=corrupt)
+
+    def _run(flat, local: bool, monitor=None):
+        return transport.run(flat, comp=comp, local=local, group=group, stacked=config.stacked,
+                             monitor=monitor, **_dispatch_spec(flat.shape[0]))
+
+    def compressed_reduce(grads, step=None):
+        monitor = _monitor(step)
         flat, specs = flatten_tree(grads)
-        return unflatten_tree(_run(flat, local=False), specs)
+        mean = unflatten_tree(_run(flat, local=False, monitor=monitor), specs)
+        return (mean, monitor.ok()) if resilient else mean
 
     if not config.error_feedback:
         return compressed_reduce
 
-    def ef_reduce(grads, residual_flat):
+    def ef_reduce(grads, residual_flat, step=None):
+        monitor = _monitor(step)
         flat, specs = flatten_tree(grads)
         corrected = flat.add_(residual_flat)  # flat is a fresh buffer
+        # the roundtrip is not monitored: the residual never crosses the wire
         local_hat = _run(corrected, local=True)
         new_residual = corrected - local_hat
         del local_hat
-        mean_flat = _run(corrected, local=False)
-        return unflatten_tree(mean_flat, specs), new_residual
+        mean_flat = _run(corrected, local=False, monitor=monitor)
+        mean = unflatten_tree(mean_flat, specs)
+        return (mean, new_residual, monitor.ok()) if resilient else (mean, new_residual)
 
     return ef_reduce
+
+
+def degrade_config(config: ReducerConfig,
+                   device=None) -> Optional[Tuple[ReducerConfig, str]]:
+    """One rung down the degradation ladder: (simpler config, rung label),
+    or None when already dense.  The rungs drop the most elaborate machinery
+    first: the kernels (``cuda``/``auto`` -> ``reference``), streamed or
+    auto dispatch (-> ``stacked``), a two-level transport (-> ``psum``),
+    then compression itself (-> ``dense``, error feedback and validation
+    off; the loop drops the residual from the state on this rung).  The
+    FaultPlan is kept: gradient-level events go on replaying.
+
+    ``device`` is where the exchange's tensors lie (None: the CPU).  On a
+    CUDA device the ladder has no ``backend`` rung: the hand-written kernels
+    are the only path on the card, so a failure there is never answered by
+    running their plain versions; the next rung down is taken instead."""
+    if config.kind == "dense":
+        return None
+    on_card = device is not None and torch.device(device).type == "cuda"
+    if config.backend != "reference" and not on_card:
+        return (dataclasses.replace(config, backend="reference"),
+                f"backend:{config.backend}->reference")
+    if config.schedule != "stacked":
+        return (dataclasses.replace(config, schedule="stacked"),
+                f"schedule:{config.schedule}->stacked")
+    if config.transport in ("hierarchical", "reduce_scatter", "auto"):
+        return (dataclasses.replace(config, transport="psum"),
+                f"transport:{config.transport}->psum")
+    return (dataclasses.replace(config, kind="dense", error_feedback=False, validate="off"),
+            f"kind:{config.kind}->dense")

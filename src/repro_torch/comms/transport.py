@@ -32,8 +32,18 @@ the same order.
   every bucket's planes in one collective, the loop one per bucket.  With
   two workers its mean is bitwise the ``sequenced`` one.
 
-The ``hierarchical`` and ``reduce_scatter`` transports and the streamed
-``plan=`` dispatch are not ported yet (ROADMAP.md).
+``run(..., plan=...)`` takes a ``scheduler.StreamPlan`` instead of a
+``layout``: one dispatch per readiness group over the group's flat slice
+and sub-layout, first-ready first, reassembled in index order -- bitwise
+the ``layout=`` result (``comms/scheduler.py``).  ``monitor=`` (a
+``comms.faults.ExchangeMonitor``) sees every payload this worker creates
+for the exchange before it reaches a collective, and makes every payload
+it decodes safe to decode; the local roundtrip (``local=True``, what error
+feedback accumulates against) is not monitored: the residual never crosses
+the wire.
+
+The ``hierarchical`` and ``reduce_scatter`` transports are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,27 +61,46 @@ from repro_torch.core.quantizer import FittedQuantizer
 from repro_torch.dist_util import world_size
 
 __all__ = ["Transport", "AllGatherTransport", "SequencedTransport", "SpectrumPsumTransport",
-           "get_transport", "all_gather_payload", "TRANSPORT_NAMES",
+           "get_transport", "all_gather_payload", "assemble_index_order", "TRANSPORT_NAMES",
            "PORTED_TRANSPORTS"]
 
 TRANSPORT_NAMES = ("allgather", "sequenced", "psum", "hierarchical", "reduce_scatter")
 PORTED_TRANSPORTS = ("allgather", "sequenced", "psum")
 
 
-def _compress_all(buckets, comp) -> list:
+def assemble_index_order(flat: torch.Tensor, plan, run_group) -> torch.Tensor:
+    """``run_group(lo, hi, sub_layout)`` -- the result for ``flat[lo:hi]`` --
+    for every group of ``plan`` in readiness order, each written to its own
+    slice of one output buffer, which is then in index order (the reference
+    concatenates the reversed results; writing in place holds one group's
+    result at a time beside the output instead of all of them)."""
+    out = torch.empty_like(flat, dtype=torch.float32)
+    for lo, hi, sub in plan.group_slices():
+        out[lo:hi] = run_group(lo, hi, sub)
+    return out
+
+
+def _monitored(payload, monitor):
+    return payload if monitor is None else monitor.on_payload(payload)
+
+
+def _compress_all(buckets, comp, monitor=None) -> list:
     """Per-bucket payloads, one quantizer fit per bucket."""
     if hasattr(comp, "compress_buckets"):
-        return comp.compress_buckets(buckets)
-    return [comp.compress(b) for b in buckets]
+        payloads = comp.compress_buckets(buckets)
+    else:
+        payloads = [comp.compress(b) for b in buckets]
+    return [_monitored(p, monitor) for p in payloads]
 
 
 def _can_stack(comp) -> bool:
     return hasattr(comp, "compress_stacked")
 
 
-def _compress_stacked(flat: torch.Tensor, layout, comp) -> StackedPayload:
+def _compress_stacked(flat: torch.Tensor, layout, comp, monitor=None) -> StackedPayload:
     """ONE batched compress of every bucket (one quantizer fit per bucket)."""
-    return comp.compress_stacked(bucketing.stack_buckets(flat, layout), layout.sizes())
+    return _monitored(comp.compress_stacked(bucketing.stack_buckets(flat, layout),
+                                            layout.sizes()), monitor)
 
 
 def _stacked_roundtrip(flat: torch.Tensor, layout, comp) -> torch.Tensor:
@@ -132,30 +161,34 @@ def all_gather_payload(payload, group=None) -> list:
         for name, value in gathered.items()}) for w in range(world)]
 
 
-def _decompress(comp, payload, stacked: bool) -> torch.Tensor:
+def _decompress(comp, payload, stacked: bool, monitor=None) -> torch.Tensor:
     """What the workers' mean runs over: the payload's spectrum where the
     compressor has ``decompress_spectrum`` (the mean then takes one irfft),
     else its decompressed buffer."""
+    if monitor is not None:
+        payload = monitor.admit(payload)
     if hasattr(comp, "decompress_spectrum"):
         return comp.decompress_spectrum(payload)
     return comp.decompress_stacked(payload) if stacked else comp.decompress(payload)
 
 
-def _gather_mean_payload(payload, comp, group, stacked: bool = False) -> torch.Tensor:
+def _gather_mean_payload(payload, comp, group, stacked: bool = False,
+                         monitor=None) -> torch.Tensor:
     """All_gather one payload -> the worker-ordered mean of the decompressed
     spectra (or buffers)."""
     gathered = all_gather_payload(payload, group)
     del payload
-    return _ordered_worker_mean([_decompress(comp, p, stacked) for p in gathered])
+    return _ordered_worker_mean([_decompress(comp, p, stacked, monitor) for p in gathered])
 
 
-def _psum_mean_payload(payload, comp, group, stacked: bool = False) -> torch.Tensor:
+def _psum_mean_payload(payload, comp, group, stacked: bool = False,
+                       monitor=None) -> torch.Tensor:
     """Decompress locally -> SUM all_reduce -> * 1/P.  A spectrum travels
     as its stacked real and imag planes: the all_reduce moves the DENSE
     dequantized spectrum, as the reference's ``psum`` does (its semantics,
     not a sparse all-reduce)."""
     inv_p = 1.0 / world_size(group)
-    local = _decompress(comp, payload, stacked)
+    local = _decompress(comp, payload, stacked, monitor)
     del payload
     if not local.is_complex():
         return _sum_over_workers(local, group) * inv_p
@@ -187,32 +220,49 @@ class Transport:
 
     name = "base"
 
-    def run(self, flat: torch.Tensor, *, comp, layout, local: bool = False, group=None,
-            stacked: bool = True) -> torch.Tensor:
+    def run(self, flat: torch.Tensor, *, comp, layout=None, plan=None, local: bool = False,
+            group=None, stacked: bool = True, monitor=None) -> torch.Tensor:
         """The cross-worker mean of ``flat`` over ``group`` (the default
         process group, or one worker when none is initialized), or with
         ``local=True`` this worker's compress -> decompress reconstruction.
-        ``stacked`` picks the batched single-collective path (default) or
-        the per-bucket loop.  Returns a flat tensor shaped like ``flat``."""
+        ``layout`` dispatches once over the whole buffer; ``plan`` (a
+        ``scheduler.StreamPlan``, exclusive with ``layout``) once per
+        readiness group.  ``stacked`` picks the batched single-collective
+        path (default) or the per-bucket loop; ``monitor`` (exchange only)
+        sees every outgoing payload.  Returns a flat tensor shaped like
+        ``flat``."""
+        if plan is not None:
+            if layout is not None:
+                raise ValueError("run() takes layout= or plan=, not both")
+            return assemble_index_order(flat, plan, lambda lo, hi, sub: self._run_one(
+                flat[lo:hi], sub, comp, local, group, stacked, monitor))
+        if layout is None:
+            raise ValueError("run() needs a layout= or a plan=")
+        return self._run_one(flat, layout, comp, local, group, stacked, monitor)
+
+    def _run_one(self, flat, layout, comp, local, group, stacked, monitor):
         if local:
             return self._roundtrip_flat(flat, layout, comp, stacked)
-        return self._exchange_flat(flat, layout, comp, group, stacked)
+        return self._exchange_flat(flat, layout, comp, group, stacked, monitor)
 
-    # (payload, comp, group, stacked=False) -> the workers' mean spectrum or buffer
+    # (payload, comp, group, stacked=False, monitor=None) -> the workers' mean
+    # spectrum or buffer
     _reduce = None
 
-    def _exchange_flat(self, flat, layout, comp, group, stacked: bool = True) -> torch.Tensor:
+    def _exchange_flat(self, flat, layout, comp, group, stacked: bool = True,
+                       monitor=None) -> torch.Tensor:
         """ONE reduction of the stacked payload, or one per bucket (the loop,
         also for a compressor without ``compress_stacked``)."""
         if stacked and _can_stack(comp):
             # the payload is handed on unnamed, so the reduction frees it
             # once it is decompressed
             return _stacked_buffer(
-                self._reduce(_compress_stacked(flat, layout, comp), comp, group, True), layout)
+                self._reduce(_compress_stacked(flat, layout, comp, monitor), comp, group, True,
+                             monitor), layout)
         buckets = bucketing.split_buckets(flat, layout)
         return bucketing.concat_buckets(
-            [_bucket_buffer(self._reduce(p, comp, group), p)
-             for p in _compress_all(buckets, comp)], layout)
+            [_bucket_buffer(self._reduce(p, comp, group, False, monitor), p)
+             for p in _compress_all(buckets, comp, monitor)], layout)
 
     def _roundtrip_flat(self, flat, layout, comp, stacked: bool = True) -> torch.Tensor:
         if stacked and _can_stack(comp):
@@ -229,9 +279,9 @@ class AllGatherTransport(Transport):
     name = "allgather"
     _reduce = staticmethod(_gather_mean_payload)
 
-    def _exchange_flat(self, flat, layout, comp, group, stacked=True):
-        payload = comp.compress(flat)
-        return _bucket_buffer(self._reduce(payload, comp, group), payload)
+    def _exchange_flat(self, flat, layout, comp, group, stacked=True, monitor=None):
+        payload = _monitored(comp.compress(flat), monitor)
+        return _bucket_buffer(self._reduce(payload, comp, group, False, monitor), payload)
 
     def _roundtrip_flat(self, flat, layout, comp, stacked=True):
         return comp.decompress(comp.compress(flat))

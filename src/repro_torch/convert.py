@@ -1,18 +1,25 @@
-"""Weight transfer between the reference's parameter tree and the port.
+"""Weight and state transfer between the reference's trees and the port.
 
 The port keeps the reference's tree layout (one parameter per leaf, stacked
 ``(n_groups, ...)`` layer axis), so the transfer is a rename between nested
 dict keys and dotted paths.  Arrays travel as numpy.
+
+The train state maps onto the reference's state tree ``{"params", "opt":
+{"mu"[, "nu"], "count"}, "step"[, "residual"]}`` leaf by leaf, under the
+keys ``jax.tree_util.keystr`` spells (``['params']['embed']['table']``):
+what ``train/checkpoint.py`` writes, so a checkpoint of either package
+restores in the other.  The step and the optimizer's count are int32
+scalars there; the residual is one row per worker, ``(workers, n)``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "keystr", "state_leaves", "load_state_leaves"]
 
 
 def params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -39,3 +46,45 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[leaf] = tensor.detach().cpu().numpy()
     return out
+
+
+def keystr(*parts: str) -> str:
+    """A leaf key as ``jax.tree_util.keystr`` spells a path of dict keys."""
+    return "".join(f"['{p}']" for p in parts)
+
+
+def state_leaves(state) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
+    """The port's train state as the reference's state leaves: key ->
+    tensor (parameters, moments, this worker's residual row ``(1, n)``) or
+    int32 scalar (step, count).  Tensors are the state's own, not copies."""
+    out: Dict[str, Union[torch.Tensor, np.ndarray]] = {}
+    for path, t in state["model"].leaves().items():
+        out[keystr("params", *path.split("."))] = t
+    opt = state["opt"]
+    for moment in ("mu", "nu"):
+        for path, t in opt.get(moment, {}).items():
+            out[keystr("opt", moment, *path.split("."))] = t
+    out[keystr("opt", "count")] = np.asarray(opt["count"], np.int32)
+    out[keystr("step")] = np.asarray(state["step"], np.int32)
+    if "residual" in state:
+        out[keystr("residual")] = state["residual"][None]
+    return out
+
+
+def load_state_leaves(state, arrays: Mapping[str, np.ndarray], *, row: int = 0) -> None:
+    """Copy the reference's state leaves (numpy, by key) into ``state`` in
+    place: every leaf of :func:`state_leaves` must be there, others are
+    ignored.  The residual takes row ``row`` of a ``(workers, n)`` array."""
+    missing = sorted(set(state_leaves(state)) - set(arrays))
+    if missing:
+        raise ValueError(f"checkpoint missing leaves: {missing[:5]}...")
+    with torch.no_grad():
+        for key, like in state_leaves(state).items():
+            if key == keystr("residual"):
+                arr = arrays[key]
+                state["residual"].copy_(torch.from_numpy(np.asarray(arr[row] if arr.ndim == 2
+                                                                    else arr)))
+            elif isinstance(like, torch.Tensor):
+                like.copy_(torch.from_numpy(np.asarray(arrays[key])).to(like.dtype))
+    state["opt"]["count"] = int(arrays[keystr("opt", "count")])
+    state["step"] = int(arrays[keystr("step")])

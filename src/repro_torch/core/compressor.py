@@ -41,6 +41,7 @@ __all__ = [
     "FFTCompressorConfig",
     "FFTPayload",
     "StackedPayload",
+    "drop_outside_indices",
     "stack_bucket_quant",
     "valid_chunk_mask",
     "FFTCompressor",
@@ -77,6 +78,13 @@ class FFTPayload:
     chunk: int
     has_im: bool = True
 
+    def validate(self, level: str = "cheap") -> torch.Tensor:
+        """Structural sanity check -> bool tensor: index bounds against the
+        chunk width, finite float value planes, sane quantizer params
+        (``full``'s checksum comparison lives in ``comms.faults``, which
+        knows the compress-time checksums)."""
+        return _validate_planes(self, level)
+
 
 @dataclasses.dataclass
 class StackedPayload:
@@ -105,6 +113,45 @@ class StackedPayload:
             out.append(FFTPayload(self.re[b, :c_b], self.im[b, :c_b], self.idx[b, :c_b],
                                   q, size, self.chunk, self.has_im))
         return out
+
+    def validate(self, level: str = "cheap") -> torch.Tensor:
+        """See :meth:`FFTPayload.validate`."""
+        return _validate_planes(self, level)
+
+
+def _validate_planes(payload, level: str) -> torch.Tensor:
+    """The checks shared by both payloads, as one bool tensor."""
+    ok = torch.ones((), dtype=torch.bool, device=payload.idx.device)
+    if level == "off":
+        return ok
+    ok = ok & (payload.idx >= 0).all() & (payload.idx < payload.chunk).all()
+    for plane in (payload.re, payload.im):
+        if plane.is_floating_point() and plane.numel():
+            ok = ok & torch.isfinite(plane).all()
+    q = payload.quant
+    if q is not None:
+        ok = ok & torch.isfinite(q.eps).all() & (q.eps > 0).all()
+        ok = ok & torch.isfinite(q.vmax).all() & torch.isfinite(q.vmin).all()
+        ok = ok & (q.vmin <= q.vmax).all()
+        ok = ok & ((q.p_codes >= 1) & (q.p_codes <= q.config.n_codes - 2)).all()
+    return ok
+
+
+def drop_outside_indices(payload):
+    """The payload with every slot whose index lies outside the decoder's
+    bins (``chunk//2 + 1`` for a spectrum, ``chunk`` in the time domain)
+    pointed at bin 0 with code 0, which decodes to 0: the reference's jnp
+    scatter drops such slots, torch's raises, and on the card a bad index
+    would be a bad memory access.  A payload without such slots comes back
+    with the same values."""
+    width = payload.chunk // 2 + 1 if payload.has_im else payload.chunk
+    bad = (payload.idx < 0) | (payload.idx >= width)
+    zero = torch.zeros((), dtype=payload.re.dtype, device=payload.re.device)
+    out = dataclasses.replace(payload, idx=torch.where(bad, 0, payload.idx),
+                              re=torch.where(bad, zero, payload.re))
+    if payload.im.numel():
+        out = dataclasses.replace(out, im=torch.where(bad, zero, payload.im))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

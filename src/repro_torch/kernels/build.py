@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "Kernel", "build", "nvcc_path", "ptr"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "Kernel", "KernelError", "build", "nvcc_path",
+           "ptr"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -37,6 +38,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _HEADERS = ("common.cuh", "fft4096.cuh", "range_quant.cuh", "threshold.cuh")
+
+
+class KernelError(Exception):
+    """A kernel that does not build, load or launch.  Deliberately not a
+    ``RuntimeError``: the train loop's recovery path (rollback, retry, the
+    degradation ladder) absorbs ``RuntimeError``, and a broken kernel must
+    end the run at once instead of being retried or degraded around."""
 
 
 def nvcc_path() -> str:
@@ -52,7 +60,7 @@ def nvcc_path() -> str:
     for c in candidates:
         if os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
                        "the port's CUDA kernels are built from csrc/ on first use")
 
 
@@ -94,7 +102,7 @@ def build(sources: Iterable[str], log: Optional[Dict[str, str]] = None) -> Dict[
         else:
             os.replace(tmp, target)
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise KernelError("kernel build failed:\n" + "\n".join(failures))
     return seconds
 
 
@@ -147,5 +155,5 @@ class Kernel:
             err = self.fn()(*args, stream)
         if err != 0:
             msg = self._lib.repro_error_string(err).decode()
-            raise RuntimeError(f"{self.name}: CUDA launch failed ({err}: {msg})")
+            raise KernelError(f"{self.name}: CUDA launch failed ({err}: {msg})")
         self.launches += 1

@@ -45,6 +45,7 @@ from repro_torch.core import packing, selection, sparsify
 from repro_torch.core.compressor import (
     FFTPayload,
     StackedPayload,
+    drop_outside_indices,
     stack_bucket_quant,
     valid_chunk_mask,
 )
@@ -212,9 +213,16 @@ class CompressorBackend:
 
 class ReferenceBackend(CompressorBackend):
     """Plain ops; per-bucket quantizer ranges mask the zero-padding chunks
-    out of ``compress_stacked``."""
+    out of ``compress_stacked``.  A threshold selector's sentinel index
+    (``cols``, in a row with fewer than k values >= tau, such as an all-NaN
+    row) packs NaN and is dropped when decoded, as the reference's jnp
+    gather and scatter treat it; the cuda backend's kernels emit no such
+    index."""
 
     name = "reference"
+
+    def decompress_spectrum(self, payload) -> torch.Tensor:
+        return super().decompress_spectrum(drop_outside_indices(payload))
 
     def compress(self, cfg, x_flat):
         freqs, n = cfft.chunked_rfft(x_flat, cfg.chunk)

@@ -6,8 +6,15 @@ the paper's setting, with ``--reducer fft|timedomain|terngrad|qsgd|dense``
 over the ``allgather`` transport (the default: one monolithic payload),
 ``sequenced`` (bucketed all_gather) or ``psum`` (one all_reduce of the
 dense spectra); ``--no-stacked`` runs the per-bucket loop instead of the
-batched executor, and ``--theta-schedule constant|step|thm35`` sets theta
-step by step:
+batched executor, ``--theta-schedule constant|step|thm35`` sets theta
+step by step, ``--schedule streamed`` (with ``--stream-groups N``)
+dispatches the exchange one readiness group at a time and ``--schedule
+auto`` lets the cost model choose, priced by ``--calibrate`` (measure
+collectives, stages and this model's backward pass first; with
+``--calibration-path`` the artifact is written there, and a later run
+that finds it loads it instead of profiling) or by a ``--calibration-path``
+artifact alone; ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps
+and resumes from the newest checkpoint there:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b \\
       --n-layers 4 --steps 3 --batch 4 --seq 512 --mode compressed_dp \\
@@ -16,7 +23,9 @@ step by step:
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 GPU.  ``--n-layers`` cuts the depth at full width (a port-only flag).  Flags
-and values the port does not run yet raise with a pointer to ROADMAP.md.
+and values the port does not run yet (``--mode hierarchical``, the
+``hierarchical``, ``reduce_scatter`` and ``auto`` transports, ``--publish-*``,
+``--mesh``, ``--nodes``) raise with a pointer to ROADMAP.md.
 Under ``torchrun`` (or any launcher that sets the ``torch.distributed``
 environment) each process trains one worker of the data-parallel group.
 """
@@ -97,12 +106,7 @@ def _check_ported(ap, args) -> None:
         _not_ported(ap, f"--mode {args.mode}")
     if args.transport not in ("allgather", "sequenced", "psum"):
         _not_ported(ap, f"--transport {args.transport}")
-    if args.schedule != "stacked" or args.stream_groups is not None:
-        _not_ported(ap, "streamed dispatch (--schedule/--stream-groups)")
-    for flag, value in (("--calibrate", args.calibrate),
-                        ("--calibration-path", args.calibration_path),
-                        ("--publish-dir", args.publish_dir), ("--ckpt-dir", args.ckpt_dir),
-                        ("--nodes", args.nodes)):
+    for flag, value in (("--publish-dir", args.publish_dir), ("--nodes", args.nodes)):
         if value:
             _not_ported(ap, flag)
     if args.mesh != "local":
@@ -148,22 +152,63 @@ def main(argv=None):
             kind=args.reducer, theta=args.theta, error_feedback=args.error_feedback,
             bucket_bytes=int(args.bucket_mb * (1 << 20)) if args.bucket_mb else None,
             transport=args.transport, backend=args.backend, stacked=not args.no_stacked,
+            schedule=args.schedule, stream_groups=args.stream_groups,
             selector=args.selector, sample_rate=args.sample_rate)
-    step_cfg = StepConfig(mode=args.mode, reducer=reducer)
+    step_cfg = StepConfig(mode=args.mode, reducer=reducer,
+                          calibration_path=args.calibration_path)
     opt_cfg = OptConfig(kind="adamw", lr=args.lr)
     stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                              global_batch=args.batch, seed=args.seed),
                              device=dev)
     state = init_state(model, opt_cfg,
                        error_feedback=reducer is not None and reducer.error_feedback)
+    calibration = None
+    if args.calibrate and args.mode != "pjit":
+        step_cfg, calibration = _calibrate(args, step_cfg, model, stream, dev)
     loop_cfg = TrainLoopConfig(
-        total_steps=args.steps, log_every=max(1, args.steps // 20),
-        theta_schedule=_theta_schedule(args),
+        total_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        log_every=max(1, args.steps // 20), theta_schedule=_theta_schedule(args),
         lr_schedule=lr_schedules.warmup_cosine(max(2, args.steps // 10), args.steps))
     result = train_loop(model, opt_cfg, step_cfg, state, stream, loop_cfg, group=group)
+    result["calibration"] = calibration
+    if result["schedule_decision"] is not None:
+        print(f"[schedule] {result['schedule_decision'].to_dict()}")
     for row in result["history"]:
         print({k: (round(v, 4) if isinstance(v, float) else v) for k, v in row.items()})
     return result
+
+
+def _calibrate(args, step_cfg, model, stream, dev):
+    """``--calibrate``: load the artifact at ``--calibration-path`` when it
+    exists (key-checked against this card, group, model and torch), else
+    run the profiling pass over the process group (a one-rank group of its
+    own when none is initialized) and write it there (or to a temporary
+    file).  Returns the step config that loads it and ``{"path",
+    "profiled", "profile"}``."""
+    import tempfile
+
+    from repro_torch.comms import calibrate as cal
+
+    path = args.calibration_path
+    if path is not None and os.path.exists(path):
+        profile, profiled = cal.load_profile_for(path, model=model, device=dev), False
+    else:
+        with cal.process_group(dev):
+            profile = cal.calibrate(model=model, batch=stream.batch_at(0),
+                                    reducer=step_cfg.reducer, device=dev)
+        profiled = True
+        if path is None:
+            fd, path = tempfile.mkstemp(suffix=".calibration.json")
+            os.close(fd)
+        profile.save(path)
+    for fit in profile.fits:
+        print(f"[calibrate] {fit.family}: alpha={fit.alpha_s * 1e6:.1f} us  "
+              f"1/beta={fit.t_comm / 1e9:.2f} GB/s")
+    print(f"[calibrate] {'profiled' if profiled else 'loaded'}: throughputs "
+          f"{dataclasses.asdict(profile.throughputs)}, backprop "
+          f"{profile.backprop_flops_per_s / 1e12:.2f} TFLOP/s; artifact at {path}")
+    return (dataclasses.replace(step_cfg, calibration_path=path),
+            {"path": path, "profiled": profiled, "profile": profile.to_dict()})
 
 
 if __name__ == "__main__":

@@ -23,6 +23,23 @@ selects between the new and the old state after computing both; the port
 decides first and then updates in place, which is the same result without a
 second copy of the state.  In both modes the loss and the model's metrics
 are averaged over the workers.
+
+Because the update is in place, everything that can raise -- the backward
+pass, the exchange and its kernels, the guard's collective -- runs before
+``apply_updates`` touches a parameter: a step that raises leaves the state
+as it found it, so the loop's retry in place starts from a clean state.
+
+``compressed_dp`` also carries the reference's schedule policy and fault
+hooks.  ``schedule='auto'`` is resolved once, when the step is built
+(``scheduler.resolve_schedule`` with the model's parameter count, the
+batch's tokens, the group's size and, when ``StepConfig.calibration_path``
+names one, the measured ``calibrate.CostProfile``), and the step exposes
+the decision as ``.schedule_decision`` (None unless ``auto`` ran) and the
+config it runs as ``.reducer_config``.  A ``NanGrad`` event of the
+reducer's ``FaultPlan`` poisons this worker's whole gradient at its
+(step, rank); a resilient reducer's payload verdict joins the guard's flag
+before the MIN all_reduce, so a corrupted payload anywhere skips the step
+everywhere.
 """
 
 from __future__ import annotations
@@ -33,8 +50,10 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.comms import faults as faults_mod
+from repro_torch.comms import scheduler
 from repro_torch.comms.reducers import ReducerConfig, dense_mean, make_reducer
-from repro_torch.dist_util import world_size
+from repro_torch.dist_util import rank_and_world, world_size
 from repro_torch.optim import OptConfig, apply_updates, clip_by_global_norm
 
 __all__ = ["StepConfig", "build_train_step"]
@@ -45,6 +64,10 @@ class StepConfig:
     mode: str = "compressed_dp"
     clip_norm: float = 1.0
     reducer: Optional[ReducerConfig] = None
+    # a persisted calibrate.CostProfile measured on this platform, card,
+    # group size, model and torch; schedule='auto' then prices with it (a
+    # key mismatch raises calibrate.ProfileKeyMismatch when the step is built)
+    calibration_path: Optional[str] = None
     guard: bool = True
 
 
@@ -82,10 +105,11 @@ def _worker_mean_metrics(metrics, group, world: int):
     return out
 
 
-def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *,
-                     group=None) -> Callable:
+def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=None,
+                     batch_tokens: Optional[int] = None) -> Callable:
     """Returns ``step(state, batch, lr_scale=1.0) -> metrics`` (host floats),
-    which updates ``state`` in place."""
+    which updates ``state`` in place.  ``batch_tokens`` (the global batch's
+    tokens a step) prices ``schedule='auto'``."""
     if step_cfg.mode == "pjit":
         return _pjit_step(model, opt_cfg, step_cfg, group)
     if step_cfg.mode != "compressed_dp":
@@ -94,21 +118,44 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *,
             "see ROADMAP.md")
     if step_cfg.reducer is None:
         raise ValueError("compressed_dp needs a ReducerConfig")
-    reducer = make_reducer(step_cfg.reducer, group=group)
-    ef = step_cfg.reducer.error_feedback
-    world = world_size(group)
+    rank, world = rank_and_world(group)
+    reducer_cfg = step_cfg.reducer
+    profile = None
+    if step_cfg.calibration_path is not None:
+        from repro_torch.comms import calibrate
+
+        profile = calibrate.load_profile_for(step_cfg.calibration_path, model=model,
+                                             group=group)
+    decision = None
+    if reducer_cfg.schedule == "auto":
+        n_params = sum(p.numel() for p in model.leaves().values())
+        resolved, decision = scheduler.resolve_schedule(
+            reducer_cfg, n_params, batch_tokens, workers=world, profile=profile)
+        reducer_cfg = dataclasses.replace(reducer_cfg, schedule=resolved)
+    reducer = make_reducer(reducer_cfg, group=group)
+    ef = reducer_cfg.error_feedback
+    resilient = reducer_cfg.resilient
+    nan_events = reducer_cfg.faults.nan_events if reducer_cfg.faults is not None else ()
 
     def step(state, batch, lr_scale: float = 1.0) -> Dict[str, float]:
         params = model.leaves()
+        step_no = state["step"]
         metrics, grads = _loss_and_grads(model, params, batch)
         with torch.no_grad():
+            if nan_events and faults_mod.match_events(nan_events, step_no, rank):
+                grads = {k: torch.full_like(g, float("nan")) for k, g in grads.items()}
+            extra = {"step": step_no} if resilient else {}
             if ef:
-                reduced, new_residual = reducer(grads, state["residual"])
+                res = reducer(grads, state["residual"], **extra)
             else:
-                reduced, new_residual = reducer(grads), None
+                res = reducer(grads, **extra)
+                res = (res[0], None, res[1]) if resilient else (res, None)
+            reduced, new_residual = res[0], res[1]
+            pay_ok = res[2] if resilient else True
+            del res
             ok = torch.ones((), dtype=torch.bool, device=metrics["loss"].device)
             if step_cfg.guard:
-                ok = _all_finite(grads) & _all_finite(reduced)
+                ok = _all_finite(grads) & _all_finite(reduced) & pay_ok
                 if ef:
                     ok = ok & torch.isfinite(new_residual).all()
             del grads
@@ -120,6 +167,7 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *,
             clipped, gnorm = clip_by_global_norm(reduced, step_cfg.clip_norm)
             del reduced
             keep = bool(ok)
+            # nothing above touched the state: a raise leaves it as it was
             if keep:
                 apply_updates(opt_cfg, params, clipped, state["opt"], lr_scale)
                 if ef:
@@ -129,6 +177,8 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *,
         out.update(grad_norm=float(gnorm), skipped=0.0 if keep else 1.0)
         return out
 
+    step.reducer_config = reducer_cfg
+    step.schedule_decision = decision
     return step
 
 

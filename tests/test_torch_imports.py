@@ -59,7 +59,7 @@ def test_cli_refuses_unported_flags(capsys):
     for flags in (["--mode", "hierarchical"],
                   ["--mode", "compressed_dp", "--transport", "reduce_scatter"],
                   ["--mode", "compressed_dp", "--transport", "auto"],
-                  ["--schedule", "streamed"], ["--ckpt-dir", "ckpt"], ["--nodes", "2"]):
+                  ["--publish-dir", "ring"], ["--mesh", "production"], ["--nodes", "2"]):
         with pytest.raises(SystemExit):
             train.main(["--reduced", "--device", "cpu", "--steps", "1", *flags])
         assert "ROADMAP" in capsys.readouterr().err
