@@ -60,7 +60,23 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    compression throughput through the fused kernels' roundtrip and the
    backward pass and writes P, the second loads P without profiling; both
    print the same decision, ``stacked``;
-10. the resilient loop through the API at 2 layers: 6 steps with
+10. the two-level exchange on a ``--nodes 1`` mesh (one card: a (1, 1)
+   ``("node", "local")`` mesh, where no collective moves bytes but the
+   whole two-level data flow runs), EF, 64 MB buckets: 3 steps of
+   ``--transport hierarchical`` (the dense rfft, the island's mean, one
+   irfft, then the node mean compressed), losses within
+   ``HIER_LOSS_ATOL`` of ``train-psum``'s (step 0 bitwise); 3 steps of
+   ``--transport reduce_scatter``, losses and final parameters and
+   residual bitwise ``train-psum``'s (with one worker it runs psum's ops on
+   the same shapes); each launching B4 2, B2 2 and B3 1 a step; then one
+   step of ``--transport auto --calibrate``: per-axis fits over the
+   one-rank ``node`` and ``local`` groups beside the flat ones, and
+   ``psum`` for the degenerate topology, unpriced (its calibration's
+   roundtrips launch B4, B2, B3 4 more times).  The main path's
+   ``StackedPayload`` also goes through ``to_bytes``/``from_bytes`` on the
+   card, bitwise.  Runs over several ranks need two or more cards: the CPU
+   tests run them over gloo;
+11. the resilient loop through the API at 2 layers: 6 steps with
    ``validate="full"``, a poisoned gradient (step 1) and a corrupted
    payload (step 2) skipped, a crash at step 5 rolled back to the step-4
    checkpoint, bitwise an uninterrupted run; then 8 steps with a gradient
@@ -110,6 +126,24 @@ DENSE_ARGS = TRAIN_ARGS[:8]
 PSUM = ["--transport", "psum", "--bucket-mb", str(BUCKET_MB)]
 # readiness groups of the streamed phases: 54 buckets in 6 groups of 9
 STREAM_GROUPS = 6
+# the two-level phases: one card is a (1, 1) mesh
+TWO_LEVEL = ["--nodes", "1", "--bucket-mb", str(BUCKET_MB)]
+# B4, B2 and B3 launches a step of the main path and of each two-level
+# transport: the EF roundtrip and the exchange's compress each launch B4
+# and B2, the roundtrip's decompress B3 (the exchange decodes to spectra)
+LAUNCHES_PER_STEP = {"sampled_threshold": 2, "fused_compress": 2, "fused_decompress": 1}
+# train-hierarchical's losses against train-psum's (the loss is ~12.9): the
+# node mean is irfft(rfft(g)), within ~1e-7 relative of g, which moves a few
+# kept bins and codes, and AdamW's first step moves every parameter by about
+# +-lr whatever its gradient's size, so rounding-level changes to small
+# entries move the next losses by ~1e-3 (train-allgather's one quantizer
+# fit moves step 1 by 9e-4 against train's; the first chip run of this
+# phase read 1.2e-3 at step 1, against a limit of 1e-3 set before it)
+HIER_LOSS_ATOL = 5e-3
+# one exchange of the main path's gradient size on the (1, 1) mesh:
+# hierarchical's mean against psum's, within the reference's envelope
+# (tests/test_transports.py), relative L2
+HIER_MEAN_REL = 0.05
 # the chaos phase's depth: gemma2's local/global pattern is 2 layers long
 CHAOS_LAYERS = 2
 # the thetas whose keep counts B1, B4, B2 and B3 run at on the main path's
@@ -1099,6 +1133,124 @@ def dense_phases(kernels, fused, main_counts) -> None:
                 "train-qsgd", (), must_not_launch=True)
 
 
+def two_level_phases(kernels, fused) -> None:
+    """Phase 10: the two-level exchange on one card's (1, 1) mesh, each
+    phase held to B4 2, B2 2 and B3 1 launches a step; ``train-psum``'s
+    losses and digests (phase 7) are the yardstick."""
+    from repro_torch.launch import train as train_cli
+
+    log("[two-level] one card is a (1, 1) mesh: no collective moves bytes here; runs over "
+        "several ranks need two or more cards (the CPU tests run them over 4 gloo workers)")
+    psum_losses, psum_digests = DIGESTS["train-psum"]
+    for label, transport in (("train-hierarchical", "hierarchical"),
+                             ("train-reduce-scatter", "reduce_scatter")):
+        counts, _ = train_phase(
+            lambda: train_cli.main(TRAIN_ARGS + TWO_LEVEL + ["--transport", transport,
+                                                             "--steps", "3"]),
+            kernels, label, fused, digest=True)
+        if {k: counts[k] for k in LAUNCHES_PER_STEP} != {
+                k: 3 * v for k, v in LAUNCHES_PER_STEP.items()}:
+            raise AssertionError(f"{label} launched {counts} in 3 steps, not 3 x "
+                                 f"{LAUNCHES_PER_STEP}")
+        losses, digests = DIGESTS.pop(label)
+        if transport == "reduce_scatter":
+            differ = sorted(k for k in psum_digests if digests.get(k) != psum_digests[k])
+            if losses != psum_losses or differ or set(digests) != set(psum_digests):
+                raise AssertionError(f"{label}: losses {losses} / train-psum {psum_losses}, "
+                                     f"final state differs in {differ[:5]}")
+            log(f"[{label}] losses and {len(digests)} final tensors bitwise train-psum's")
+        else:
+            gap = max(abs(a - b) for a, b in zip(losses, psum_losses))
+            if losses[0] != psum_losses[0] or gap > HIER_LOSS_ATOL:
+                raise AssertionError(f"{label}: losses {losses} / train-psum {psum_losses}")
+            log(f"[{label}] losses within {gap:.3e} of train-psum's (limit {HIER_LOSS_ATOL})")
+    _two_level_mean_check()
+    runs = []
+
+    def auto():
+        result = train_cli.main(TRAIN_ARGS + TWO_LEVEL + ["--transport", "auto",
+                                                          "--calibrate", "--steps", "1"])
+        runs.append(result)
+        return result
+
+    counts, _ = train_phase(auto, kernels, "train-transport-auto", fused)
+    result = runs.pop()
+    # the calibration's throughput runs the roundtrip 4 times (warm-up + 3)
+    if {k: counts[k] for k in LAUNCHES_PER_STEP} != {
+            k: v + 4 for k, v in LAUNCHES_PER_STEP.items()}:
+        raise AssertionError(f"train-transport-auto launched {counts}")
+    prof = result["calibration"]["profile"]
+    axes = sorted((f["family"], f["axis"]) for f in prof["fits"] if f["axis"] is not None)
+    if axes != [(f, a) for f in ("gather", "psum") for a in ("local", "node")]:
+        raise AssertionError(f"train-transport-auto: per-axis fits {axes}")
+    if result["reducer_config"].transport != "psum" or result["transport_decision"] is not None:
+        raise AssertionError(f"train-transport-auto resolved "
+                             f"{result['reducer_config'].transport} "
+                             f"({result['transport_decision']})")
+    log(f"[train-transport-auto] key {prof['key']}")
+    for fit in prof["fits"]:
+        log(f"[train-transport-auto] {fit['family']} over {fit['axis'] or 'flat'}: "
+            f"alpha={fit['alpha_s'] * 1e6:.3f} us beta={fit['beta_s_per_byte']:.6e} s/B")
+    log("[train-transport-auto] (1, 1) topology -> psum, unpriced")
+
+
+def _two_level_mean_check() -> None:
+    """hierarchical's and psum's means of one exchange of a gradient the
+    main path's size (N(0, 0.05^2)) on the (1, 1) mesh, fused kernels."""
+    from repro_torch.comms.transport import get_transport
+    from repro_torch.core.compressor import FFTCompressor, FFTCompressorConfig
+    from repro_torch.launch.mesh import make_two_level_mesh
+
+    layout, mesh = main_path_layout(), make_two_level_mesh(1)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.randn((layout.total,), generator=gen, device="cuda") * 0.05
+    comp = FFTCompressor(FFTCompressorConfig(theta=KEEP_THETA, backend="cuda",
+                                             selector="auto"))
+    psum = get_transport("psum").run(g, comp=comp, layout=layout, group=mesh)
+    hier = get_transport("hierarchical").run(g, comp=comp, layout=layout, group=mesh)
+    rel = float((hier - psum).norm() / psum.norm())
+    del g, psum, hier
+    torch.cuda.empty_cache()
+    if not rel <= HIER_MEAN_REL:
+        raise AssertionError(f"hierarchical's mean is {rel:.3e} from psum's (relative L2)")
+    log(f"[two-level] hierarchical's mean within {rel:.3e} of psum's (relative L2, limit "
+        f"{HIER_MEAN_REL})")
+
+
+def bytecodec_phase(dev) -> None:
+    """The main path's StackedPayload (gemma2_2b, 4 layers, 64 MB buckets,
+    the fused kernels) through ``to_bytes`` and ``from_bytes`` on the card:
+    every plane bitwise."""
+    from repro_torch.comms import bucketing
+    from repro_torch.core.compressor import (FFTCompressor, FFTCompressorConfig,
+                                             StackedPayload)
+
+    layout = main_path_layout()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flat = torch.randn((layout.total,), generator=gen, device=dev) * 0.05
+    comp = FFTCompressor(FFTCompressorConfig(theta=KEEP_THETA, backend="cuda",
+                                             selector="auto"))
+    payload = comp.compress_stacked(bucketing.stack_buckets(flat, layout), layout.sizes())
+    del flat
+    t0 = time.perf_counter()
+    blob = payload.to_bytes()
+    t1 = time.perf_counter()
+    back = StackedPayload.from_bytes(blob, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    planes = [(name, getattr(payload, name), getattr(back, name)) for name in ("re", "im", "idx")]
+    planes += [(f"quant.{leaf}", getattr(payload.quant, leaf), getattr(back.quant, leaf))
+               for leaf in ("eps", "p_codes", "vmax", "vmin")]
+    for name, a, b in planes:
+        if b.device != a.device or b.dtype != a.dtype or not torch.equal(a.reshape(b.shape), b):
+            raise AssertionError(f"bytecodec: plane {name} differs after the round trip")
+    if back.sizes != payload.sizes or back.chunk != payload.chunk:
+        raise AssertionError("bytecodec: the payload's static fields differ")
+    log(f"[bytecodec] {layout.n_buckets} buckets x {payload.re.shape[1]} chunks x "
+        f"{payload.re.shape[2]} slots: blob {len(blob)} bytes, to_bytes "
+        f"{1e3 * (t1 - t0):.1f} ms, from_bytes {1e3 * (t2 - t1):.1f} ms, planes bitwise")
+
+
 def streamed_phases(kernels, fused, main_counts) -> None:
     """Phase 8: ``--schedule streamed --stream-groups 6`` over ``sequenced``
     and ``psum``: 54 buckets in 6 groups of 9, each group's compress,
@@ -1179,7 +1331,7 @@ def auto_phase(kernels, fused) -> None:
 
 
 def chaos_phase(dev, kernels, fused) -> None:
-    """Phase 10: the resilient loop through the API at full width, 2 layers
+    """Phase 11: the resilient loop through the API at full width, 2 layers
     (one of gemma2's local/global pairs), ``validate="full"``, sequenced,
     stacked, EF.  (a) 6 steps with checkpoints every 4 (keep 1, ~12 GB on
     the host) of a plan with
@@ -1304,9 +1456,12 @@ def main() -> int:
         train_phase(lambda: api_train(dev, 3, backend="cuda", chunk=2048), kernels,
                     "train-api-chunk2048", ("fused_compress", "range_quant_decode"))
         dense_phases(kernels, fused, main_counts)
+        two_level_phases(kernels, fused)
         streamed_phases(kernels, fused, main_counts)
         auto_phase(kernels, fused)
         chaos_phase(dev, kernels, fused)
+        torch.cuda.empty_cache()
+        bytecodec_phase(dev)
 
     if PHASE_MS:
         order = [k for k in ("train", "train-dense") if k in PHASE_MS]

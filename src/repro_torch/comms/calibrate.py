@@ -18,12 +18,19 @@ flat exchanges).
 A one-rank group measures what a collective costs to launch, not a link:
 its gather moves one payload and its all_reduce nothing over a wire.
 
+Over a two-level mesh (``launch.mesh.make_two_level_mesh``) the pass also
+sweeps each axis's group on its own and records per-axis fits
+(``LinkFit.axis``), so the two-level pricing charges the island's hop at
+the measured ``local`` link and the fabric hop at the measured ``node``
+link; the base fits (``axis=None``) are over the mesh's ``flat`` group.
+
 The result is a frozen :class:`CostProfile`, persisted as JSON and keyed on
-(platform, device name, world size, model, torch version): a job loads it
-instead of profiling again, and a mismatch (another card, group size, model
-or torch, or an artifact of the reference package, which is keyed on a JAX
-mesh) raises :class:`ProfileKeyMismatch`.  Per-axis fits over two-level
-meshes are not ported yet (ROADMAP.md).
+(platform, device name, world size, the mesh's axes and sizes, the axes the
+collectives were timed over, model, torch version): a job loads it instead
+of profiling again, and a mismatch (another card, group size or topology --
+a ``(2, 2)`` calibration never prices a ``(4, 1)`` mesh -- model or torch,
+an artifact of this package's version 1, or one of the reference package,
+which is keyed on a JAX mesh) raises :class:`ProfileKeyMismatch`.
 
     python -m repro_torch.comms.calibrate [--smoke] [--out PATH] [--check PATH]
         [--device cpu]
@@ -50,17 +57,23 @@ import torch.distributed as dist
 
 from repro_torch.comms import cost_model
 from repro_torch.dist_util import world_size
+from repro_torch.launch.mesh import Mesh
 
 __all__ = ["ARTIFACT_VERSION", "COLLECTIVE_FAMILIES", "CostProfile", "LinkFit", "ProfileKey",
            "ProfileKeyMismatch", "UNCALIBRATED", "benchmark_collectives", "calibrate",
            "collective_family", "fit_alpha_beta", "load_or_calibrate", "load_profile_for",
            "measure_backprop_rate", "measure_throughputs", "process_group", "profile_key"]
 
-# the reference writes integer versions keyed on a JAX mesh; the port's own
-ARTIFACT_VERSION = "repro_torch/1"
+# the reference writes integer versions keyed on a JAX mesh; the port's own.
+# 2: the key records the topology and the calibrated axes, and fits may be
+# per axis; a version-1 artifact knows neither and is refused
+ARTIFACT_VERSION = "repro_torch/2"
 
 COLLECTIVE_FAMILIES = ("gather", "psum")
-_FAMILY_FOR_TRANSPORT = {"allgather": "gather", "sequenced": "gather", "psum": "psum"}
+# the two-level transports price by hop: hierarchical's costly hop is the
+# fabric's payload gather, reduce_scatter rides the ring model of psum
+_FAMILY_FOR_TRANSPORT = {"allgather": "gather", "sequenced": "gather", "psum": "psum",
+                         "hierarchical": "gather", "reduce_scatter": "psum"}
 
 # fit floors: a noisy intercept or slope can come out non-positive, and a
 # profile must stay usable as a divisor
@@ -88,23 +101,31 @@ class ProfileKeyMismatch(ValueError):
 @dataclasses.dataclass(frozen=True)
 class ProfileKey:
     """What a calibration is valid for: alpha-beta depend on the platform,
-    the card and the group's size, the backward rate on the model, and the
-    kernels and collectives on the torch build."""
+    the card, the group's size and topology and the axes the collectives
+    were timed over, the backward rate on the model, and the kernels and
+    collectives on the torch build."""
 
     platform: str  # "cuda" | "cpu"
     device: str  # torch.cuda.get_device_name, or "cpu"
     workers: int
     model: str  # "<ClassName>/<param_count>" or "none"
     torch_version: str
+    # ((axis, size), ...) of the mesh in mesh order, names included; () for
+    # a plain group
+    mesh: Tuple[Tuple[str, int], ...] = ()
+    axes: Tuple[str, ...] = ()  # the axes swept one by one (per-axis fits)
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        return dict(dataclasses.asdict(self), mesh=[list(a) for a in self.mesh],
+                    axes=list(self.axes))
 
     @classmethod
     def from_dict(cls, d: dict) -> "ProfileKey":
         try:
             return cls(platform=d["platform"], device=d["device"], workers=int(d["workers"]),
-                       model=d["model"], torch_version=d["torch_version"])
+                       model=d["model"], torch_version=d["torch_version"],
+                       mesh=tuple((str(a), int(n)) for a, n in d["mesh"]),
+                       axes=tuple(str(a) for a in d["axes"]))
         except KeyError as e:
             raise ProfileKeyMismatch(f"calibration key {d} lacks {e}") from None
 
@@ -113,12 +134,15 @@ class ProfileKey:
 class LinkFit:
     """Fitted model of one collective family, t(wire_bytes) = alpha + beta*b,
     over the cost model's per-worker wire volume (P*payload for gather,
-    2*(P-1)/P*buffer for psum), so 1/beta is the model's ``t_comm``."""
+    2*(P-1)/P*buffer for psum), so 1/beta is the model's ``t_comm``.
+    ``axis=None`` is the base fit over the whole group; a named axis, a fit
+    over that axis's group of a two-level mesh."""
 
     family: str
     alpha_s: float
     beta_s_per_byte: float
     n_points: int = 0
+    axis: Optional[str] = None
 
     def __post_init__(self):
         if self.family not in COLLECTIVE_FAMILIES:
@@ -146,28 +170,40 @@ class CostProfile:
     input ``cost_model`` and ``scheduler`` take, measured."""
 
     key: ProfileKey
-    fits: Tuple[LinkFit, ...]  # one per family
+    # one base (axis=None) fit per family, and per-axis fits over a
+    # two-level mesh
+    fits: Tuple[LinkFit, ...]
     throughputs: cost_model.Throughputs
     backprop_flops_per_s: float
     calibrated: bool = True  # False: the uncalibrated defaults
 
     def __post_init__(self):
-        if sorted(f.family for f in self.fits) != sorted(COLLECTIVE_FAMILIES):
-            raise ValueError(f"profile needs one fit per family {COLLECTIVE_FAMILIES}, got "
-                             f"{[f.family for f in self.fits]}")
+        base = [f.family for f in self.fits if f.axis is None]
+        if sorted(base) != sorted(COLLECTIVE_FAMILIES):
+            raise ValueError(f"profile needs one base (axis=None) fit per family "
+                             f"{COLLECTIVE_FAMILIES}, got {base}")
+        tagged = [(f.family, f.axis) for f in self.fits]
+        if len(tagged) != len(set(tagged)):
+            raise ValueError(f"duplicate (family, axis) fits in profile: {tagged}")
         if self.backprop_flops_per_s <= 0.0:
             raise ValueError(
                 f"backprop_flops_per_s must be positive, got {self.backprop_flops_per_s}")
 
-    def fit_for(self, transport: str) -> LinkFit:
+    def fit_for(self, transport: str, axis: Optional[str] = None) -> LinkFit:
+        """The fit pricing ``transport``; with ``axis`` the fit over that
+        axis, else (or when the profile has none there) the base fit."""
         family = collective_family(transport)
-        return next(f for f in self.fits if f.family == family)
+        if axis is not None:
+            for f in self.fits:
+                if f.family == family and f.axis == axis:
+                    return f
+        return next(f for f in self.fits if f.family == family and f.axis is None)
 
-    def alpha_s(self, transport: str) -> float:
-        return self.fit_for(transport).alpha_s
+    def alpha_s(self, transport: str, axis: Optional[str] = None) -> float:
+        return self.fit_for(transport, axis).alpha_s
 
-    def t_comm(self, transport: str) -> float:
-        return self.fit_for(transport).t_comm
+    def t_comm(self, transport: str, axis: Optional[str] = None) -> float:
+        return self.fit_for(transport, axis).t_comm
 
     def backprop_s(self, n_params: int, batch_tokens: int) -> float:
         """Backward pass at the measured rate (4 FLOPs a parameter a token)."""
@@ -188,7 +224,8 @@ class CostProfile:
         return cls(key=ProfileKey.from_dict(d["key"]),
                    fits=tuple(LinkFit(family=f["family"], alpha_s=f["alpha_s"],
                                       beta_s_per_byte=f["beta_s_per_byte"],
-                                      n_points=int(f.get("n_points", 0))) for f in d["fits"]),
+                                      n_points=int(f.get("n_points", 0)), axis=f.get("axis"))
+                              for f in d["fits"]),
                    throughputs=cost_model.Throughputs(
                        **{k: float(v) for k, v in d["throughputs"].items()}),
                    backprop_flops_per_s=float(d["backprop_flops_per_s"]),
@@ -282,11 +319,13 @@ def _default_device() -> torch.device:
 def benchmark_collectives(group=None, sizes_bytes: Sequence[int] = DEFAULT_SIZES_BYTES, *,
                           iters: int = 3,
                           device=None) -> Dict[str, List[Tuple[float, float]]]:
-    """Time real collectives of the initialized process group at each size:
-    ``{family: [(modeled_wire_bytes, seconds), ...]}``, median of ``iters``
-    after a warm-up call."""
+    """Time real collectives of an initialized process group (a mesh: its
+    ``flat`` group) at each size: ``{family: [(modeled_wire_bytes,
+    seconds), ...]}``, median of ``iters`` after a warm-up call."""
     if not dist.is_initialized():
         raise RuntimeError("benchmark_collectives needs an initialized process group")
+    if isinstance(group, Mesh):
+        group = group.flat
     device = torch.device(device) if device is not None else _default_device()
     workers = world_size(group)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -337,7 +376,10 @@ def measure_throughputs(n_elems: Optional[int] = None, *, reducer=None,
     n_elems = _throughput_elems(device) if n_elems is None else n_elems
     cfg = (ReducerConfig(**DEFAULT_REDUCER) if reducer is None or reducer.kind == "dense"
            else reducer)
-    comp, transport = _make_compressor(cfg), get_transport(cfg.transport)
+    # transport='auto' picks psum or hierarchical, whose roundtrips are the
+    # same stacked compress -> decompress
+    comp = _make_compressor(cfg)
+    transport = get_transport("psum" if cfg.transport == "auto" else cfg.transport)
     layout = cfg.layout_for(n_elems)
     gen = torch.Generator(device=device).manual_seed(1)
     g = torch.randn(n_elems, generator=gen, device=device) * 0.05
@@ -373,22 +415,32 @@ def measure_backprop_rate(model, batch, *, batch_tokens: Optional[int] = None,
 
 def profile_key(model=None, model_name: Optional[str] = None, group=None,
                 device=None) -> ProfileKey:
-    """The key a calibration of this system persists under."""
+    """The key a calibration of this system persists under; ``group`` a
+    mesh records its axes and sizes, and a two-level one the axes that are
+    swept one by one."""
     device = torch.device(device) if device is not None else _default_device()
     if model_name is None:
         model_name = "none" if model is None else f"{type(model).__name__}/{_n_params(model)}"
+    mesh = tuple(group.shape.items()) if isinstance(group, Mesh) else ()
     return ProfileKey(
         platform=device.type,
         device=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        workers=world_size(group), model=model_name, torch_version=torch.__version__)
+        workers=group.size if isinstance(group, Mesh) else world_size(group), model=model_name,
+        torch_version=torch.__version__, mesh=mesh, axes=_swept_axes(group))
 
 
-def _fit_sweeps(sweeps) -> List[LinkFit]:
+def _swept_axes(group) -> Tuple[str, ...]:
+    """The axes a calibration over ``group`` sweeps one by one: a
+    multi-axis mesh's."""
+    return tuple(group.axis_names) if isinstance(group, Mesh) and len(group.sizes) > 1 else ()
+
+
+def _fit_sweeps(sweeps, axis: Optional[str] = None) -> List[LinkFit]:
     fits = []
     for family in COLLECTIVE_FAMILIES:
         points = sweeps[family]
         alpha, beta = fit_alpha_beta([b for b, _ in points], [t for _, t in points])
-        fits.append(LinkFit(family, alpha, beta, n_points=len(points)))
+        fits.append(LinkFit(family, alpha, beta, n_points=len(points), axis=axis))
     return fits
 
 
@@ -399,9 +451,14 @@ def calibrate(group=None, *, model=None, batch=None,
     """The profiling pass: one measured :class:`CostProfile`.  Without a
     model and batch the backward rate keeps the default, and the key says
     ``model="none"``.  ``reducer`` is the ``ReducerConfig`` whose exchange
-    the throughputs are measured through (:func:`measure_throughputs`)."""
+    the throughputs are measured through (:func:`measure_throughputs`).
+    ``group`` a two-level mesh: the base fits are over its ``flat`` group,
+    and each axis's group is swept on its own for the per-axis fits."""
     device = torch.device(device) if device is not None else _default_device()
     fits = _fit_sweeps(benchmark_collectives(group, sizes_bytes, iters=iters, device=device))
+    for axis in _swept_axes(group):
+        fits += _fit_sweeps(benchmark_collectives(group.group(axis), sizes_bytes, iters=iters,
+                                                  device=device), axis=axis)
     thr = (measure_throughputs(throughput_elems, reducer=reducer, device=device)
            if measure_stages else cost_model.H100)
     if model is not None and batch is not None:
@@ -414,9 +471,9 @@ def calibrate(group=None, *, model=None, batch=None,
 
 def load_profile_for(path: str, model=None, group=None, device=None) -> CostProfile:
     """Load an artifact for this system (what the train step uses): platform,
-    card, group size and torch must match; the model must match or be
-    ``"none"`` (a comms-only calibration prices any model's collectives).
-    A mismatch raises :class:`ProfileKeyMismatch`."""
+    card, group size, topology, swept axes and torch must match; the model
+    must match or be ``"none"`` (a comms-only calibration prices any
+    model's collectives).  A mismatch raises :class:`ProfileKeyMismatch`."""
     if device is None and model is not None:
         device = next(iter(model.leaves().values())).device
     profile = CostProfile.load(path)
@@ -424,6 +481,7 @@ def load_profile_for(path: str, model=None, group=None, device=None) -> CostProf
     k = profile.key
     if not (k.platform == live.platform and k.device == live.device
             and k.workers == live.workers and k.torch_version == live.torch_version
+            and k.mesh == live.mesh and k.axes == live.axes
             and k.model in (live.model, "none")):
         raise ProfileKeyMismatch(f"calibration artifact at {path} was measured for {k}, "
                                  f"but this system is {live}")

@@ -25,7 +25,15 @@ The pricing is pure Python, a function of its arguments: explicit
 arguments win over ``profile``, which wins over the defaults
 (``_resolve_pricing``).  ``wire_mode="runtime"`` prices the bytes today's
 transports move (``psum`` all_reduces the dense spectrum), ``"modeled"``
-the sparse all-reduce endpoint.  The two-level pricing and the per-run wire
+the sparse all-reduce endpoint.
+
+The two-level exchange (``hierarchical``) rides two links: the island's
+dense-spectrum all_reduce on the fast intra-node link and one compressed
+payload per island on the fabric.  :func:`two_level_exchange_time_s`
+prices each hop at its own link's alpha-beta (per-axis fits of a
+calibration over a two-level mesh, else ``NVLINK_NETWORK`` and
+``FABRIC_NETWORK``: an H100 SXM's NVLink 4 and a 400 Gb/s InfiniBand port,
+figures from data sheets, not measurements).  The per-run and publish wire
 accounts are not ported yet (ROADMAP.md).
 """
 
@@ -39,7 +47,9 @@ __all__ = ["Throughputs", "PAPER_V100", "H100", "compression_cost_s", "saved_com
            "transport_wire_bits", "overlap_fraction", "bucketed_payload_bits",
            "exchange_time_s", "ExchangePlan", "COLLECTIVE_ALPHA_S", "BACKPROP_FLOPS_PER_S",
            "WIRE_MODES", "dense_spectrum_bits", "dense_time_bits", "StreamedExchangePlan",
-           "streamed_exchange_time_s", "dense_allreduce_bits"]
+           "streamed_exchange_time_s", "dense_allreduce_bits", "TwoLevelWire",
+           "two_level_wire_bits", "TwoLevelExchangePlan", "two_level_exchange_time_s",
+           "NVLINK_NETWORK", "FABRIC_NETWORK"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,13 +78,24 @@ PAPER_V100 = Throughputs(t_m=300e9, t_f=150e9, t_p=34e9, t_s=100e9)
 H100 = Throughputs(t_m=330092151221.04193, t_f=330092151221.04193, t_p=330092151221.04193,
                    t_s=330092151221.04193)
 
-# practical byte rates of common host fabrics (not line rate)
+# practical byte rates of common links, one direction (not line rate)
 NETWORKS = {
     "10GbE": 1.1e9,
     "56Gb-FDR": 6.0e9,  # the paper's practical 6 GB/s
     "100Gb-EDR": 11.0e9,
+    # a 400 Gb/s NDR InfiniBand port between hosts: 50 GB/s line rate, at
+    # the share of it the EDR entry above takes (88%); not measured
+    "400Gb-NDR": 44.0e9,
+    # NVLink 4 between the cards of one H100 SXM host: NVIDIA's data sheet
+    # gives 900 GB/s for both directions together, 450 GB/s each way; not
+    # measured (one card has no NVLink peer)
+    "nvlink4-h100-sxm": 450.0e9,
 }
 DEFAULT_NETWORK = "100Gb-EDR"
+# the two-level exchange's default links: the island's fast link and the
+# fabric between islands
+NVLINK_NETWORK = "nvlink4-h100-sxm"
+FABRIC_NETWORK = "400Gb-NDR"
 
 
 def compression_cost_s(message_bytes: float, thr: Throughputs) -> float:
@@ -131,16 +152,60 @@ def dense_time_bits(n_elems: int, chunk: int = 4096) -> float:
     return 32.0 * n_chunks * int(chunk)
 
 
+@dataclasses.dataclass(frozen=True)
+class TwoLevelWire:
+    """Per-axis wire split of one hierarchical exchange."""
+
+    nodes: int
+    local: int
+    intra_bits_per_worker: float  # the island's spectra all_reduce
+    inter_bits_per_node: float  # the fabric hop: ``nodes`` payloads an island
+    inter_bits_per_worker: float  # the island's share over its workers
+
+
+def two_level_wire_bits(payload_bits: float, nodes: int, local: int, *,
+                        mode: str = "runtime", n_elems: Optional[int] = None,
+                        chunk: int = 4096) -> TwoLevelWire:
+    """Wire of one hierarchical exchange by axis.  Intra-node:
+    ``runtime`` bills the dense-spectrum ring all-reduce over ``local``,
+    ``2*(local-1)/local * dense_spectrum_bits`` (``n_elems`` required);
+    ``modeled`` one compressed payload.  Inter-node: ``nodes`` compressed
+    payloads land on each island, ``nodes * payload_bits / local`` a
+    worker."""
+    if nodes < 1 or local < 1:
+        raise ValueError(f"topology must be >= (1, 1), got ({nodes}, {local})")
+    if mode not in WIRE_MODES:
+        raise ValueError(f"unknown wire mode {mode!r}; expected {WIRE_MODES}")
+    if mode == "runtime":
+        if n_elems is None:
+            raise ValueError("runtime two-level pricing needs n_elems: the intra-node "
+                             "all_reduce moves the dense spectrum")
+        intra = 2.0 * dense_spectrum_bits(n_elems, chunk) * (local - 1) / local
+    else:
+        intra = float(payload_bits) if local > 1 else 0.0
+    inter_node = float(nodes) * float(payload_bits) if nodes > 1 else 0.0
+    return TwoLevelWire(nodes=int(nodes), local=int(local), intra_bits_per_worker=intra,
+                        inter_bits_per_node=inter_node,
+                        inter_bits_per_worker=inter_node / float(local))
+
+
 def transport_wire_bits(transport: str, payload_bits: float, workers: int, *,
                         mode: str = "modeled", n_elems: Optional[int] = None,
-                        chunk: int = 4096) -> float:
+                        chunk: int = 4096, topology: Optional[Tuple[int, int]] = None) -> float:
     """Per-worker wire bits to exchange one compressed payload among P
-    workers, on the flat transports.
+    workers.
 
     * ``allgather``/``sequenced``: every worker receives all P payloads, P*B.
     * ``psum``: ``modeled`` prices the sparse all-reduce endpoint, B whatever
       P; ``runtime`` the dense-spectrum ring all-reduce the transport runs,
       ``2*(P-1)/P * dense_spectrum_bits(n_elems)`` (``n_elems`` required).
+    * ``reduce_scatter``: ``modeled`` as ``psum``; ``runtime`` the scatter
+      of the dense spectrum planes and the gather of the time-domain rows,
+      each (P-1)/P a worker.
+    * ``hierarchical``: needs ``topology=(nodes, local)``; the per-worker
+      total of :func:`two_level_wire_bits` (intra + the inter share), for
+      the one-link pricing functions; :func:`two_level_exchange_time_s`
+      prices the hops at their own links.
     """
     if workers < 1:
         raise ValueError(f"workers must be >= 1, got {workers}")
@@ -156,9 +221,24 @@ def transport_wire_bits(transport: str, payload_bits: float, workers: int, *,
                     "the transport moves the dense spectrum")
             return 2.0 * dense_spectrum_bits(n_elems, chunk) * (workers - 1) / workers
         return float(payload_bits)
-    if transport in ("hierarchical", "reduce_scatter"):
-        raise NotImplementedError(
-            f"pricing of the {transport!r} transport is not ported yet; see ROADMAP.md")
+    if transport == "reduce_scatter":
+        if mode == "runtime":
+            if n_elems is None:
+                raise ValueError("runtime reduce_scatter pricing needs n_elems: the scatter "
+                                 "moves the dense spectrum planes")
+            dense = dense_spectrum_bits(n_elems, chunk) + dense_time_bits(n_elems, chunk)
+            return dense * (workers - 1) / workers
+        return float(payload_bits)
+    if transport == "hierarchical":
+        if topology is None:
+            raise ValueError("hierarchical pricing needs topology=(nodes, local)")
+        nodes, local = int(topology[0]), int(topology[1])
+        if nodes * local != workers:
+            raise ValueError(f"topology ({nodes}, {local}) does not multiply out to "
+                             f"workers={workers}")
+        wire = two_level_wire_bits(payload_bits, nodes, local, mode=mode, n_elems=n_elems,
+                                   chunk=chunk)
+        return wire.intra_bits_per_worker + wire.inter_bits_per_worker
     raise ValueError(f"unknown transport {transport!r}")
 
 
@@ -234,7 +314,8 @@ def exchange_time_s(message_bytes: float, payload_bits: float,
                     t_comm: Optional[float] = None, thr: Optional[Throughputs] = None, *,
                     workers: int, transport: str = "allgather", n_buckets: int = 1,
                     stacked: bool = False, alpha_s: Optional[float] = None, profile=None,
-                    wire_mode: str = "modeled", chunk: int = 4096) -> ExchangePlan:
+                    wire_mode: str = "modeled", chunk: int = 4096,
+                    topology: Optional[Tuple[int, int]] = None) -> ExchangePlan:
     """Modeled wall time of one compressed gradient exchange.
 
     Compress + decompress cost comes from the §III-D throughputs.  The
@@ -244,7 +325,8 @@ def exchange_time_s(message_bytes: float, payload_bits: float,
     t_comm, thr, alpha_s = _resolve_pricing(transport, t_comm, thr, alpha_s, profile)
     comp_s = 2.0 * compression_cost_s(message_bytes, thr)
     wire = transport_wire_bits(transport, payload_bits, workers, mode=wire_mode,
-                               n_elems=int(-(-message_bytes // 4)), chunk=chunk)
+                               n_elems=int(-(-message_bytes // 4)), chunk=chunk,
+                               topology=topology)
     wire_s = wire / 8.0 / t_comm
     if stacked or transport == "allgather" or n_buckets <= 1:
         n_coll, ov = 1, 0.0
@@ -282,7 +364,8 @@ def streamed_exchange_time_s(message_bytes: float, payload_bits: float,
                              transport: str, group_fractions: Tuple[float, ...],
                              backprop_s: float, alpha_s: Optional[float] = None,
                              profile=None, wire_mode: str = "modeled",
-                             chunk: int = 4096, overlap: bool = True) -> StreamedExchangePlan:
+                             chunk: int = 4096, overlap: bool = True,
+                             topology: Optional[Tuple[int, int]] = None) -> StreamedExchangePlan:
     """Readiness-timeline model of one streamed exchange.
 
     Group g (``group_fractions`` in readiness order) is ready once the
@@ -299,7 +382,8 @@ def streamed_exchange_time_s(message_bytes: float, payload_bits: float,
         raise ValueError(f"backprop_s must be >= 0, got {backprop_s}")
     t_comm, thr, alpha_s = _resolve_pricing(transport, t_comm, thr, alpha_s, profile)
     wire_bits = transport_wire_bits(transport, payload_bits, workers, mode=wire_mode,
-                                    n_elems=int(-(-message_bytes // 4)), chunk=chunk)
+                                    n_elems=int(-(-message_bytes // 4)), chunk=chunk,
+                                    topology=topology)
     comp_total = 2.0 * compression_cost_s(message_bytes, thr)
     wire_total = wire_bits / 8.0 / t_comm
     finish = total_work = ready = 0.0
@@ -325,3 +409,67 @@ def dense_allreduce_bits(n_elems: int, workers: int, dtype_bits: int = 32) -> fl
     if workers <= 1:
         return 0.0
     return 2.0 * dtype_bits * n_elems * (workers - 1) / workers
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoLevelExchangePlan:
+    """A priced hierarchical exchange: the wire and the time of each hop."""
+
+    transport: str
+    nodes: int
+    local: int
+    wire: TwoLevelWire
+    intra_s: float  # the island hop at the intra-node link's rate
+    inter_s: float  # the fabric hop at the inter-node link's rate
+    comp_s: float  # the dense rfft pass, the node compress, the decompress
+    launch_s: float  # one collective launch a hop that has more than one worker
+    exchange_s: float  # the total
+
+
+def _axis_link_pricing(transport: str, t_comm, alpha_s, profile, axis: Optional[str],
+                       default_network: str):
+    """(t_comm, alpha_s) of ONE hop: explicit, else the profile's fit on
+    ``axis`` (its base fit when it has none there), else the default
+    link's rate and :data:`COLLECTIVE_ALPHA_S`."""
+    if t_comm is None:
+        t_comm = (profile.t_comm(transport, axis=axis) if profile is not None
+                  else NETWORKS[default_network])
+    if alpha_s is None:
+        alpha_s = (profile.alpha_s(transport, axis=axis) if profile is not None
+                   else COLLECTIVE_ALPHA_S)
+    return t_comm, alpha_s
+
+
+def two_level_exchange_time_s(message_bytes: float, payload_bits: float, *, nodes: int,
+                              local: int, thr: Optional[Throughputs] = None,
+                              t_comm_intra: Optional[float] = None,
+                              t_comm_inter: Optional[float] = None,
+                              alpha_intra_s: Optional[float] = None,
+                              alpha_inter_s: Optional[float] = None, profile=None,
+                              wire_mode: str = "runtime", chunk: int = 4096,
+                              intra_axis: str = "local",
+                              inter_axis: str = "node") -> TwoLevelExchangePlan:
+    """Modeled wall time of one hierarchical exchange: the island hop per
+    worker at the intra-node rate (the profile's ``psum`` fit on
+    ``intra_axis``, else :data:`NVLINK_NETWORK`), the fabric hop per node
+    at the inter-node rate (its ``allgather`` fit on ``inter_axis``, else
+    :data:`FABRIC_NETWORK`: an island's workers share one fabric endpoint),
+    three passes of the compression pipeline (the dense rfft, the node
+    compress, the gather's decompress) and one launch a hop with more than
+    one worker."""
+    if thr is None:
+        thr = profile.throughputs if profile is not None else H100
+    t_comm_intra, alpha_intra_s = _axis_link_pricing(
+        "psum", t_comm_intra, alpha_intra_s, profile, intra_axis, NVLINK_NETWORK)
+    t_comm_inter, alpha_inter_s = _axis_link_pricing(
+        "allgather", t_comm_inter, alpha_inter_s, profile, inter_axis, FABRIC_NETWORK)
+    wire = two_level_wire_bits(payload_bits, nodes, local, mode=wire_mode,
+                               n_elems=int(-(-message_bytes // 4)), chunk=chunk)
+    comp_s = 3.0 * compression_cost_s(message_bytes, thr)
+    intra_s = wire.intra_bits_per_worker / 8.0 / t_comm_intra
+    inter_s = wire.inter_bits_per_node / 8.0 / t_comm_inter
+    launch_s = (alpha_intra_s if local > 1 else 0.0) + (alpha_inter_s if nodes > 1 else 0.0)
+    return TwoLevelExchangePlan(transport="hierarchical", nodes=int(nodes), local=int(local),
+                                wire=wire, intra_s=intra_s, inter_s=inter_s, comp_s=comp_s,
+                                launch_s=launch_s,
+                                exchange_s=comp_s + intra_s + inter_s + launch_s)

@@ -5,9 +5,16 @@
 Kinds: ``dense`` (the mean over the group, the paper's "orig" baseline: one
 SUM all_reduce divided by the world size, as ``pmean``), ``fft`` (the
 paper's compressed exchange), ``timedomain`` (top-k of the raw values,
-Fig. 12), ``terngrad`` and ``qsgd`` (Table I).  The compressed kinds run
-with and without error feedback over the transports of
+Fig. 12), ``terngrad`` and ``qsgd`` (Table I), and ``hierarchical`` (over a
+two-level mesh: the dense mean over the island's ``local`` group, then the
+fft exchange with ``config.transport`` over the ``node`` group).  The
+compressed kinds run with and without error feedback over the transports of
 ``comms/transport.py``.
+
+The group of :func:`make_reducer` is a ``torch.distributed`` group or a
+``launch.mesh.Mesh``: on a two-level mesh the flat transports and
+``reduce_scatter`` run over its ``flat`` group, ``hierarchical`` over its
+``(node, local)`` pair.
 
 A gradient tree here is a mapping from dotted parameter paths to tensors
 (``"layers.l0_attn_local_mlp.attn.wq"``).  :func:`flatten_tree` walks it in
@@ -21,19 +28,24 @@ cover the same coefficients in both packages.
 ``streamed`` (one per readiness group, bitwise the same result) or ``auto``
 (the cost model decides).  ``auto`` is resolved in one place, when the
 train step is built (``scheduler.resolve_schedule`` with the model's
-parameter count, the batch's tokens, the group's size and, given one, a
-measured ``calibrate.CostProfile``); :func:`make_reducer` takes a resolved
-schedule and refuses ``auto``.
+parameter count, the batch's tokens, the group's size and topology and,
+given one, a measured ``calibrate.CostProfile``); :func:`make_reducer`
+takes a resolved schedule and refuses ``auto``.  So with
+``transport='auto'`` (``scheduler.resolve_transport``: flat ``psum`` or
+``hierarchical`` on the mesh's topology).
 
 The resilience layer (``comms/faults.py``): with ``validate != "off"`` or a
 ``FaultPlan`` holding payload corruption (``config.resilient``) the reduce
 functions take ``step=`` and return one more value, ``ok``: this worker's
 AND of every payload verdict, which the step's guard folds across workers.
+The FaultPlan's worker coordinate is the reference's: the row-major index
+over the reducer's axes, ``(axis, pod_axis)``.  Over a two-level mesh that
+is the rank (``("node", "local")``, node-major), except for the
+``hierarchical`` kind, whose ``axis`` is the island's ``local`` and
+``pod_axis`` the ``node``: ``local_index * nodes + node_index``.
 :func:`degrade_config` is one rung down the degradation ladder the train
 loop walks; on the card it has no ``backend`` rung, since the kernels are
 the only path there.
-
-The ``hierarchical`` kind is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,17 +56,19 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.comms import bucketing, scheduler
+from repro_torch.comms import bucketing, collectives, scheduler
 from repro_torch.comms import faults as faults_mod
 from repro_torch.comms.transport import TRANSPORT_NAMES, get_transport
 from repro_torch.core import baselines
 from repro_torch.core.compressor import (FFTCompressor, FFTCompressorConfig,
                                          TimeDomainCompressor)
 from repro_torch.core.selection import SELECTOR_NAMES
-from repro_torch.dist_util import rank_and_world, world_size
+from repro_torch.dist_util import world_size
 from repro_torch.kernels.engine import BACKEND_NAMES
+from repro_torch.launch.mesh import Mesh
 
-__all__ = ["ReducerConfig", "make_reducer", "degrade_config", "dense_mean", "flatten_tree",
+__all__ = ["ReducerConfig", "make_reducer", "degrade_config", "dense_mean", "fault_worker",
+           "flatten_tree",
            "unflatten_tree", "leaf_order", "residual_size", "REDUCER_KINDS"]
 
 REDUCER_KINDS = ("dense", "fft", "timedomain", "terngrad", "qsgd", "hierarchical")
@@ -108,7 +122,9 @@ class ReducerConfig:
     fixed_range: Tuple[float, float] = (-1.0, 1.0)
     error_feedback: bool = False
     bucket_bytes: Optional[int] = None  # None: one monolithic bucket
-    transport: str = "allgather"  # allgather | sequenced | psum (the ported ones)
+    # allgather | sequenced | psum | hierarchical | reduce_scatter, or auto
+    # (resolved by scheduler.resolve_transport before make_reducer)
+    transport: str = "allgather"
     backend: str = "reference"
     # batched bucket executor: every bucket in one batched pass and one
     # StackedPayload per exchange; False runs the per-bucket loop
@@ -192,7 +208,7 @@ def dense_mean(grads: Mapping[str, torch.Tensor], group=None) -> Dict[str, torch
 
 
 def _make_compressor(config: ReducerConfig):
-    if config.kind == "fft":
+    if config.kind in ("fft", "hierarchical"):
         return FFTCompressor(config.compressor_config())
     if config.kind == "timedomain":
         return TimeDomainCompressor(config.compressor_config())
@@ -200,8 +216,26 @@ def _make_compressor(config: ReducerConfig):
         return baselines.TernGrad()
     if config.kind == "qsgd":
         return baselines.QSGD()
-    raise NotImplementedError(
-        f"reducer kind {config.kind!r} is not ported yet; see ROADMAP.md")
+    raise ValueError(f"unknown compressed reducer kind {config.kind!r}")
+
+
+def _pmean_flat(flat: torch.Tensor, group) -> torch.Tensor:
+    """``pmean`` of a flat buffer: one SUM all_reduce divided by the world
+    size (``flat`` itself with one worker)."""
+    world = world_size(group)
+    if world == 1:
+        return flat
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    return flat / world
+
+
+def fault_worker(config: ReducerConfig, group) -> int:
+    """The FaultPlan's worker coordinate: the reference's row-major index
+    over ``(axis, pod_axis)``; over a mesh the ``hierarchical`` kind's axes
+    are ``(local, node)``, every other kind's the mesh's own."""
+    if isinstance(group, Mesh) and config.kind == "hierarchical":
+        return collectives.axis_linear_index(group.axis_names[::-1], mesh=group)
+    return collectives.axis_linear_index(group)
 
 
 def make_reducer(config: ReducerConfig, group=None):
@@ -218,20 +252,33 @@ def make_reducer(config: ReducerConfig, group=None):
     one more value, this worker's payload verdict ``ok``.
 
     ``group`` is the ``torch.distributed`` group the mean runs over (the
-    default group when one is initialized, else one worker); this worker's
-    rank in it is the FaultPlan's worker coordinate.  ``config.schedule``
-    must be resolved (``stacked`` or ``streamed``): ``auto`` is priced once,
-    by ``scheduler.resolve_schedule`` (the train step calls it)."""
+    default group when one is initialized, else one worker), or a
+    ``launch.mesh.Mesh`` (the ``hierarchical`` kind needs a two-level one).
+    ``config.schedule`` and ``config.transport`` must be resolved: ``auto``
+    is priced once, by ``scheduler.resolve_schedule`` and
+    ``scheduler.resolve_transport`` (the train step calls them)."""
     if config.schedule == "auto":
         raise ValueError("make_reducer needs a resolved schedule; resolve schedule='auto' "
                          "with scheduler.resolve_schedule first (build_train_step does)")
+    if config.transport == "auto":
+        raise ValueError("make_reducer needs a resolved transport; resolve transport='auto' "
+                         "with scheduler.resolve_transport first (build_train_step does)")
+    flat_group = group.flat if isinstance(group, Mesh) else group
     if config.kind == "dense":
         if config.error_feedback:
             raise ValueError("error feedback is meaningless for dense reduction")
-        return lambda grads: dense_mean(grads, group)
+        return lambda grads: dense_mean(grads, flat_group)
+    island = None  # the hierarchical kind's dense-mean group
+    exchange_group = group
+    if config.kind == "hierarchical":
+        if not (isinstance(group, Mesh) and group.topology is not None):
+            raise ValueError("the hierarchical reducer kind needs a two-level mesh "
+                             "(launch.mesh.make_two_level_mesh) as its group")
+        island, exchange_group = group.local, group.node
     comp = _make_compressor(config)
     transport = get_transport(config.transport)
     resilient = config.resilient
+    worker = fault_worker(config, group)
     dispatch = {}
 
     def _dispatch_spec(total: int) -> dict:
@@ -251,15 +298,22 @@ def make_reducer(config: ReducerConfig, group=None):
             return None
         corrupt = config.faults.corrupt_events if config.faults is not None else ()
         return faults_mod.ExchangeMonitor(config.validate, step=-1 if step is None else step,
-                                          worker=rank_and_world(group)[0], corrupt=corrupt)
+                                          worker=worker, corrupt=corrupt)
 
     def _run(flat, local: bool, monitor=None):
-        return transport.run(flat, comp=comp, local=local, group=group, stacked=config.stacked,
-                             monitor=monitor, **_dispatch_spec(flat.shape[0]))
+        return transport.run(flat, comp=comp, local=local, group=exchange_group,
+                             stacked=config.stacked, monitor=monitor,
+                             **_dispatch_spec(flat.shape[0]))
+
+    def _flat(grads):
+        """The flat gradient (fresh) and its specs; the hierarchical kind's
+        is the island's dense mean."""
+        flat, specs = flatten_tree(grads)
+        return (flat if island is None else _pmean_flat(flat, island)), specs
 
     def compressed_reduce(grads, step=None):
         monitor = _monitor(step)
-        flat, specs = flatten_tree(grads)
+        flat, specs = _flat(grads)
         mean = unflatten_tree(_run(flat, local=False, monitor=monitor), specs)
         return (mean, monitor.ok()) if resilient else mean
 
@@ -268,7 +322,7 @@ def make_reducer(config: ReducerConfig, group=None):
 
     def ef_reduce(grads, residual_flat, step=None):
         monitor = _monitor(step)
-        flat, specs = flatten_tree(grads)
+        flat, specs = _flat(grads)
         corrected = flat.add_(residual_flat)  # flat is a fresh buffer
         # the roundtrip is not monitored: the residual never crosses the wire
         local_hat = _run(corrected, local=True)

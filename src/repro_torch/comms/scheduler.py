@@ -33,10 +33,16 @@ overlap, where it costs a launch per group more than the stacked one and
 never wins; the reference's overlapped timeline stays available as
 ``resolve_schedule(..., overlap=True)``.
 
-``choose_transport`` and ``resolve_transport`` (the two-level transports'
-policy) are not ported yet; the reference's deprecated shims
-``exchange_streamed`` and ``local_roundtrip_streamed`` are left out on
-purpose, as the transport's deprecated shims are (ROADMAP.md).
+``transport='auto'`` (:func:`choose_transport`, :func:`resolve_transport`)
+picks flat ``psum`` or ``hierarchical`` on a two-level ``(nodes, local)``
+topology, pricing both as they run (``cost_model.two_level_exchange_time_s``
+for the two hops); a degenerate topology (one node, or one worker a node)
+has no island to use and resolves to ``psum`` unpriced.  Like ``auto``
+schedules it is resolved once, when the train step is built.
+
+The reference's deprecated shims ``exchange_streamed`` and
+``local_roundtrip_streamed`` are left out on purpose, as the transport's
+deprecated shims are (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from repro_torch.comms.bucketing import BucketLayout
 __all__ = ["SCHEDULE_NAMES", "StreamPlan", "build_plan", "ScheduleDecision",
            "choose_schedule", "modeled_backprop_s", "resolve_schedule",
            "BACKPROP_FLOPS_PER_S", "DEFAULT_BATCH_TOKENS", "DEFAULT_WORKERS",
-           "OVERLAPS_BACKWARD"]
+           "OVERLAPS_BACKWARD", "TransportDecision", "choose_transport", "resolve_transport"]
 
 SCHEDULE_NAMES = ("stacked", "streamed", "auto")
 
@@ -146,7 +152,8 @@ def choose_schedule(plan: StreamPlan, message_bytes: float, payload_bits: float,
                     t_comm: Optional[float] = None,
                     thr: Optional[cost_model.Throughputs] = None,
                     alpha_s: Optional[float] = None, profile=None,
-                    wire_mode: str = "runtime", overlap: bool = True) -> ScheduleDecision:
+                    wire_mode: str = "runtime", overlap: bool = True,
+                    topology: Optional[Tuple[int, int]] = None) -> ScheduleDecision:
     """Stacked step = backprop + (alpha + compress + wire); streamed step =
     the readiness timeline's finish.  Streamed wins when the backward pass
     hides the per-group exchanges despite paying alpha per group.  A
@@ -156,11 +163,12 @@ def choose_schedule(plan: StreamPlan, message_bytes: float, payload_bits: float,
     stacked_plan = cost_model.exchange_time_s(
         message_bytes, payload_bits, t_comm, thr, workers=workers, transport=transport,
         n_buckets=plan.layout.n_buckets, stacked=True, alpha_s=alpha_s, profile=profile,
-        wire_mode=wire_mode, chunk=plan.layout.chunk)
+        wire_mode=wire_mode, chunk=plan.layout.chunk, topology=topology)
     streamed_plan = cost_model.streamed_exchange_time_s(
         message_bytes, payload_bits, t_comm, thr, workers=workers, transport=transport,
         group_fractions=plan.group_fractions(), backprop_s=backprop_s, alpha_s=alpha_s,
-        profile=profile, wire_mode=wire_mode, chunk=plan.layout.chunk, overlap=overlap)
+        profile=profile, wire_mode=wire_mode, chunk=plan.layout.chunk, overlap=overlap,
+        topology=topology)
     stacked_step = backprop_s + stacked_plan.exchange_s
     streamed_step = streamed_plan.step_s
     return ScheduleDecision(
@@ -172,7 +180,9 @@ def choose_schedule(plan: StreamPlan, message_bytes: float, payload_bits: float,
 
 def resolve_schedule(config, n_elems: int, batch_tokens: Optional[int] = None, *,
                      workers: Optional[int] = None, profile=None,
-                     overlap: bool = OVERLAPS_BACKWARD) -> Tuple[str, Optional[ScheduleDecision]]:
+                     overlap: bool = OVERLAPS_BACKWARD,
+                     topology: Optional[Tuple[int, int]] = None
+                     ) -> Tuple[str, Optional[ScheduleDecision]]:
     """``ReducerConfig.schedule`` -> a concrete name (and, for ``auto``, the
     decision); a pure function of its inputs.  ``allgather``, one bucket or
     a compressor with no wire model has nothing to stream: ``stacked``.
@@ -180,7 +190,8 @@ def resolve_schedule(config, n_elems: int, batch_tokens: Optional[int] = None, *
     ``profile`` a measured ``calibrate.CostProfile``, which also gives the
     backward pass's length.  ``overlap`` defaults to what this package's
     streamed step does (:data:`OVERLAPS_BACKWARD`); ``overlap=True`` prices
-    the reference's overlapped timeline."""
+    the reference's overlapped timeline; ``topology`` the ``(nodes, local)``
+    of a two-level mesh, which ``hierarchical`` is priced on."""
     if config.schedule != "auto":
         return config.schedule, None
     layout = config.layout_for(n_elems)
@@ -200,8 +211,69 @@ def resolve_schedule(config, n_elems: int, batch_tokens: Optional[int] = None, *
         backprop_s = modeled_backprop_s(n_elems, tokens)
     decision = choose_schedule(plan, 4.0 * n_elems, payload_bits, workers=p,
                                transport=config.transport, backprop_s=backprop_s,
-                               profile=profile, overlap=overlap)
+                               profile=profile, overlap=overlap, topology=topology)
     return decision.schedule, decision
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportDecision:
+    """The transport policy's verdict and the numbers behind it."""
+
+    transport: str  # "psum" | "hierarchical"
+    flat_exchange_s: float  # flat psum over every worker
+    hier_exchange_s: float  # the island all_reduce and the fabric gather
+    nodes: int
+    local: int
+    inter_bits_per_worker: float  # hierarchical's fabric share a worker
+    flat_wire_bits: float  # flat psum's runtime wire a worker
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def choose_transport(n_elems: int, payload_bits: float, *, nodes: int, local: int,
+                     n_buckets: int = 1, chunk: int = 4096, profile=None) -> TransportDecision:
+    """Flat ``psum`` against ``hierarchical`` on a (nodes, local) topology,
+    both priced as they run (``wire_mode="runtime"``): the flat psum
+    all-reduces the dense spectrum over every worker at one link rate; the
+    hierarchical exchange does so only inside the island and moves
+    ``nodes`` compressed payloads an island over the fabric, each hop at
+    its own link's alpha-beta.  Hierarchical wins when the fabric is slow
+    enough that one payload an island beats its second compression pass."""
+    workers = int(nodes) * int(local)
+    flat = cost_model.exchange_time_s(
+        4.0 * n_elems, payload_bits, workers=workers, transport="psum", n_buckets=n_buckets,
+        stacked=True, profile=profile, wire_mode="runtime", chunk=chunk)
+    hier = cost_model.two_level_exchange_time_s(
+        4.0 * n_elems, payload_bits, nodes=nodes, local=local, profile=profile,
+        wire_mode="runtime", chunk=chunk)
+    return TransportDecision(
+        transport="hierarchical" if hier.exchange_s < flat.exchange_s else "psum",
+        flat_exchange_s=flat.exchange_s, hier_exchange_s=hier.exchange_s, nodes=int(nodes),
+        local=int(local), inter_bits_per_worker=hier.wire.inter_bits_per_worker,
+        flat_wire_bits=flat.wire_bits_per_worker)
+
+
+def resolve_transport(config, n_elems: int, *, topology: Optional[Tuple[int, int]] = None,
+                      profile=None) -> Tuple[str, Optional[TransportDecision]]:
+    """``ReducerConfig.transport`` -> a concrete name (and, for ``auto``, the
+    decision); a pure function of its inputs.  ``auto`` without a topology,
+    on a degenerate one (one node, or one worker a node) or for a kind with
+    no wire model resolves to ``psum`` unpriced."""
+    if config.transport != "auto":
+        return config.transport, None
+    if topology is None or topology[0] <= 1 or topology[1] <= 1:
+        return "psum", None
+    comp = _wire_model_compressor(config)
+    if comp is None:
+        return "psum", None
+    layout = config.layout_for(n_elems)
+    payload_bits = cost_model.bucketed_payload_bits(
+        comp.wire_bits, layout.sizes(), "psum", stacked=True, chunk=layout.chunk)
+    decision = choose_transport(n_elems, payload_bits, nodes=topology[0], local=topology[1],
+                                n_buckets=layout.n_buckets, chunk=layout.chunk,
+                                profile=profile)
+    return decision.transport, decision
 
 
 def _wire_model_compressor(config):

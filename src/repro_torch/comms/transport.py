@@ -42,8 +42,35 @@ it decodes safe to decode; the local roundtrip (``local=True``, what error
 feedback accumulates against) is not monitored: the residual never crosses
 the wire.
 
-The ``hierarchical`` and ``reduce_scatter`` transports are not ported yet
-(ROADMAP.md).
+The two-level topology (``launch/mesh.py``): ``group=`` also takes a
+``launch.mesh.Mesh``.  The flat transports and ``reduce_scatter`` run over
+its ``flat`` group; ``hierarchical`` needs its two hops,
+``(mesh.node, mesh.local)`` (:func:`two_level_axes`), and refuses a flat
+group.
+
+* ``hierarchical`` -- a dense rfft of the stacked rows (no top-k), ONE SUM
+  all_reduce of the ``(2, n_buckets, max_chunks, f)`` plane stack over the
+  island's ``local`` group times 1/local, and one irfft give the node mean
+  (FFT linearity); every worker of the island compresses that node mean
+  (the only lossy step), the compressed payloads are gathered over the
+  ``node`` group (one per island) and folded in node order into the mean
+  spectrum, then one irfft.  With ``local == 1`` the rfft -> irfft still
+  runs, as in the reference, so the node mean is not bitwise ``flat``.  The
+  loop sums the raw time-domain buckets over ``local`` instead (equal by
+  linearity), a non-spectral compressor sums the stacked rows.  Its error
+  feedback roundtrip is this worker's own compress of ``flat``, not of the
+  node mean.
+* ``reduce_scatter`` -- each worker dequantizes its own payload into the
+  ``(n_buckets, 2, max_chunks, f)`` planes (buckets leading, zero rows
+  padding the bucket count to a multiple of P); ONE
+  ``reduce_scatter_tensor`` hands rank i the summed planes of buckets
+  ``[i*B'/P, (i+1)*B'/P)``, which it scales by 1/P and inverts on its own
+  rows only; ONE ``all_gather_into_tensor`` of the time-domain rows
+  rebuilds the buffer.  The loop (and a compressor without
+  ``compress_stacked``) is the ``psum`` loop.  With one worker its mean is
+  bitwise ``psum``'s (the same ops on the same shapes); with more, the
+  collective's sum order is the backend's, so it agrees with ``psum`` to
+  rounding.
 """
 
 from __future__ import annotations
@@ -59,13 +86,28 @@ from repro_torch.core import fft as cfft
 from repro_torch.core.compressor import StackedPayload
 from repro_torch.core.quantizer import FittedQuantizer
 from repro_torch.dist_util import world_size
+from repro_torch.launch.mesh import Mesh
 
 __all__ = ["Transport", "AllGatherTransport", "SequencedTransport", "SpectrumPsumTransport",
-           "get_transport", "all_gather_payload", "assemble_index_order", "TRANSPORT_NAMES",
-           "PORTED_TRANSPORTS"]
+           "HierarchicalTransport", "ReduceScatterTransport", "get_transport",
+           "all_gather_payload", "assemble_index_order", "two_level_axes", "TRANSPORT_NAMES"]
 
 TRANSPORT_NAMES = ("allgather", "sequenced", "psum", "hierarchical", "reduce_scatter")
-PORTED_TRANSPORTS = ("allgather", "sequenced", "psum")
+
+
+def two_level_axes(group) -> tuple:
+    """Validate a hierarchical exchange's group spec -> (node_group,
+    local_group).  A two-axis mesh gives its two hops; a pair is taken as
+    (node, local).  The hierarchical transport is the only one whose two
+    hops ride different links, so a flat group is refused: the caller must
+    say which group is the fabric and which the fast link."""
+    if isinstance(group, Mesh) and len(group.sizes) == 2:
+        return group.node, group.local
+    if isinstance(group, (tuple, list)) and len(group) == 2 and not any(
+            isinstance(g, (str, Mesh)) for g in group):
+        return tuple(group)
+    raise ValueError(f"hierarchical transport needs group=(node_group, local_group) or a "
+                     f"two-level mesh (launch.mesh.make_two_level_mesh), got {group!r}")
 
 
 def assemble_index_order(flat: torch.Tensor, plan, run_group) -> torch.Tensor:
@@ -125,6 +167,13 @@ def _sum_over_workers(t: torch.Tensor, group) -> torch.Tensor:
     if world_size(group) > 1:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+def _mean_over(t: torch.Tensor, group) -> torch.Tensor:
+    """SUM all_reduce of a copy of ``t``, times 1/P (``t`` as it is, times
+    1.0, with one worker)."""
+    world = world_size(group)
+    return _sum_over_workers(t.clone() if world > 1 else t, group) * (1.0 / world)
 
 
 def _gather_plane(t: torch.Tensor, world: int, group) -> torch.Tensor:
@@ -223,7 +272,8 @@ class Transport:
     def run(self, flat: torch.Tensor, *, comp, layout=None, plan=None, local: bool = False,
             group=None, stacked: bool = True, monitor=None) -> torch.Tensor:
         """The cross-worker mean of ``flat`` over ``group`` (the default
-        process group, or one worker when none is initialized), or with
+        process group, or one worker when none is initialized; a mesh, or
+        for ``hierarchical`` its ``(node, local)`` pair), or with
         ``local=True`` this worker's compress -> decompress reconstruction.
         ``layout`` dispatches once over the whole buffer; ``plan`` (a
         ``scheduler.StreamPlan``, exclusive with ``layout``) once per
@@ -231,6 +281,8 @@ class Transport:
         path (default) or the per-bucket loop; ``monitor`` (exchange only)
         sees every outgoing payload.  Returns a flat tensor shaped like
         ``flat``."""
+        if not local:
+            group = self._group(group)
         if plan is not None:
             if layout is not None:
                 raise ValueError("run() takes layout= or plan=, not both")
@@ -239,6 +291,11 @@ class Transport:
         if layout is None:
             raise ValueError("run() needs a layout= or a plan=")
         return self._run_one(flat, layout, comp, local, group, stacked, monitor)
+
+    def _group(self, group):
+        """The group spec this transport's collectives take: a mesh's
+        ``flat`` group."""
+        return group.flat if isinstance(group, Mesh) else group
 
     def _run_one(self, flat, layout, comp, local, group, stacked, monitor):
         if local:
@@ -305,15 +362,120 @@ class SpectrumPsumTransport(Transport):
     _reduce = staticmethod(_psum_mean_payload)
 
 
+def _node_mean(flat: torch.Tensor, layout, comp, local_group) -> torch.Tensor:
+    """The island's mean of ``flat``, replicated on its workers: for a
+    spectral compressor the dense rfft of the stacked rows, one SUM
+    all_reduce of its plane stack over ``local_group`` times 1/local, and
+    one irfft (each buffer is freed as soon as the next one holds it); else
+    the stacked rows' mean."""
+    rows = bucketing.stack_buckets(flat, layout)
+    if not hasattr(comp, "decompress_spectrum"):
+        return bucketing.unstack_buckets(_mean_over(rows, local_group), layout)
+    spec = torch.fft.rfft(rows.reshape(layout.n_buckets, -1, layout.chunk), dim=-1)
+    del rows
+    planes = torch.stack([spec.real, spec.imag])
+    del spec
+    summed = _sum_over_workers(planes, local_group)
+    del planes
+    mean = torch.complex(summed[0], summed[1])
+    del summed
+    return _stacked_buffer(mean.mul_(1.0 / world_size(local_group)), layout)
+
+
+class HierarchicalTransport(Transport):
+    """Two-level exchange over ``(node, local)``: the island's dense mean on
+    the fast link, one compressed payload per island over the fabric, the
+    nodes' payloads folded in node order.  Its roundtrip (the base class's)
+    is this worker's own compress of ``flat``: the exchange's only loss is
+    the island's compress of the node mean, which no worker's state can
+    hold."""
+
+    name = "hierarchical"
+    _reduce = staticmethod(_gather_mean_payload)
+
+    def _group(self, group):
+        return two_level_axes(group)
+
+    def _exchange_flat(self, flat, layout, comp, group, stacked=True, monitor=None):
+        node, local = group
+        if stacked and _can_stack(comp):
+            payload = _compress_stacked(_node_mean(flat, layout, comp, local), layout, comp,
+                                        monitor)
+            return _stacked_buffer(_gather_mean_payload(payload, comp, node, True, monitor),
+                                   layout)
+        # the loop sums the raw time-domain buckets (the spectra's sum by
+        # linearity, the same dense wire), then compresses each node mean
+        node_means = [_mean_over(b, local) for b in bucketing.split_buckets(flat, layout)]
+        return bucketing.concat_buckets(
+            [_bucket_buffer(_gather_mean_payload(p, comp, node, False, monitor), p)
+             for p in _compress_all(node_means, comp, monitor)], layout)
+
+
+def _reduce_scatter_rows(planes: torch.Tensor, world: int, group) -> torch.Tensor:
+    """This rank's shard of the summed ``planes`` (rows split evenly over
+    the group, rank order)."""
+    if world == 1:
+        return planes
+    out = planes.new_empty((planes.shape[0] // world,) + tuple(planes.shape[1:]))
+    dist.reduce_scatter_tensor(out, planes, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def _all_gather_rows(rows: torch.Tensor, world: int, group) -> torch.Tensor:
+    """Every rank's rows, stacked in rank order along dim 0."""
+    if world == 1:
+        return rows
+    out = rows.new_empty((world * rows.shape[0],) + tuple(rows.shape[1:]))
+    dist.all_gather_into_tensor(out, rows.contiguous(), group=group)
+    return out
+
+
+class ReduceScatterTransport(Transport):
+    """Bucket-partitioned reduction: ONE reduce_scatter of the dequantized
+    planes over the bucket axis, each rank's irfft of its own buckets, ONE
+    all_gather of the time-domain rows (stacked); the ``psum`` loop
+    otherwise."""
+
+    name = "reduce_scatter"
+    _reduce = staticmethod(_psum_mean_payload)
+
+    def _exchange_flat(self, flat, layout, comp, group, stacked=True, monitor=None):
+        if not (stacked and _can_stack(comp)):
+            return super()._exchange_flat(flat, layout, comp, group, stacked, monitor)
+        world = world_size(group)
+        local = _decompress(comp, _compress_stacked(flat, layout, comp, monitor), True, monitor)
+        spectral = local.is_complex()
+        # buckets lead, so a rank's shard is a contiguous bucket range
+        planes = (torch.stack([local.real, local.imag], dim=1) if spectral
+                  else local[:, None, :])
+        del local
+        n_buckets = planes.shape[0]
+        pad = (-n_buckets) % world
+        if pad:
+            planes = torch.cat([planes, planes.new_zeros((pad,) + tuple(planes.shape[1:]))])
+        shard = _reduce_scatter_rows(planes.contiguous(), world, group)
+        del planes
+        # the shard is freed before the irfft allocates its rows
+        mean = (torch.complex(shard[:, 0], shard[:, 1]) if spectral else shard[:, 0]) \
+            * (1.0 / world)
+        del shard
+        rows = cfft.irfft_rows(mean, layout.chunk) if spectral else mean
+        del mean
+        return bucketing.unstack_buckets(_all_gather_rows(rows, world, group)[:n_buckets],
+                                         layout)
+
+
 _TRANSPORTS = {t.name: t for t in (AllGatherTransport(), SequencedTransport(),
-                                   SpectrumPsumTransport())}
+                                   SpectrumPsumTransport(), HierarchicalTransport(),
+                                   ReduceScatterTransport())}
 
 
 def get_transport(name: str) -> Transport:
+    """The transport of a concrete name; ``auto`` is resolved before a
+    transport is looked up (``scheduler.resolve_transport``)."""
     if name in _TRANSPORTS:
         return _TRANSPORTS[name]
-    if name in TRANSPORT_NAMES + ("auto",):
-        raise NotImplementedError(
-            f"transport {name!r} is not ported yet (ported: {PORTED_TRANSPORTS}); "
-            "see ROADMAP.md")
+    if name == "auto":
+        raise ValueError("transport 'auto' must be resolved first "
+                         "(scheduler.resolve_transport; build_train_step does)")
     raise ValueError(f"unknown transport {name!r}; expected one of {TRANSPORT_NAMES}")

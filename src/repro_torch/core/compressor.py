@@ -85,6 +85,17 @@ class FFTPayload:
         knows the compress-time checksums)."""
         return _validate_planes(self, level)
 
+    def to_bytes(self) -> bytes:
+        """A self-describing blob (``core.bytecodec``)."""
+        from repro_torch.core import bytecodec
+
+        return bytecodec.to_bytes(self)
+
+    @staticmethod
+    def from_bytes(blob: bytes, device) -> "FFTPayload":
+        """The payload of a blob of either package, on ``device``."""
+        return _from_bytes(blob, device, FFTPayload)
+
 
 @dataclasses.dataclass
 class StackedPayload:
@@ -117,6 +128,26 @@ class StackedPayload:
     def validate(self, level: str = "cheap") -> torch.Tensor:
         """See :meth:`FFTPayload.validate`."""
         return _validate_planes(self, level)
+
+    def to_bytes(self) -> bytes:
+        """A self-describing blob (``core.bytecodec``)."""
+        from repro_torch.core import bytecodec
+
+        return bytecodec.to_bytes(self)
+
+    @staticmethod
+    def from_bytes(blob: bytes, device) -> "StackedPayload":
+        """The payload of a blob of either package, on ``device``."""
+        return _from_bytes(blob, device, StackedPayload)
+
+
+def _from_bytes(blob: bytes, device, cls):
+    from repro_torch.core import bytecodec
+
+    payload = bytecodec.from_bytes(blob, device)
+    if not isinstance(payload, cls):
+        raise ValueError(f"blob holds a {type(payload).__name__}, not a {cls.__name__}")
+    return payload
 
 
 def _validate_planes(payload, level: str) -> torch.Tensor:

@@ -4,8 +4,14 @@ The default, ``--mode pjit``, is the dense baseline: AdamW on the mean
 gradient, no reducer and no theta schedule.  ``--mode compressed_dp`` is
 the paper's setting, with ``--reducer fft|timedomain|terngrad|qsgd|dense``
 over the ``allgather`` transport (the default: one monolithic payload),
-``sequenced`` (bucketed all_gather) or ``psum`` (one all_reduce of the
-dense spectra); ``--no-stacked`` runs the per-bucket loop instead of the
+``sequenced`` (bucketed all_gather), ``psum`` (one all_reduce of the dense
+spectra) or ``reduce_scatter`` (the dense spectra reduced bucket by bucket
+range, each worker inverting its own); ``--nodes N`` splits the workers
+into N islands, a ``("node", "local")`` mesh (``launch/mesh.py``), over
+which the exchange runs, ``--transport hierarchical`` (the island's dense
+mean on the fast link, one compressed payload an island over the fabric)
+needs it, and ``--transport auto`` lets the cost model choose ``psum`` or
+``hierarchical`` on its topology; ``--no-stacked`` runs the per-bucket loop instead of the
 batched executor, ``--theta-schedule constant|step|thm35`` sets theta
 step by step, ``--schedule streamed`` (with ``--stream-groups N``)
 dispatches the exchange one readiness group at a time and ``--schedule
@@ -23,11 +29,16 @@ and resumes from the newest checkpoint there:
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 GPU.  ``--n-layers`` cuts the depth at full width (a port-only flag).  Flags
-and values the port does not run yet (``--mode hierarchical``, the
-``hierarchical``, ``reduce_scatter`` and ``auto`` transports, ``--publish-*``,
-``--mesh``, ``--nodes``) raise with a pointer to ROADMAP.md.
-Under ``torchrun`` (or any launcher that sets the ``torch.distributed``
-environment) each process trains one worker of the data-parallel group.
+and values the port does not run (``--mode hierarchical``, ``--mesh
+production|multi_pod``, ``--publish-dir``) raise with a pointer to
+ROADMAP.md.  Under ``torchrun`` (or any launcher that sets the
+``torch.distributed`` environment) each process trains one worker of the
+data-parallel group; ``--calibrate`` with ``--nodes`` also fits each axis's
+link on its own:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --reduced --device cpu \\
+      --mode compressed_dp --nodes 2 --transport hierarchical --bucket-mb 0.25 \\
+      --error-feedback --steps 2
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from repro_torch import configs, device as device_mod
 from repro_torch.comms.reducers import ReducerConfig
 from repro_torch.core import schedules as theta_schedules
 from repro_torch.data import SyntheticConfig, SyntheticStream
+from repro_torch.launch.mesh import make_two_level_mesh
 from repro_torch.models import build
 from repro_torch.optim import OptConfig, lr_schedules
 from repro_torch.train import TrainLoopConfig, init_state, train_loop
@@ -104,13 +116,12 @@ def _parser() -> argparse.ArgumentParser:
 def _check_ported(ap, args) -> None:
     if args.mode == "hierarchical":
         _not_ported(ap, f"--mode {args.mode}")
-    if args.transport not in ("allgather", "sequenced", "psum"):
-        _not_ported(ap, f"--transport {args.transport}")
-    for flag, value in (("--publish-dir", args.publish_dir), ("--nodes", args.nodes)):
-        if value:
-            _not_ported(ap, flag)
+    if args.publish_dir:
+        _not_ported(ap, "--publish-dir")
     if args.mesh != "local":
         _not_ported(ap, f"--mesh {args.mesh}")
+    if args.transport == "hierarchical" and args.nodes is None:
+        ap.error("--transport hierarchical needs a two-level mesh: give --nodes")
 
 
 def _theta_schedule(args):
@@ -137,6 +148,11 @@ def main(argv=None):
     if dist.is_initialized() and dev.type == "cuda":
         dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
         torch.cuda.set_device(dev)
+    if args.nodes is not None:
+        try:
+            group = make_two_level_mesh(args.nodes)
+        except ValueError as e:
+            ap.error(f"--nodes {args.nodes}: {e}")
 
     cfg = configs.get_config(args.arch)
     if args.reduced:
@@ -164,13 +180,17 @@ def main(argv=None):
                        error_feedback=reducer is not None and reducer.error_feedback)
     calibration = None
     if args.calibrate and args.mode != "pjit":
-        step_cfg, calibration = _calibrate(args, step_cfg, model, stream, dev)
+        step_cfg, calibration = _calibrate(args, step_cfg, model, stream, dev, group)
     loop_cfg = TrainLoopConfig(
         total_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         log_every=max(1, args.steps // 20), theta_schedule=_theta_schedule(args),
         lr_schedule=lr_schedules.warmup_cosine(max(2, args.steps // 10), args.steps))
     result = train_loop(model, opt_cfg, step_cfg, state, stream, loop_cfg, group=group)
     result["calibration"] = calibration
+    if reducer is not None and reducer.transport == "auto":
+        decision = result["transport_decision"]
+        print(f"[transport] auto -> {result['reducer_config'].transport} "
+              f"{decision.to_dict() if decision else '(no two-level topology to price)'}")
     if result["schedule_decision"] is not None:
         print(f"[schedule] {result['schedule_decision'].to_dict()}")
     for row in result["history"]:
@@ -178,23 +198,29 @@ def main(argv=None):
     return result
 
 
-def _calibrate(args, step_cfg, model, stream, dev):
+def _calibrate(args, step_cfg, model, stream, dev, group):
     """``--calibrate``: load the artifact at ``--calibration-path`` when it
-    exists (key-checked against this card, group, model and torch), else
-    run the profiling pass over the process group (a one-rank group of its
-    own when none is initialized) and write it there (or to a temporary
-    file).  Returns the step config that loads it and ``{"path",
-    "profiled", "profile"}``."""
+    exists (key-checked against this card, group, topology, model and
+    torch), else run the profiling pass over the process group (a one-rank
+    group of its own when none is initialized; with ``--nodes``, over the
+    two-level mesh, whose axes are also swept one by one) and write it
+    there (or to a temporary file).  Returns the step config that loads it
+    and ``{"path", "profiled", "profile"}``."""
     import tempfile
 
     from repro_torch.comms import calibrate as cal
 
     path = args.calibration_path
     if path is not None and os.path.exists(path):
-        profile, profiled = cal.load_profile_for(path, model=model, device=dev), False
+        profile = cal.load_profile_for(path, model=model, group=group, device=dev)
+        profiled = False
     else:
+        live = dist.is_initialized()
         with cal.process_group(dev):
-            profile = cal.calibrate(model=model, batch=stream.batch_at(0),
+            # a mesh built before the pass's own one-rank group has no groups
+            # to sweep: build its twin inside it
+            cal_group = group if live or args.nodes is None else make_two_level_mesh(args.nodes)
+            profile = cal.calibrate(cal_group, model=model, batch=stream.batch_at(0),
                                     reducer=step_cfg.reducer, device=dev)
         profiled = True
         if path is None:
@@ -202,7 +228,8 @@ def _calibrate(args, step_cfg, model, stream, dev):
             os.close(fd)
         profile.save(path)
     for fit in profile.fits:
-        print(f"[calibrate] {fit.family}: alpha={fit.alpha_s * 1e6:.1f} us  "
+        print(f"[calibrate] {fit.family}{'' if fit.axis is None else ' over ' + fit.axis}: "
+              f"alpha={fit.alpha_s * 1e6:.1f} us  "
               f"1/beta={fit.t_comm / 1e9:.2f} GB/s")
     print(f"[calibrate] {'profiled' if profiled else 'loaded'}: throughputs "
           f"{dataclasses.asdict(profile.throughputs)}, backprop "

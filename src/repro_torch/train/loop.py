@@ -28,7 +28,10 @@ ladder.
   kernel behind the plain versions.
 
 Each step takes the stream's batch (this worker's rows of it when a process
-group is initialized).  With ``theta_schedule`` each step's theta is
+group is initialized).  ``group=`` is a group or a ``launch.mesh.Mesh``: the
+step and its rebuilds after a rung get the mesh (a rung down to ``psum``
+exchanges over its ``flat`` group); the batch shards, checkpoints and
+restores use the ``flat`` group.  With ``theta_schedule`` each step's theta is
 snapped through ``core.schedules.quantize_theta``, with one step function
 per quantized theta.  ``lr_schedule`` is accepted and ignored: the
 reference loop computes it but its step takes no LR multiplier, so the
@@ -49,6 +52,7 @@ from repro_torch.comms import reducers
 from repro_torch.core.schedules import quantize_theta
 from repro_torch.dist_util import rank_and_world
 from repro_torch.kernels.build import KernelError
+from repro_torch.launch.mesh import Mesh
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.step import StepConfig, build_train_step
 
@@ -90,9 +94,14 @@ def _recoverable(e: BaseException) -> bool:
 def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
                loop_cfg: TrainLoopConfig, *, group=None) -> Dict:
     """Runs the loop; returns ``{"state", "history", "health",
-    "schedule_decision"}`` (the last: the ``ScheduleDecision`` of
-    ``schedule='auto'``, else None).  Every history row carries the step's
+    "schedule_decision", "transport_decision", "reducer_config"}`` (the
+    last three of the first step built: the decisions of ``schedule='auto'``
+    and ``transport='auto'``, else None, and the resolved ``ReducerConfig``
+    it ran, None in ``pjit`` mode).  Every history row carries the step's
     theta and its wall time ``dt`` (synchronized on the card)."""
+    mesh = group
+    if isinstance(group, Mesh):
+        group = group.flat
     manager = (ckpt.CheckpointManager(loop_cfg.ckpt_dir, loop_cfg.ckpt_every,
                                       loop_cfg.ckpt_keep, group=group)
                if loop_cfg.ckpt_dir else None)
@@ -106,20 +115,19 @@ def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
     batch_tokens = stream.batch_at(0)["tokens"].numel()
     live_cfg = step_cfg
     step_fns: Dict[float, Callable] = {}
-    decision = None  # the first step's schedule decision, when 'auto' ran
+    first: List[Callable] = []  # the first step function built
 
     def get_step_fn(theta: Optional[float]) -> Callable:
-        nonlocal decision
         key = -1.0 if theta is None else theta
         if key not in step_fns:
             cfg = live_cfg
             if theta is not None and live_cfg.reducer is not None:
                 cfg = dataclasses.replace(
                     live_cfg, reducer=dataclasses.replace(live_cfg.reducer, theta=theta))
-            step_fns[key] = build_train_step(model, opt_cfg, cfg, group=group,
+            step_fns[key] = build_train_step(model, opt_cfg, cfg, group=mesh,
                                              batch_tokens=batch_tokens)
-            if decision is None:
-                decision = getattr(step_fns[key], "schedule_decision", None)
+            if not first:
+                first.append(step_fns[key])
         return step_fns[key]
 
     def degrade(at_step: int, reason: str) -> bool:
@@ -208,4 +216,5 @@ def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
     if manager is not None:
         ckpt.wait()
     return {"state": state, "history": history, "health": health.to_dict(),
-            "schedule_decision": decision}
+            **{key: getattr(first[0], key, None) if first else None
+               for key in ("schedule_decision", "transport_decision", "reducer_config")}}

@@ -3,7 +3,9 @@
 
 Workers are the ranks of a ``torch.distributed`` process group when one is
 initialized (each computes its own batch shard's gradient), else the single
-process.
+process.  ``group=`` is a group or a ``launch.mesh.Mesh``: over a mesh the
+guard's MIN all_reduce, the metrics' mean and the dense baseline's mean run
+over its ``flat`` group, and the reducer exchanges over the mesh's hops.
 
 * ``pjit`` -- the dense baseline: loss and gradient (autograd), the mean
   gradient over the workers (one SUM all_reduce divided by the world size,
@@ -29,16 +31,22 @@ pass, the exchange and its kernels, the guard's collective -- runs before
 ``apply_updates`` touches a parameter: a step that raises leaves the state
 as it found it, so the loop's retry in place starts from a clean state.
 
-``compressed_dp`` also carries the reference's schedule policy and fault
-hooks.  ``schedule='auto'`` is resolved once, when the step is built
-(``scheduler.resolve_schedule`` with the model's parameter count, the
-batch's tokens, the group's size and, when ``StepConfig.calibration_path``
-names one, the measured ``calibrate.CostProfile``), and the step exposes
-the decision as ``.schedule_decision`` (None unless ``auto`` ran) and the
-config it runs as ``.reducer_config``.  A ``NanGrad`` event of the
+``compressed_dp`` also carries the reference's transport and schedule
+policies and fault hooks.  ``transport='auto'`` and ``schedule='auto'`` are
+resolved once, when the step is built (``scheduler.resolve_transport`` on
+the mesh's ``(nodes, local)`` topology, then ``scheduler.resolve_schedule``
+with the model's parameter count, the batch's tokens, the exchange's worker
+count and topology and, when ``StepConfig.calibration_path`` names one, the
+measured ``calibrate.CostProfile``); the step exposes the decisions as
+``.transport_decision`` and ``.schedule_decision`` (None unless that
+``auto`` was priced) and the config it runs as ``.reducer_config``.  The
+``hierarchical`` kind exchanges over the mesh's ``node`` group, so it is
+priced on ``nodes`` workers and no topology.  A ``NanGrad`` event of the
 reducer's ``FaultPlan`` poisons this worker's whole gradient at its
-(step, rank); a resilient reducer's payload verdict joins the guard's flag
-before the MIN all_reduce, so a corrupted payload anywhere skips the step
+(step, worker), the worker in the plan's coordinate
+(``reducers.fault_worker``: the rank, but for the ``hierarchical`` kind);
+a resilient reducer's payload verdict joins the guard's flag before the MIN
+all_reduce, so a corrupted payload anywhere skips the step
 everywhere.
 """
 
@@ -52,8 +60,9 @@ import torch.distributed as dist
 
 from repro_torch.comms import faults as faults_mod
 from repro_torch.comms import scheduler
-from repro_torch.comms.reducers import ReducerConfig, dense_mean, make_reducer
-from repro_torch.dist_util import rank_and_world, world_size
+from repro_torch.comms.reducers import ReducerConfig, dense_mean, fault_worker, make_reducer
+from repro_torch.dist_util import world_size
+from repro_torch.launch.mesh import Mesh
 from repro_torch.optim import OptConfig, apply_updates, clip_by_global_norm
 
 __all__ = ["StepConfig", "build_train_step"]
@@ -105,11 +114,23 @@ def _worker_mean_metrics(metrics, group, world: int):
     return out
 
 
+def _exchange_shape(reducer_cfg: ReducerConfig, group, world: int):
+    """(workers, topology) the exchange is priced on: the ``hierarchical``
+    kind's exchange runs over the mesh's ``node`` group; every other over
+    all the workers, on a two-level mesh's ``(nodes, local)``."""
+    if not isinstance(group, Mesh):
+        return world, None
+    if reducer_cfg.kind == "hierarchical":
+        return group.sizes[0], None
+    return world, group.topology
+
+
 def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=None,
                      batch_tokens: Optional[int] = None) -> Callable:
     """Returns ``step(state, batch, lr_scale=1.0) -> metrics`` (host floats),
     which updates ``state`` in place.  ``batch_tokens`` (the global batch's
-    tokens a step) prices ``schedule='auto'``."""
+    tokens a step) prices ``schedule='auto'``; ``group`` is a group or a
+    ``launch.mesh.Mesh``."""
     if step_cfg.mode == "pjit":
         return _pjit_step(model, opt_cfg, step_cfg, group)
     if step_cfg.mode != "compressed_dp":
@@ -118,7 +139,8 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=N
             "see ROADMAP.md")
     if step_cfg.reducer is None:
         raise ValueError("compressed_dp needs a ReducerConfig")
-    rank, world = rank_and_world(group)
+    flat_group = group.flat if isinstance(group, Mesh) else group
+    world = world_size(flat_group)
     reducer_cfg = step_cfg.reducer
     profile = None
     if step_cfg.calibration_path is not None:
@@ -126,13 +148,20 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=N
 
         profile = calibrate.load_profile_for(step_cfg.calibration_path, model=model,
                                              group=group)
-    decision = None
+    workers, topology = _exchange_shape(reducer_cfg, group, world)
+    n_params = sum(p.numel() for p in model.leaves().values())
+    transport_decision = decision = None
+    if reducer_cfg.transport == "auto":
+        resolved, transport_decision = scheduler.resolve_transport(
+            reducer_cfg, n_params, topology=topology, profile=profile)
+        reducer_cfg = dataclasses.replace(reducer_cfg, transport=resolved)
     if reducer_cfg.schedule == "auto":
-        n_params = sum(p.numel() for p in model.leaves().values())
         resolved, decision = scheduler.resolve_schedule(
-            reducer_cfg, n_params, batch_tokens, workers=world, profile=profile)
+            reducer_cfg, n_params, batch_tokens, workers=workers, profile=profile,
+            topology=topology)
         reducer_cfg = dataclasses.replace(reducer_cfg, schedule=resolved)
     reducer = make_reducer(reducer_cfg, group=group)
+    worker = fault_worker(reducer_cfg, group)
     ef = reducer_cfg.error_feedback
     resilient = reducer_cfg.resilient
     nan_events = reducer_cfg.faults.nan_events if reducer_cfg.faults is not None else ()
@@ -142,7 +171,7 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=N
         step_no = state["step"]
         metrics, grads = _loss_and_grads(model, params, batch)
         with torch.no_grad():
-            if nan_events and faults_mod.match_events(nan_events, step_no, rank):
+            if nan_events and faults_mod.match_events(nan_events, step_no, worker):
                 grads = {k: torch.full_like(g, float("nan")) for k, g in grads.items()}
             extra = {"step": step_no} if resilient else {}
             if ef:
@@ -161,9 +190,9 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=N
             del grads
             if world > 1:
                 flags = ok.to(torch.int32)
-                dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=group)
+                dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=flat_group)
                 ok = flags > 0
-            metrics = _worker_mean_metrics(metrics, group, world)
+            metrics = _worker_mean_metrics(metrics, flat_group, world)
             clipped, gnorm = clip_by_global_norm(reduced, step_cfg.clip_norm)
             del reduced
             keep = bool(ok)
@@ -179,11 +208,14 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=N
 
     step.reducer_config = reducer_cfg
     step.schedule_decision = decision
+    step.transport_decision = transport_decision
     return step
 
 
 def _pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, group) -> Callable:
     """The dense baseline: mean gradient, clip, optimizer."""
+    if isinstance(group, Mesh):
+        group = group.flat
     world = world_size(group)
 
     def step(state, batch, lr_scale: float = 1.0) -> Dict[str, float]:

@@ -70,8 +70,55 @@ def test_artifacts_roundtrip_and_keys(tmp_path):
     assert tcal.UNCALIBRATED.throughputs == tcm.H100
     assert tcal.UNCALIBRATED.t_comm("sequenced") == tcm.NETWORKS[tcm.DEFAULT_NETWORK]
     assert tcal.collective_family("psum") == "psum"
+    # the two-level transports price by hop, as the reference's
+    for transport in ("hierarchical", "reduce_scatter"):
+        assert tcal.collective_family(transport) == jcal.collective_family(transport)
     with pytest.raises(ValueError):
-        tcal.collective_family("reduce_scatter")
+        tcal.collective_family("auto")
+
+
+def _two_level_profile(nodes, local):
+    return tcal.CostProfile(
+        key=tcal.ProfileKey("cpu", "cpu", nodes * local, "none", tcal.torch.__version__,
+                            mesh=(("node", nodes), ("local", local)), axes=("node", "local")),
+        fits=(tcal.LinkFit("gather", 2e-5, 1e-10, 4), tcal.LinkFit("psum", 3e-5, 2e-10, 4),
+              tcal.LinkFit("gather", 9e-5, 1e-9, 4, axis="node"),
+              tcal.LinkFit("psum", 1e-6, 1e-12, 4, axis="local")),
+        throughputs=tcm.Throughputs(1e9, 2e9, 3e9, 4e9), backprop_flops_per_s=5e12)
+
+
+def test_per_axis_profiles_roundtrip_and_keep_their_topology(tmp_path):
+    """Per-axis fits round-trip and price their hop (the base fit where an
+    axis has none); a (2, 2) calibration raises on a (4, 1) mesh and a
+    version-1 artifact raises."""
+    from repro_torch.launch.mesh import Mesh
+
+    path = str(tmp_path / "two.json")
+    prof = _two_level_profile(2, 2)
+    prof.save(path)
+    assert tcal.CostProfile.load(path) == prof
+    assert prof.t_comm("hierarchical", axis="node") == 1 / 1e-9
+    assert prof.alpha_s("psum", axis="local") == 1e-6
+    assert prof.alpha_s("psum", axis="node") == 3e-5  # no per-axis psum fit on node
+    assert prof.t_comm("psum") == 1 / 2e-10
+    plan = tcm.two_level_exchange_time_s(4e6, 1e6, nodes=2, local=2, profile=prof)
+    assert plan.inter_s == plan.wire.inter_bits_per_node / 8.0 / (1 / 1e-9)
+    mesh = Mesh(("node", "local"), (2, 2), (0, 0), (None, None))
+    assert tcal.profile_key(group=mesh, device="cpu") == prof.key
+    with pytest.raises(tcal.ProfileKeyMismatch):  # its workers are 4, its mesh (2, 2)
+        tcal.load_profile_for(path, group=Mesh(("node", "local"), (4, 1), (0, 0),
+                                               (None, None)), device="cpu")
+    _two_level_profile(4, 1).save(path)
+    with pytest.raises(tcal.ProfileKeyMismatch):
+        tcal.CostProfile.load(path, expect=prof.key)
+    d = prof.to_dict()
+    d["version"] = "repro_torch/1"
+    json.dump(d, open(path, "w"))
+    with pytest.raises(tcal.ProfileKeyMismatch, match="version"):
+        tcal.CostProfile.load(path)
+    with pytest.raises(ValueError, match="duplicate"):
+        tcal.CostProfile(key=prof.key, fits=prof.fits + prof.fits[-1:],
+                         throughputs=prof.throughputs, backprop_flops_per_s=1.0)
 
 
 def test_reference_artifact_raises_profile_key_mismatch(tmp_path):

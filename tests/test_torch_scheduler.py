@@ -129,23 +129,111 @@ def test_cost_model_defaults_hold_no_tpu_figure():
     assert tcm.DEFAULT_NETWORK in tcm.NETWORKS
     assert tcm.H100 != jcm.TPU_V5E and tcm.BACKPROP_FLOPS_PER_S != jcm.BACKPROP_FLOPS_PER_S
     assert not hasattr(tcm, "TPU_V5E")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the two-level defaults are an H100 SXM's NVLink and a 400 Gb/s fabric
+    assert tcm.NVLINK_NETWORK in tcm.NETWORKS and tcm.FABRIC_NETWORK in tcm.NETWORKS
+    plan = tcm.two_level_exchange_time_s(4e6, 1e6, nodes=2, local=4)
+    ref = jcm.two_level_exchange_time_s(4e6, 1e6, nodes=2, local=4, thr=tcm.H100,
+                                        t_comm_intra=tcm.NETWORKS[tcm.NVLINK_NETWORK],
+                                        t_comm_inter=tcm.NETWORKS[tcm.FABRIC_NETWORK])
+    assert dataclasses.asdict(plan) == dataclasses.asdict(ref)
+    assert plan.exchange_s != jcm.two_level_exchange_time_s(4e6, 1e6, nodes=2,
+                                                            local=4).exchange_s
+    with pytest.raises(ValueError, match="topology"):
         tcm.transport_wire_bits("hierarchical", 1e6, 4)
 
 
-def _profiles(alpha=3e-5, beta=1 / 9e9, backprop=2e14, gather_alpha=None):
-    """The same measured numbers as a reference and a port CostProfile."""
+def test_two_level_pricing_equals_reference():
+    """Given the same explicit link rates and throughputs, every two-level
+    pricing function returns the reference's floats."""
+    tthr, jthr = tcm.Throughputs(**THR), jcm.Throughputs(**THR)
+    for nodes, local in ((1, 1), (1, 4), (2, 1), (2, 2), (2, 4), (8, 8)):
+        for mode in ("modeled", "runtime"):
+            kw = dict(mode=mode, n_elems=10 ** 6 + 3, chunk=4096)
+            assert (dataclasses.asdict(tcm.two_level_wire_bits(2e5, nodes, local, **kw))
+                    == dataclasses.asdict(jcm.two_level_wire_bits(2e5, nodes, local, **kw)))
+            workers = nodes * local
+            for transport in ("hierarchical", "reduce_scatter"):
+                kw2 = dict(kw, topology=(nodes, local))
+                assert (tcm.transport_wire_bits(transport, 2e5, workers, **kw2)
+                        == jcm.transport_wire_bits(transport, 2e5, workers, **kw2))
+                for stacked in (True, False):
+                    kw3 = dict(workers=workers, transport=transport, n_buckets=4,
+                               stacked=stacked, alpha_s=2e-5, wire_mode=mode,
+                               topology=(nodes, local))
+                    assert (dataclasses.asdict(tcm.exchange_time_s(4e6, 1e6, 6e9, tthr, **kw3))
+                            == dataclasses.asdict(jcm.exchange_time_s(4e6, 1e6, 6e9, jthr,
+                                                                      **kw3)))
+                kw4 = dict(workers=workers, transport=transport, alpha_s=2e-5,
+                           group_fractions=(0.5, 0.5), backprop_s=1e-3, wire_mode=mode,
+                           topology=(nodes, local))
+                assert (dataclasses.asdict(tcm.streamed_exchange_time_s(4e6, 1e6, 6e9, tthr,
+                                                                        **kw4))
+                        == dataclasses.asdict(jcm.streamed_exchange_time_s(4e6, 1e6, 6e9,
+                                                                           jthr, **kw4)))
+            kw5 = dict(nodes=nodes, local=local, t_comm_intra=4e11, t_comm_inter=1.2e10,
+                       alpha_intra_s=5e-6, alpha_inter_s=3e-5, wire_mode=mode)
+            assert (dataclasses.asdict(tcm.two_level_exchange_time_s(4e6, 1e6, thr=tthr, **kw5))
+                    == dataclasses.asdict(jcm.two_level_exchange_time_s(4e6, 1e6, thr=jthr,
+                                                                        **kw5)))
+    with pytest.raises(ValueError, match="multiply"):
+        tcm.transport_wire_bits("hierarchical", 1e6, 4, topology=(2, 3))
+
+
+def _profiles(alpha=3e-5, beta=1 / 9e9, backprop=2e14, gather_alpha=None, per_axis=()):
+    """The same measured numbers as a reference and a port CostProfile;
+    ``per_axis`` holds (family, alpha, beta, axis) fits of a two-level
+    calibration."""
+    def fits(cal):
+        return ((cal.LinkFit("gather", gather_alpha or alpha, beta),
+                 cal.LinkFit("psum", alpha, beta))
+                + tuple(cal.LinkFit(f, a, b, axis=ax) for f, a, b, ax in per_axis))
+
     j = jcal.CostProfile(
-        key=jcal.ProfileKey("gpu", (("data", 2),), "none", "any"),
-        fits=(jcal.LinkFit("gather", gather_alpha or alpha, beta),
-              jcal.LinkFit("psum", alpha, beta)),
+        key=jcal.ProfileKey("gpu", (("data", 2),), "none", "any"), fits=fits(jcal),
         throughputs=jcm.Throughputs(**THR), backprop_flops_per_s=backprop)
     t = tcal.CostProfile(
-        key=tcal.ProfileKey("cuda", "card", 2, "none", "any"),
-        fits=(tcal.LinkFit("gather", gather_alpha or alpha, beta),
-              tcal.LinkFit("psum", alpha, beta)),
+        key=tcal.ProfileKey("cuda", "card", 2, "none", "any"), fits=fits(tcal),
         throughputs=tcm.Throughputs(**THR), backprop_flops_per_s=backprop)
     return j, t
+
+
+PER_AXIS = (("psum", 4e-6, 1 / 3e11, "local"), ("gather", 5e-6, 1 / 3e11, "local"),
+            ("psum", 4e-5, 1 / 1e10, "node"), ("gather", 5e-5, 1 / 1e10, "node"))
+
+
+@pytest.mark.parametrize("per_axis", [(), PER_AXIS])
+@pytest.mark.parametrize("beta", [1 / 1e9, 1 / 4e10, 1 / 4e11])
+def test_choose_transport_decides_as_reference(per_axis, beta):
+    """A sweep of (nodes, local) topologies and payloads: the same decision
+    and the same numbers as the reference, given the same profile."""
+    jprof, tprof = _profiles(beta=beta, per_axis=per_axis)
+    verdicts = set()
+    for nodes, local in ((2, 2), (2, 8), (4, 4), (16, 8), (64, 2)):
+        for n_elems, payload in ((10 ** 6, 2e6), (10 ** 8, 1e8), (10 ** 9, 3e8)):
+            kw = dict(nodes=nodes, local=local, n_buckets=3, chunk=4096)
+            td = tsch.choose_transport(n_elems, payload, profile=tprof, **kw)
+            jd = jsch.choose_transport(n_elems, payload, profile=jprof, **kw)
+            assert td.to_dict() == jd.to_dict()
+            verdicts.add(td.transport)
+        red = dict(kind="fft", transport="auto", bucket_bytes=4 * 4096 * 4)
+        got = tsch.resolve_transport(TRC(**red), 40 * 4096 + 7, topology=(nodes, local),
+                                     profile=tprof)
+        want = jsch.resolve_transport(JRC(**red), 40 * 4096 + 7, topology=(nodes, local),
+                                      profile=jprof)
+        assert got[0] == want[0] and got[1].to_dict() == want[1].to_dict()
+    assert verdicts  # the sweep reached a verdict
+
+
+def test_resolve_transport_degenerate_topologies_resolve_to_psum():
+    red = dict(kind="fft", transport="auto", bucket_bytes=4 * 4096 * 4)
+    for topology in (None, (1, 1), (1, 8), (8, 1)):
+        assert tsch.resolve_transport(TRC(**red), 10 ** 6, topology=topology) == ("psum", None)
+    assert tsch.resolve_transport(TRC(kind="dense", transport="auto"), 10 ** 6,
+                                  topology=(2, 2)) == ("psum", None)
+    assert tsch.resolve_transport(TRC(**dict(red, transport="reduce_scatter")), 10 ** 6,
+                                  topology=(2, 2)) == ("reduce_scatter", None)
+    name, decision = tsch.resolve_transport(TRC(**red), 10 ** 8, topology=(2, 4))
+    assert name == decision.transport and decision.nodes == 2 and decision.local == 4
 
 
 @pytest.mark.parametrize("transport", ["sequenced", "psum"])

@@ -193,11 +193,16 @@ def test_reducer_config_refuses_unported_paths(capsys):
     from repro_torch.comms.reducers import make_reducer
     from repro_torch.launch import train
 
-    for transport in ("hierarchical", "reduce_scatter"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_reducer(dataclasses.replace(TRC(kind="fft"), transport=transport))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the two-level paths are ported; what they refuse is a flat group, an
+    # unresolved transport, and the hierarchical kind off a two-level mesh
+    reduce = make_reducer(dataclasses.replace(TRC(kind="fft"), transport="hierarchical"))
+    with pytest.raises(ValueError, match="node_group, local_group"):
+        reduce({"w": torch.zeros(4096)})
+    with pytest.raises(ValueError, match="resolved transport"):
+        make_reducer(dataclasses.replace(TRC(kind="fft"), transport="auto"))
+    with pytest.raises(ValueError, match="two-level mesh"):
         make_reducer(TRC(kind="hierarchical"))
+    # what stays unported: --mode hierarchical (FSDP inside a pod)
     tmodel = LM(configs.get_config("gemma2_2b").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_build(tmodel, TOpt(), TStep(mode="hierarchical", reducer=TRC(kind="fft")))

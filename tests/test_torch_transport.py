@@ -191,8 +191,11 @@ def test_allgather_roundtrip_is_one_monolithic_payload():
     for layout in (tb.build_layout(N, None), tb.build_layout(N, 4096 * 4)):
         assert torch.equal(ag.run(flat, comp=comp, layout=layout, local=True), want)
         assert torch.equal(ag.run(flat, comp=comp, layout=layout), want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.get_transport("hierarchical")
+    # every transport is ported; 'auto' is resolved before a lookup
+    assert [tt.get_transport(name).name for name in tt.TRANSPORT_NAMES] == list(
+        tt.TRANSPORT_NAMES)
+    with pytest.raises(ValueError, match="resolved first"):
+        tt.get_transport("auto")
 
 
 @pytest.mark.parametrize("flags", [["--transport", "allgather"],
