@@ -82,7 +82,27 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    checkpoint, bitwise an uninterrupted run; then 8 steps with a gradient
    poisoned at every step from 1, where the ladder takes exactly one rung,
    ``kind:fft->dense`` (on the card it never trades the kernels for their
-   plain versions).
+   plain versions);
+12. serving at gemma2_2b's full width and full depth (26 layers, ~2.61 B
+   parameters), through ``launch.serve``: ``serve``, batch 8 x prompt 512
+   + 32 greedy tokens, and ``serve-long``, batch 2 x prompt 4608 + 64,
+   past the 4096 window, so the 13 local layers' caches are rings; each
+   prints prefill ms, decode ms a step, tokens/s and the peak, gives equal
+   tokens on a second run, and holds ``decode_step``'s logits along the
+   generated tokens to one ``forward`` over them (``SERVE_LOGITS_REL``);
+13. ``train-publish``: the ``train`` phase's flags for 5 steps with
+   ``--publish-dir`` (a theta-0 delta every step, a snapshot every 2, 2
+   buffered): B4 and B2 launch once a publish beside the step's own; then,
+   the trainer freed, ``serve-follow``: ``launch.serve --follow`` loads the
+   v4 snapshot and folds v5, and its weights must be bitwise the
+   publisher's mirror and within ``STALENESS`` of the last delta from the
+   trainer's; bytes a delta against ``publish_wire_account``, write and
+   sync times and the disk's usage are printed, and the ring deleted;
+14. ``serve-publish-api``: the catch-up ladder through the API at 4 layers,
+   a dense trainer publishing at theta 0.7: a subscriber syncs once over
+   3 deltas with a local rebase and one decompress, and once after the
+   ring wrapped past it (the snapshot, then a delta), bitwise the mirror
+   each time; B4 and B2 launch once a publish and nothing else launches.
 
 Every training phase fails on a skipped step or a ladder transition it did
 not plan.
@@ -1378,6 +1398,281 @@ def chaos_phase(dev, kernels, fused) -> None:
                 transitions=("kind:fft->dense",))
 
 
+# the serving phases: gemma2_2b at its full 26 layers, batch x prompt + new
+SERVE_SHAPES = {"serve": (8, 512, 32), "serve-long": (2, 4608, 64)}
+SERVE_LAYERS = 26
+# decode_step's logits against one forward over the same tokens (relative L2
+# over every compared position): both run bf16 matmuls, but a one-token
+# product rounds and accumulates otherwise than a whole sequence's, through
+# 26 layers; the model tests' gradient tolerance
+SERVE_LOGITS_REL = 5e-2
+# train-publish's ring: a delta every step, a snapshot every 2 deltas, 2
+# buffered
+PUBLISH_ARGS = ["--publish-every", "1", "--publish-snapshot-every", "2",
+                "--publish-capacity", "2"]
+PUBLISH_STEPS = 5
+# a replica's distance from the trainer's final weights, over the norm of
+# the ring's last delta: that delta's codec error (8-bit codes with 3
+# mantissa bits round a kept value by at most 2^-4 of itself)
+STALENESS = 0.1
+
+
+def serve_phase(dev, counted, label: str) -> None:
+    """``launch.serve`` standalone at gemma2_2b's full width and depth (26
+    layers, ~2.61 B parameters): batch x prompt, then the new tokens
+    greedily; the tokens again through ``Engine`` (equal); then
+    ``decode_step``'s logits along the generated sequence, teacher-forced,
+    against one ``forward`` over it (``SERVE_LOGITS_REL``).  No kernel
+    launches.  With a prompt past the 4096 window, the 13 local layers'
+    caches are rings and the global layers' are not."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import Engine, ServeConfig
+
+    batch, prompt, new = SERVE_SHAPES[label]
+    for kern in counted:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = serve_cli.main(["--arch", "gemma2_2b", "--batch", str(batch), "--prompt-len",
+                             str(prompt), "--new-tokens", str(new)])
+    wall = time.perf_counter() - t0
+    model, cfg, tokens, prompts = (result[k] for k in ("model", "config", "tokens", "prompts"))
+    tm = result["timings"]
+    del result
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {kern.name: kern.launches for kern in counted}
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched kernels: {launches}")
+    if cfg.n_layers != SERVE_LAYERS:
+        raise AssertionError(f"{label} served {cfg.n_layers} layers, not {SERVE_LAYERS}")
+    params = sum(p.numel() for p in model.parameters())
+    max_seq = prompt + new + 8
+    warm = {}  # the second run's times: the first's include the card's first launches
+    again = Engine(model, ServeConfig(max_seq=max_seq, batch=batch)).generate(
+        prompts, new, timings=warm)
+    if not torch.equal(again, tokens):
+        raise AssertionError(f"{label}: a second run gave other tokens")
+    if tuple(tokens.shape) != (batch, prompt + new) or not torch.equal(tokens[:, :prompt],
+                                                                      prompts):
+        raise AssertionError(f"{label}: tokens of shape {tuple(tokens.shape)}")
+    # decode_step's logits, teacher-forced along the generated tokens
+    logits, caches = model.prefill(tokens[:, :prompt], max_seq=max_seq, last_only=True)
+    rings = {key: (c.ring, c.k.shape[2]) for key, c in caches.items()}
+    want_rings = {key: (("local" in key) and max_seq > cfg.sliding_window,
+                        min(max_seq, cfg.sliding_window) if "local" in key else max_seq)
+                  for key in caches}
+    if rings != want_rings:
+        raise AssertionError(f"{label}: caches {rings}, expected {want_rings}")
+    stepped = [logits[:, 0]]
+    for i in range(new - 1):
+        logits, caches = model.decode_step(caches, tokens[:, prompt + i:prompt + i + 1],
+                                           prompt + i)
+        stepped.append(logits[:, 0])
+    del caches
+    stepped = torch.stack(stepped, dim=1)
+    with torch.no_grad():
+        hidden, _ = model(tokens[:, :prompt + new - 1], return_hidden=True)
+        full = model._logits(hidden[:, prompt - 1:])
+    del hidden
+    rel = float(torch.linalg.vector_norm(stepped - full) / torch.linalg.vector_norm(full))
+    max_abs = float((stepped - full).abs().max())
+    agree = float((stepped.argmax(-1) == full.argmax(-1)).float().mean())
+    if not math.isfinite(rel) or rel > SERVE_LOGITS_REL:
+        raise AssertionError(f"{label}: decode logits {rel:.3e} (relative L2) from forward's, "
+                             f"limit {SERVE_LOGITS_REL}")
+    steps = warm["decode_steps"]
+    decode_ms = warm["decode_s"] * 1e3 / steps
+    PHASE_MS[label] = decode_ms
+    log(f"[{label}] {params} parameters, batch {batch} x prompt {prompt} + {new} new, "
+        f"second run: prefill {warm['prefill_s'] * 1e3:.1f} ms, decode {decode_ms:.2f} ms a "
+        f"step, {batch * steps / warm['decode_s']:.1f} decoded tokens/s (first run: prefill "
+        f"{tm['prefill_s'] * 1e3:.1f} ms, decode {tm['decode_s'] * 1e3 / steps:.2f} ms a "
+        f"step); wall {wall:.1f}s, "
+        f"peak_memory={peak_gb:.2f} GB; two runs equal; decode vs forward over "
+        f"{stepped.shape[1]} positions: {rel:.3e} relative L2 (limit {SERVE_LOGITS_REL}), "
+        f"max abs {max_abs:.3e}, argmax agreement {agree:.4f}; caches (ring, slots) {rings}")
+    del model, stepped, full
+    torch.cuda.empty_cache()
+
+
+def _flat_host(leaves) -> torch.Tensor:
+    from repro_torch.comms.reducers import flatten_tree
+
+    with torch.no_grad():
+        return flatten_tree({k: v.detach() for k, v in leaves.items()})[0].cpu()
+
+
+def _last_delta_norm(sub) -> float:
+    """Norm of the subscriber's ring's newest delta, decoded on its own."""
+    from repro_torch.core.compressor import StackedPayload
+    from repro_torch.serve import SpectrumReplicaState
+
+    manifest = sub.reader.manifest()
+    state = SpectrumReplicaState(torch.zeros(sub.layout.total, device=sub.device), sub.layout,
+                                 sub.comp)
+    blob = sub.reader.read_delta(manifest, int(manifest["latest_version"]))
+    state.fold(StackedPayload.from_bytes(blob, sub.device))
+    return float(torch.linalg.vector_norm(state.materialize().double()))
+
+
+def _log_publishes(label: str, timings) -> None:
+    """One line a publish: ``WeightDeltaPublisher.timings``."""
+    for rec in timings:
+        log(f"[{label}] v{rec['version']}: {rec['bytes']} bytes, encode "
+            f"{rec['encode_s'] * 1e3:.1f} ms, write {rec['write_s'] * 1e3:.1f} ms, snapshot "
+            f"{rec['snapshot_s'] * 1e3:.1f} ms")
+
+
+def publish_phases(kernels, fused) -> None:
+    """The CLI end to end at full width, 4 layers.  ``train-publish``: the
+    ``train`` phase's flags, ``PUBLISH_STEPS`` steps, ``--publish-dir`` with
+    a delta every step at the default publish theta 0, a snapshot every 2
+    and 2 buffered; B4 and B2 launch once a publish beside the step's 2
+    each.  Then, with the trainer freed, ``serve-follow``: ``launch.serve
+    --follow`` loads the v4 snapshot and folds v5 (one decompress), and the
+    served weights must be bitwise the publisher's mirror and within
+    ``STALENESS`` of the last delta from the trainer's final weights."""
+    import shutil
+    import tempfile
+
+    from repro_torch.comms import cost_model
+    from repro_torch.launch import serve as serve_cli, train as train_cli
+
+    ring = tempfile.mkdtemp(prefix="chip-smoke-ring-")
+    disk0 = shutil.disk_usage(ring)
+    keep = {}
+
+    def run():
+        result = train_cli.main(TRAIN_ARGS + SEQUENCED + ["--steps", str(PUBLISH_STEPS),
+                                                          "--publish-dir", ring, *PUBLISH_ARGS])
+        pub = result["publisher"]
+        keep.update(true=_flat_host(result["state"]["model"].leaves()),
+                    mirror=pub.state.materialize().cpu(), version=pub.version,
+                    delta_bytes=pub.delta_bytes_total, snapshot_bytes=pub.snapshot_bytes_total,
+                    layout=pub.layout, timings=list(pub.timings),
+                    account=cost_model.publish_wire_account(
+                        pub.layout.total, pub.comp.wire_bits, pub.layout.sizes(),
+                        steps=PUBLISH_STEPS, publish_every=1, snapshot_every=2))
+        return result
+
+    try:
+        counts, _ = train_phase(run, kernels, "train-publish", fused)
+        disk1 = shutil.disk_usage(ring)
+        want = {"sampled_threshold": 3 * PUBLISH_STEPS, "fused_compress": 3 * PUBLISH_STEPS,
+                "fused_decompress": PUBLISH_STEPS}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"train-publish launched {counts}, expected {want} (the "
+                                 "steps' 2, 2, 1 and one B4 and B2 a publish)")
+        acct, layout = keep["account"], keep["layout"]
+        per_delta = keep["delta_bytes"] / keep["version"]
+        log(f"[train-publish] v{keep['version']}: {layout.n_buckets} buckets of "
+            f"{layout.max_chunks} chunks; {per_delta:.0f} bytes a delta "
+            f"(publish_wire_account: {acct.delta_bits / 8 / acct.n_publishes:.0f}), "
+            f"snapshots {keep['snapshot_bytes']} bytes ({acct.snapshot_bits / 8:.0f} "
+            f"modeled); disk used {disk0.used} -> {disk1.used} bytes, free {disk1.free}")
+        _log_publishes("train-publish", keep["timings"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        served = serve_cli.main(["--follow", ring])
+        wall = time.perf_counter() - t0
+        sub, model = served["subscriber"], served["model"]
+        if any(kern.launches for kern in kernels):
+            raise AssertionError("serve-follow launched a kernel")
+        weights = _flat_host(model.leaves())
+        if sub.version != keep["version"] or sub.state.decompress_count != 1:
+            raise AssertionError(f"serve-follow: v{sub.version}, "
+                                 f"{sub.state.decompress_count} decompress")
+        if not torch.equal(weights, keep["mirror"]):
+            raise AssertionError("serve-follow: the served weights differ from the mirror")
+        stale = float(torch.linalg.vector_norm((keep["true"] - weights).double()))
+        last = _last_delta_norm(sub)
+        if not stale <= STALENESS * last:
+            raise AssertionError(f"serve-follow: {stale:.3e} from the trainer, last delta "
+                                 f"{last:.3e}, limit {STALENESS} of it")
+        log(f"[serve-follow] v{sub.version}, decompress_count {sub.state.decompress_count}: "
+            f"follow and load {served['timings']['follow_s'] * 1e3:.1f} ms, wall {wall:.1f}s, "
+            f"peak_memory={torch.cuda.max_memory_allocated() / 1e9:.2f} GB; weights bitwise "
+            f"the mirror; {stale:.4e} from the trainer's (L2; last delta {last:.4e}, ratio "
+            f"{stale / last:.4e}, limit {STALENESS}; {stale / float(keep['true'].norm()):.3e} "
+            f"of the weights)")
+        del served, sub, model
+    finally:
+        shutil.rmtree(ring, ignore_errors=True)
+    log(f"[train-publish] ring deleted: disk used {shutil.disk_usage(tempfile.gettempdir()).used}")
+    torch.cuda.empty_cache()
+
+
+def publish_api_phase(dev, kernels) -> None:
+    """``serve-publish-api``: the catch-up ladder through the API at 4
+    layers.  A dense (``pjit``) trainer publishes every step at theta 0.7 on
+    the ``auto`` backend (B4 and B2 once a publish, nothing else launched),
+    a snapshot every 3 deltas, 3 buffered; a subscriber made at v0 syncs at
+    step 2 (v1..v3 replayed, a local rebase at v3, one decompress) and at
+    step 6 (the tail wrapped past v4: the v6 snapshot, then v7), bitwise
+    the mirror after each."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.serve import PublishConfig, ReplicaSubscriber, WeightDeltaPublisher
+    from repro_torch.train import TrainLoopConfig, init_state, train_loop
+    from repro_torch.train.step import StepConfig
+
+    ring = tempfile.mkdtemp(prefix="chip-smoke-ring-")
+    syncs = {}
+    try:
+        cfg = model_config()
+        model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        opt = OptConfig(kind="adamw", lr=3e-4)
+        stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                                 global_batch=BATCH, seed=0), device=dev)
+        state = init_state(model, opt)
+        pub = WeightDeltaPublisher(ring, model.leaves(), PublishConfig(
+            theta=KEEP_THETA, snapshot_every=3, capacity=3, backend="auto", selector="auto"))
+        sub = ReplicaSubscriber(ring)
+        publish = pub.hook()
+
+        def hook(step, st):
+            publish(step, st)
+            if step in (2, 6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stats = sub.sync()
+                torch.cuda.synchronize()
+                syncs[step] = (dataclasses.asdict(stats), time.perf_counter() - t0,
+                               torch.equal(sub.weights(), pub.state.materialize()))
+
+        train_phase(lambda: train_loop(model, opt, StepConfig(mode="pjit"), state, stream,
+                                       TrainLoopConfig(total_steps=7, log_every=1,
+                                                       publish_hook=hook)),
+                    kernels, "serve-publish-api", ("sampled_threshold", "fused_compress"))
+        launches = {kern.name: kern.launches for kern in kernels if kern.launches}
+        if launches != {"sampled_threshold": 7, "fused_compress": 7}:
+            raise AssertionError(f"serve-publish-api launched {launches}, expected B4 and B2 "
+                                 "once a publish")
+        _log_publishes("serve-publish-api", pub.timings)
+        want = ({"applied": 3, "rebases": 1, "decompress_count": 1, "gap_detected": False,
+                 "snapshot_loads": 0, "version": 3},
+                {"applied": 1, "rebases": 0, "decompress_count": 1, "gap_detected": True,
+                 "snapshot_loads": 1, "version": 7})
+        for (step, (stats, secs, bitwise)), expect in zip(sorted(syncs.items()), want):
+            log(f"[serve-publish-api] sync at step {step}: {stats}, {secs * 1e3:.1f} ms, "
+                f"bitwise the mirror: {bitwise}")
+            if {k: stats[k] for k in expect} != expect or not bitwise:
+                raise AssertionError(f"serve-publish-api: sync at step {step} gave {stats} "
+                                     f"(bitwise {bitwise}), expected {expect}")
+        del pub, sub, state, model
+    finally:
+        shutil.rmtree(ring, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=None,
@@ -1462,6 +1757,11 @@ def main() -> int:
         chaos_phase(dev, kernels, fused)
         torch.cuda.empty_cache()
         bytecodec_phase(dev)
+        torch.cuda.empty_cache()
+        for label in SERVE_SHAPES:
+            serve_phase(dev, kernels, label)
+        publish_phases(kernels, fused)
+        publish_api_phase(dev, kernels)
 
     if PHASE_MS:
         order = [k for k in ("train", "train-dense") if k in PHASE_MS]

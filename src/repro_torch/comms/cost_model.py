@@ -33,8 +33,14 @@ payload per island on the fabric.  :func:`two_level_exchange_time_s`
 prices each hop at its own link's alpha-beta (per-axis fits of a
 calibration over a two-level mesh, else ``NVLINK_NETWORK`` and
 ``FABRIC_NETWORK``: an H100 SXM's NVLink 4 and a 400 Gb/s InfiniBand port,
-figures from data sheets, not measurements).  The per-run and publish wire
-accounts are not ported yet (ROADMAP.md).
+figures from data sheets, not measurements).
+
+:func:`run_wire_account` prices a whole training run's exchange against the
+dense ring all-reduce; :func:`publish_wire_account` prices the serving
+publish path (``serve/publish.py``): one compressed ``StackedPayload`` a
+publish plus a dense snapshot a rebase point, against shipping a dense
+snapshot at the same cadence.  Both are payload bits only, no alpha-beta
+term.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ __all__ = ["Throughputs", "PAPER_V100", "H100", "compression_cost_s", "saved_com
            "WIRE_MODES", "dense_spectrum_bits", "dense_time_bits", "StreamedExchangePlan",
            "streamed_exchange_time_s", "dense_allreduce_bits", "TwoLevelWire",
            "two_level_wire_bits", "TwoLevelExchangePlan", "two_level_exchange_time_s",
-           "NVLINK_NETWORK", "FABRIC_NETWORK"]
+           "NVLINK_NETWORK", "FABRIC_NETWORK", "RunWireAccount", "run_wire_account",
+           "PublishWireAccount", "publish_wire_account"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -473,3 +480,93 @@ def two_level_exchange_time_s(message_bytes: float, payload_bits: float, *, node
                                 wire=wire, intra_s=intra_s, inter_s=inter_s, comp_s=comp_s,
                                 launch_s=launch_s,
                                 exchange_s=comp_s + intra_s + inter_s + launch_s)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunWireAccount:
+    """Total modeled wire traffic of one training run, per worker."""
+
+    transport: str
+    workers: int
+    steps: int
+    dense_bits: float  # dense baseline: one ring all-reduce per step
+    compressed_bits: float  # sum of per-step transport_wire_bits
+    savings: float  # dense_bits / compressed_bits (inf when compressed is 0)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def run_wire_account(n_elems: int, per_step_payload_bits, transport: str, workers: int,
+                     dtype_bits: int = 32,
+                     topology: Optional[Tuple[int, int]] = None) -> RunWireAccount:
+    """Price a whole run: per-step compressed payloads against the dense
+    baseline.  ``per_step_payload_bits[t]`` is the compressor's
+    ``wire_bits`` at step t's theta; a dense step (entry ``None``) is priced
+    as the ring all-reduce.  ``topology=(nodes, local)`` is required for the
+    hierarchical transport."""
+    steps = len(per_step_payload_bits)
+    dense_step = dense_allreduce_bits(n_elems, workers, dtype_bits)
+    dense_total = dense_step * steps
+    compressed_total = 0.0
+    for payload in per_step_payload_bits:
+        if payload is None:
+            compressed_total += dense_step
+        else:
+            compressed_total += transport_wire_bits(transport, payload, workers,
+                                                    topology=topology)
+    savings = dense_total / compressed_total if compressed_total > 0 else float("inf")
+    return RunWireAccount(transport=transport, workers=workers, steps=steps,
+                          dense_bits=dense_total, compressed_bits=compressed_total,
+                          savings=savings)
+
+
+@dataclasses.dataclass(frozen=True)
+class PublishWireAccount:
+    """Modeled publish traffic of one training run (``serve/publish.py``)."""
+
+    steps: int
+    publish_every: int
+    n_publishes: int
+    snapshot_every: int
+    n_snapshots: int  # rebase snapshots (the version-0 seed included)
+    delta_bits: float  # compressed delta payloads, total
+    snapshot_bits: float  # dense rebase snapshots, total
+    total_bits: float  # delta_bits + snapshot_bits
+    dense_bits: float  # baseline: one dense snapshot per publish
+    savings: float  # dense_bits / delta_bits (inf when delta_bits is 0)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def publish_wire_account(n_elems: int, wire_bits_fn, sizes, *, steps: int,
+                         publish_every: int = 1, snapshot_every: int = 16, chunk: int = 4096,
+                         dtype_bits: int = 32) -> PublishWireAccount:
+    """Price the publish path at one (cadence, theta) point.
+
+    ``wire_bits_fn``/``sizes`` follow :func:`bucketed_payload_bits` (one
+    stacked payload over the delta's bucket layout a publish).  ``steps``
+    are trainer steps; publishes land on every ``publish_every``-th step
+    (step 0 included), and every ``snapshot_every``-th publish also writes a
+    dense rebase snapshot, beside the version-0 snapshot of the ring's
+    creation."""
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if publish_every < 1:
+        raise ValueError(f"publish_every must be >= 1, got {publish_every}")
+    if snapshot_every < 1:
+        raise ValueError(f"snapshot_every must be >= 1, got {snapshot_every}")
+    n_publishes = -(-steps // publish_every)
+    delta_bits = n_publishes * bucketed_payload_bits(wire_bits_fn, sizes, "sequenced",
+                                                     stacked=True, chunk=chunk)
+    snapshot_each = float(dtype_bits) * n_elems
+    n_snapshots = 1 + n_publishes // snapshot_every
+    snapshot_bits = n_snapshots * snapshot_each
+    dense_bits = n_publishes * snapshot_each
+    savings = dense_bits / delta_bits if delta_bits > 0 else float("inf")
+    return PublishWireAccount(
+        steps=int(steps), publish_every=int(publish_every), n_publishes=int(n_publishes),
+        snapshot_every=int(snapshot_every), n_snapshots=int(n_snapshots),
+        delta_bits=delta_bits, snapshot_bits=snapshot_bits,
+        total_bits=delta_bits + snapshot_bits, dense_bits=dense_bits, savings=savings)

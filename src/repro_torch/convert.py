@@ -10,6 +10,11 @@ keys ``jax.tree_util.keystr`` spells (``['params']['embed']['table']``):
 what ``train/checkpoint.py`` writes, so a checkpoint of either package
 restores in the other.  The step and the optimizer's count are int32
 scalars there; the residual is one row per worker, ``(workers, n)``.
+
+Serving caches map the same way: the reference's ``{"l{i}_{kind}":
+KVCache(k, v, pos, ring)}``, each leaf with its leading ``(n_groups,)``
+axis, is the port's structure, so :func:`caches_from_jax` is a rename (bf16
+arrays travel as their bit patterns).
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax", "keystr", "state_leaves", "load_state_leaves"]
+__all__ = ["params_from_jax", "params_to_jax", "caches_from_jax", "keystr", "state_leaves",
+           "load_state_leaves"]
 
 
 def params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -46,6 +52,24 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[leaf] = tensor.detach().cpu().numpy()
     return out
+
+
+def _tensor(arr) -> torch.Tensor:
+    """numpy (bf16 included, as ``ml_dtypes`` spells it) -> tensor."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(arr.view(np.int16), copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def caches_from_jax(caches: Mapping[str, Any]):
+    """The reference's caches (``{"l{i}_{kind}": KVCache}`` whose leaves
+    are numpy arrays, or anything ``np.asarray`` takes) -> the port's
+    ``{"l{i}_{kind}": models.attention.KVCache}``, leaf for leaf."""
+    from repro_torch.models.attention import KVCache
+
+    return {key: KVCache(_tensor(c.k), _tensor(c.v), _tensor(c.pos), bool(c.ring))
+            for key, c in caches.items()}
 
 
 def keystr(*parts: str) -> str:

@@ -20,7 +20,9 @@ collectives, stages and this model's backward pass first; with
 ``--calibration-path`` the artifact is written there, and a later run
 that finds it loads it instead of profiling) or by a ``--calibration-path``
 artifact alone; ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps
-and resumes from the newest checkpoint there:
+and resumes from the newest checkpoint there; ``--publish-dir D`` appends a
+compressed weight delta to the ring at D every ``--publish-every`` steps
+(``serve/publish.py``), which ``launch.serve --follow D`` tails:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2_2b \\
       --n-layers 4 --steps 3 --batch 4 --seq 512 --mode compressed_dp \\
@@ -30,9 +32,13 @@ and resumes from the newest checkpoint there:
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 GPU.  ``--n-layers`` cuts the depth at full width (a port-only flag).  Flags
 and values the port does not run (``--mode hierarchical``, ``--mesh
-production|multi_pod``, ``--publish-dir``) raise with a pointer to
-ROADMAP.md.  Under ``torchrun`` (or any launcher that sets the
-``torch.distributed`` environment) each process trains one worker of the
+production|multi_pod``) raise with a pointer to ROADMAP.md.  One difference
+from the reference CLI: the publisher's delta codec runs on ``--backend``
+and ``--selector`` (defaults ``auto``), so on the card each publish launches
+the sampled threshold and fused compress kernels; the reference CLI leaves
+``PublishConfig``'s plain ``reference`` backend and ``sort`` selector.
+Under ``torchrun`` (or any launcher that sets the ``torch.distributed``
+environment) each process trains one worker of the
 data-parallel group; ``--calibrate`` with ``--nodes`` also fits each axis's
 link on its own:
 
@@ -116,8 +122,6 @@ def _parser() -> argparse.ArgumentParser:
 def _check_ported(ap, args) -> None:
     if args.mode == "hierarchical":
         _not_ported(ap, f"--mode {args.mode}")
-    if args.publish_dir:
-        _not_ported(ap, "--publish-dir")
     if args.mesh != "local":
         _not_ported(ap, f"--mesh {args.mesh}")
     if args.transport == "hierarchical" and args.nodes is None:
@@ -181,12 +185,23 @@ def main(argv=None):
     calibration = None
     if args.calibrate and args.mode != "pjit":
         step_cfg, calibration = _calibrate(args, step_cfg, model, stream, dev, group)
+    # one writer a ring: under several workers rank 0 publishes
+    publisher = (_publisher(args, model) if args.publish_dir is not None
+                 and (not dist.is_initialized() or dist.get_rank() == 0) else None)
     loop_cfg = TrainLoopConfig(
         total_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         log_every=max(1, args.steps // 20), theta_schedule=_theta_schedule(args),
-        lr_schedule=lr_schedules.warmup_cosine(max(2, args.steps // 10), args.steps))
-    result = train_loop(model, opt_cfg, step_cfg, state, stream, loop_cfg, group=group)
+        lr_schedule=lr_schedules.warmup_cosine(max(2, args.steps // 10), args.steps),
+        publish_hook=publisher.hook() if publisher is not None else None)
+    try:
+        result = train_loop(model, opt_cfg, step_cfg, state, stream, loop_cfg, group=group)
+    finally:
+        if publisher is not None:
+            publisher.close()
+            print(f"[publish] closed ring at v{publisher.version} "
+                  f"({publisher.delta_bytes_total} delta bytes)")
     result["calibration"] = calibration
+    result["publisher"] = publisher
     if reducer is not None and reducer.transport == "auto":
         decision = result["transport_decision"]
         print(f"[transport] auto -> {result['reducer_config'].transport} "
@@ -196,6 +211,27 @@ def main(argv=None):
     for row in result["history"]:
         print({k: (round(v, 4) if isinstance(v, float) else v) for k, v in row.items()})
     return result
+
+
+def _publisher(args, model):
+    """``--publish-dir``: the weight-delta publisher over the model's leaves
+    (it writes the ring's version-0 snapshot now), on ``--backend`` and
+    ``--selector``; the manifest names the arch, ``reduced`` and, when
+    ``--n-layers`` cut the depth, ``n_layers``."""
+    from repro_torch.serve import PublishConfig, WeightDeltaPublisher
+
+    meta = {"arch": args.arch, "reduced": bool(args.reduced)}
+    if args.n_layers is not None:
+        meta["n_layers"] = int(args.n_layers)
+    publisher = WeightDeltaPublisher(
+        args.publish_dir, model.leaves(),
+        PublishConfig(publish_every=args.publish_every, capacity=args.publish_capacity,
+                      snapshot_every=args.publish_snapshot_every, theta=args.publish_theta,
+                      backend=args.backend, selector=args.selector),
+        extra_meta=meta)
+    print(f"[publish] ring at {args.publish_dir} (every {args.publish_every} steps, "
+          f"theta={args.publish_theta})")
+    return publisher
 
 
 def _calibrate(args, step_cfg, model, stream, dev, group):

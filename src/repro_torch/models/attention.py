@@ -1,20 +1,25 @@
-"""Attention (port of ``repro.models.attention``, the full-sequence training
-path): GQA projections with RoPE, causal and sliding-window masks, the
-attention-logit softcap, and the output projection.
+"""Attention (port of ``repro.models.attention``): GQA projections with RoPE,
+causal and sliding-window masks, the attention-logit softcap, the output
+projection, and the KV caches of serving (flat, or a ring buffer of
+``window`` slots for a sliding-window layer).
 
 Plain PyTorch math: the scores of one layer are materialized as
-``(B, Kh, G, S, S)`` f32, which at the port's training shapes (S <= 512) is
-tens of MB.  At one KV chunk this is exactly the reference's online softmax
-(running max, exp, sum, one P·V product).
+``(B, Kh, G, Sq, Skv)`` f32, which at the port's training shapes (S <= 512)
+is tens of MB and at a 4608-token prefill about 1.4 GB a tensor.  At one KV
+chunk this is exactly the reference's online softmax (running max, exp,
+sum, one P·V product).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.models.layers import rope, softcap
+from repro_torch.models.layers import COMPUTE_DTYPE, rope, softcap
 
-__all__ = ["project_qkv", "attention", "attend"]
+__all__ = ["project_qkv", "attention", "attend", "KVCache", "init_kv_cache",
+           "update_kv_cache"]
 
 _NEG_INF = -1e30
 
@@ -32,16 +37,20 @@ def project_qkv(p, x: torch.Tensor, positions: torch.Tensor, rope_theta: float =
     return q.reshape(b, s, kh, h // kh, dh), k, v
 
 
-def attention(q, k, v, positions: torch.Tensor, *, window: int = 0,
-              attn_softcap: float = 0.0) -> torch.Tensor:
-    """Causal (optionally windowed) softmax attention -> (B,S,Kh,G,Dh)."""
+def attention(q, k, v, q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
+              window: int = 0, attn_softcap: float = 0.0) -> torch.Tensor:
+    """Causal (optionally windowed) softmax attention -> (B,Sq,Kh,G,Dh).
+
+    ``q_positions`` (Sq,) and ``kv_positions`` (Skv,) are absolute
+    positions; a key at position -1 is an empty cache slot and is masked,
+    as the reference masks it."""
     dh = q.shape[-1]
     scale = 1.0 / (dh ** 0.5)
     s = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
     s = softcap(s, attn_softcap)
-    valid = positions[:, None] >= positions[None, :]
+    valid = (kv_positions[None, :] >= 0) & (q_positions[:, None] >= kv_positions[None, :])
     if window:
-        valid = valid & (positions[:, None] - positions[None, :] < window)
+        valid = valid & (q_positions[:, None] - kv_positions[None, :] < window)
     s = torch.where(valid, s, _NEG_INF)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -56,3 +65,56 @@ def attend(p, out: torch.Tensor) -> torch.Tensor:
     b, s, kh, g, dh = out.shape
     merged = out.reshape(b, s, kh * g, dh)
     return torch.einsum("bshk,hkd->bsd", merged, p["wo"].to(out.dtype))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One layer's cache; the LM stacks every leaf on a leading
+    ``(n_groups,)`` axis and hands each group a view."""
+
+    k: torch.Tensor  # (B, S_cache, Kh, Dh)
+    v: torch.Tensor
+    pos: torch.Tensor  # (S_cache,) int32 absolute position per slot, -1 = empty
+    ring: bool  # slot = position % S_cache
+
+
+def init_kv_cache(batch: int, seq: int, kv_heads: int, head_dim: int, *, window: int = 0,
+                  dtype=COMPUTE_DTYPE, device=None) -> KVCache:
+    """Empty cache for ``seq`` positions; a window shorter than ``seq``
+    makes a ring of ``window`` slots."""
+    size = min(window, seq) if window else seq
+    return KVCache(
+        k=torch.zeros((batch, size, kv_heads, head_dim), dtype=dtype, device=device),
+        v=torch.zeros((batch, size, kv_heads, head_dim), dtype=dtype, device=device),
+        pos=torch.full((size,), -1, dtype=torch.int32, device=device),
+        ring=bool(window and window < seq))
+
+
+def update_kv_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                    start: int) -> KVCache:
+    """Write S_new entries at absolute positions start..start+S_new-1, in
+    place; returns ``cache``.
+
+    A ring keeps only the last ``size`` entries of a longer write.  A flat
+    cache clamps the slot offset into range, as the reference's
+    ``dynamic_update_slice`` does (the positions written stay unclamped)."""
+    s_new = k_new.shape[1]
+    size = cache.k.shape[1]
+    if cache.ring and s_new > size:
+        k_new, v_new = k_new[:, -size:], v_new[:, -size:]
+        start += s_new - size
+        s_new = size
+    positions = torch.arange(start, start + s_new, dtype=torch.int32, device=cache.pos.device)
+    if cache.ring:
+        slots = (positions % size).long()
+        cache.k[:, slots] = k_new
+        cache.v[:, slots] = v_new
+        cache.pos[slots] = positions
+    else:
+        if s_new > size:
+            raise ValueError(f"a write of {s_new} entries does not fit a cache of {size}")
+        lo = min(max(start, 0), size - s_new)
+        cache.k[:, lo:lo + s_new] = k_new
+        cache.v[:, lo:lo + s_new] = v_new
+        cache.pos[lo:lo + s_new] = positions
+    return cache

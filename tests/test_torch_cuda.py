@@ -4,8 +4,9 @@ CPU) and run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: B1, B4, B2, B5 and B6 bitwise; B3 and B7
-max abs error <= 2e-6 * max|x| per row.  Build the kernels first with
+The last test holds the weight-delta ring's publisher mirror and a
+subscriber bitwise on the card.  Tolerances as in chip_smoke.py: B1, B4,
+B2, B5 and B6 bitwise; B3 and B7 max abs error <= 2e-6 * max|x| per row.  Build the kernels first with
 ``repro_torch.kernels.build.build(...)`` so the nvcc runs go in parallel.
 """
 
@@ -514,3 +515,26 @@ def test_pack_kernel_edge_rows(card, cols, kind):
     want = pack.pack_plain(x, tau, k=k)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def test_publish_mirror_and_subscriber_bitwise(card, tmp_path):
+    """The weight-delta ring on the card: the publisher's mirror and a
+    subscriber that caught up (a catch-up over two deltas, then the gap
+    path after the ring wrapped past it) hold bitwise the same weights; the
+    deltas go through B4 and B2."""
+    from repro_torch.serve import PublishConfig, ReplicaSubscriber, WeightDeltaPublisher
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {"w": torch.randn((300, 1000), generator=gen, device="cuda") * 0.02}
+    pub = WeightDeltaPublisher(str(tmp_path), params, PublishConfig(
+        theta=0.7, snapshot_every=2, capacity=2, backend="cuda", selector="auto"))
+    sub = ReplicaSubscriber(str(tmp_path))
+    for step in range(5):
+        params = {"w": params["w"] + 1e-3 * torch.randn_like(params["w"])}
+        pub.publish(step, params)
+        if step == 1:
+            assert sub.sync().applied == 2
+            assert torch.equal(sub.weights(), pub.state.materialize())
+    stats = sub.sync()
+    assert stats.gap_detected and stats.version == 5
+    assert torch.equal(sub.weights(), pub.state.materialize())

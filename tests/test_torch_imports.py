@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_entry_points_raise_without_cuda_unless_cpu_requested(monkeypatch):
     from repro_torch import device
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -50,14 +50,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_requested(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--reduced", "--steps", "1", "--mode", "compressed_dp",
                     "--transport", "sequenced"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--reduced", "--new-tokens", "1"])
+    assert serve.main(["--reduced", "--device", "cpu", "--batch", "1", "--prompt-len", "2",
+                       "--new-tokens", "1"])["tokens"].shape == (1, 3)
     assert device.resolve("cpu").type == "cpu"
 
 
 def test_cli_refuses_unported_flags(capsys):
     from repro_torch.launch import train
 
-    for flags in (["--mode", "hierarchical"], ["--publish-dir", "ring"],
-                  ["--mesh", "production"], ["--mesh", "multi_pod"]):
+    for flags in (["--mode", "hierarchical"], ["--mesh", "production"],
+                  ["--mesh", "multi_pod"]):
         with pytest.raises(SystemExit):
             train.main(["--reduced", "--device", "cpu", "--steps", "1", *flags])
         assert "ROADMAP" in capsys.readouterr().err
