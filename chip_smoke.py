@@ -102,7 +102,26 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    a dense trainer publishing at theta 0.7: a subscriber syncs once over
    3 deltas with a local rebase and one decompress, and once after the
    ring wrapped past it (the snapshot, then a delta), bitwise the mirror
-   each time; B4 and B2 launch once a publish and nothing else launches.
+   each time; B4 and B2 launch once a publish and nothing else launches;
+15. ``theory``: one backward pass of gemma2_2b (full width, 4 layers) for a
+   live gradient, through the cuda backend's stacked compress and
+   decompress (B4, B2, B3) at theta 0.7 and 0.9: Assumption 3.1's ratios
+   held to the lab evaluator's bound; then Algorithm 1's quantizer fit
+   (``method="heuristic"``) beside the closed form (``"solve"``) on each of
+   the 54 buckets' kept coefficients, with eps, P and each fit's relative
+   L2 error through the plain encode and decode;
+16. ``lab``: the convergence lab's smoke matrix at one worker, in process
+   (24 rows of 50 steps: the tiny LM and the convnet, dense, theta 0.7 and
+   0.9, mixed, every transport, the ``cuda`` backend, the sampled
+   selector, stacked and streamed dispatch), each row's final loss, steps
+   a second and kernel launches (B1, B2 and B3 in each ``_cuda`` row, none
+   in any other), then the lab's 20 claims, whose verdicts must be
+   ``LAB_VERDICTS``.
+
+Phase 10 also runs ``train-psum-noderound``: ``train-psum`` with its
+exchange fed the island mean's irfft(rfft(g)), as ``train-hierarchical``
+feeds its own; its losses must be bitwise ``train-hierarchical``'s, which
+pins what moves those off ``train-psum``'s (``HIER_LOSS_ATOL``).
 
 Every training phase fails on a skipped step or a ladder transition it did
 not plan.
@@ -111,7 +130,8 @@ Then each training phase's mean steady step (``train-dense`` beside
 ``train``) and the ops phase's time, one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package.  ``--rows`` and ``--skip-train`` (which skips phases 4 to 6)
-shorten a run while a kernel is being brought up; ``--profile`` traces the
+shorten a run while a kernel is being brought up; ``--only theory,lab``
+runs only the named phases after the kernel phases; ``--profile`` traces the
 first training phase with ``torch.profiler`` and prints device time by
 kernel, by op and per step.
 """
@@ -158,12 +178,35 @@ LAUNCHES_PER_STEP = {"sampled_threshold": 2, "fused_compress": 2, "fused_decompr
 # +-lr whatever its gradient's size, so rounding-level changes to small
 # entries move the next losses by ~1e-3 (train-allgather's one quantizer
 # fit moves step 1 by 9e-4 against train's; the first chip run of this
-# phase read 1.2e-3 at step 1, against a limit of 1e-3 set before it)
+# phase read 1.2e-3 at step 1, against a limit of 1e-3 set before it;
+# train-psum-noderound, psum fed the same irfft(rfft(g)), gives
+# train-hierarchical's losses bitwise, which confirms the cause)
 HIER_LOSS_ATOL = 5e-3
 # one exchange of the main path's gradient size on the (1, 1) mesh:
 # hierarchical's mean against psum's, within the reference's envelope
 # (tests/test_transports.py), relative L2
 HIER_MEAN_REL = 0.05
+# the lab's 20 claims and their verdicts at one worker.  The reference's
+# smoke matrix at one worker on the CPU (python -m repro.lab.run --smoke
+# --workers 1) passed 18 and failed the convnet's theta0.7_matches_dense
+# (+140.29% against dense) and mixed_recovers (+56.49%); it passes all 20
+# at 8 workers, where the mean of 8 compressions averages their error out.
+# The port's own one-worker CPU run (python -m repro_torch.lab.run --smoke
+# --workers 1 --device cpu) gives the same verdicts.
+LAB_CLAIMS = ("theta0.7_matches_dense", "theta0.9_degrades", "mixed_recovers",
+              "transports_identical", "hierarchical_matches_flat", "backends_identical",
+              "sampled_selector_matches_sort", "streamed_identical", "assumption31",
+              "thm34_envelope")
+LAB_FAILS_AT_ONE_WORKER = ("convnet:theta0.7_matches_dense", "convnet:mixed_recovers")
+LAB_VERDICTS = {f"{m}:{c}": f"{m}:{c}" not in LAB_FAILS_AT_ONE_WORKER
+                for m in ("convnet", "lm") for c in LAB_CLAIMS}
+# the kernels each _cuda row of the lab must launch: B1 and B2 in the
+# compress (the sort selector), B3 in the probe's decompress
+LAB_CUDA_KERNELS = ("topk_threshold", "fused_compress", "fused_decompress")
+# the thetas of the theory phase, and the lab evaluator's Assumption 3.1
+# bound for a quantized run (err <= 1.05 sqrt(theta) + 0.15, norm <= 1.08)
+THEORY_THETAS = (KEEP_THETA, 0.9)
+A31_SQRT_SLACK, A31_QUANT_MARGIN, A31_NORM_TOL = 1.05, 0.15, 0.08
 # the chaos phase's depth: gemma2's local/global pattern is 2 layers long
 CHAOS_LAYERS = 2
 # the thetas whose keep counts B1, B4, B2 and B3 run at on the main path's
@@ -1184,6 +1227,8 @@ def two_level_phases(kernels, fused) -> None:
             if losses[0] != psum_losses[0] or gap > HIER_LOSS_ATOL:
                 raise AssertionError(f"{label}: losses {losses} / train-psum {psum_losses}")
             log(f"[{label}] losses within {gap:.3e} of train-psum's (limit {HIER_LOSS_ATOL})")
+            hier_losses = losses
+    _psum_noderound_phase(kernels, fused, hier_losses)
     _two_level_mean_check()
     runs = []
 
@@ -1212,6 +1257,37 @@ def two_level_phases(kernels, fused) -> None:
         log(f"[train-transport-auto] {fit['family']} over {fit['axis'] or 'flat'}: "
             f"alpha={fit['alpha_s'] * 1e6:.3f} us beta={fit['beta_s_per_byte']:.6e} s/B")
     log("[train-transport-auto] (1, 1) topology -> psum, unpriced")
+
+
+def _psum_noderound_phase(kernels, fused, hier_losses) -> None:
+    """``train-psum-noderound``: ``train-psum`` with its exchange fed
+    ``_node_mean`` of the corrected gradient -- the island's irfft(rfft(g))
+    on the (1, 1) mesh, what ``train-hierarchical`` compresses -- while the
+    EF roundtrip keeps the raw one, as hierarchical's does.  With one
+    worker the two exchanges then differ only in a product by 1.0, so their
+    losses must be bitwise equal: the node mean's rounding is what moves
+    ``train-hierarchical``'s losses off ``train-psum``'s."""
+    from repro_torch.comms import transport as transport_mod
+    from repro_torch.launch import train as train_cli
+
+    class NodeRoundPsum(transport_mod.SpectrumPsumTransport):
+        def _exchange_flat(self, flat, layout, comp, group, stacked=True, monitor=None):
+            return super()._exchange_flat(transport_mod._node_mean(flat, layout, comp, None),
+                                          layout, comp, group, stacked, monitor)
+
+    psum = transport_mod._TRANSPORTS["psum"]
+    transport_mod._TRANSPORTS["psum"] = NodeRoundPsum()
+    try:
+        _, history = train_phase(lambda: train_cli.main(TRAIN_ARGS + PSUM + ["--steps", "3"]),
+                                 kernels, "train-psum-noderound", fused)
+    finally:
+        transport_mod._TRANSPORTS["psum"] = psum
+    losses = [row["loss"] for row in history]
+    if losses != hier_losses:
+        raise AssertionError(f"train-psum-noderound: losses {losses} differ from "
+                             f"train-hierarchical's {hier_losses}")
+    log(f"[train-psum-noderound] losses {losses} bitwise train-hierarchical's: the node "
+        f"mean's irfft(rfft(g)) rounding is what moves them off train-psum's")
 
 
 def _two_level_mean_check() -> None:
@@ -1673,6 +1749,153 @@ def publish_api_phase(dev, kernels) -> None:
     torch.cuda.empty_cache()
 
 
+def theory_phase(dev, kernels) -> None:
+    """Phase 15: Assumption 3.1 on a live gradient at full width, and the
+    paper's Algorithm 1 beside the closed-form quantizer fit."""
+    from repro_torch.comms.bucketing import stack_buckets
+    from repro_torch.comms.reducers import flatten_tree
+    from repro_torch.core import quantizer as Q
+    from repro_torch.core.compressor import FFTCompressor, FFTCompressorConfig
+    from repro_torch.core.theory import assumption31_holds_stats, assumption31_stats
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.models import build
+
+    t_phase = time.perf_counter()
+    cfg = model_config()
+    model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                             global_batch=BATCH, seed=0), device=dev)
+    loss, _ = model.loss(stream.batch_at(0))
+    loss.backward()
+    flat, _ = flatten_tree({name: p.grad for name, p in model.leaves().items()})
+    del model, loss
+    torch.cuda.empty_cache()
+    layout = main_path_layout()
+    stacked = stack_buckets(flat, layout)
+    del flat
+    fused = ("sampled_threshold", "fused_compress", "fused_decompress")
+    for theta in THEORY_THETAS:
+        comp = FFTCompressor(FFTCompressorConfig(theta=theta, backend="cuda", selector="auto"))
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = comp.compress_stacked(stacked, layout.sizes())
+        hat = comp.decompress_stacked(payload)
+        torch.cuda.synchronize()
+        roundtrip_ms = (time.perf_counter() - t0) * 1e3
+        launches = {kern.name: kern.launches for kern in kernels if kern.launches}
+        err, norm = (float(v) for v in assumption31_stats(stacked, hat))
+        del hat
+        slack = (A31_SQRT_SLACK * math.sqrt(theta) + A31_QUANT_MARGIN) / theta
+        holds = assumption31_holds_stats(err, norm, theta, slack, A31_NORM_TOL)
+        log(f"[theory] theta {theta}: {stacked.numel()} values, err_ratio {err:.6f} (bound "
+            f"{slack * theta:.6f}), norm_ratio {norm:.6f} (bound {1 + A31_NORM_TOL}), "
+            f"roundtrip {roundtrip_ms:.1f} ms, launches {launches}")
+        if not holds:
+            raise AssertionError(f"theory: Assumption 3.1 fails at theta {theta}: err {err}, "
+                                 f"norm {norm}")
+        if any(launches.get(name, 0) <= 0 for name in fused):
+            raise AssertionError(f"theory: theta {theta} launched {launches}")
+        if theta == KEEP_THETA:
+            PHASE_MS["theory"] = roundtrip_ms
+            _fit_comparison(stacked, payload, layout, Q)
+        del payload
+    del stacked
+    torch.cuda.empty_cache()
+    log(f"[theory] wall={time.perf_counter() - t_phase:.1f}s")
+
+
+def _fit_comparison(stacked, payload, layout, Q) -> None:
+    """Each bucket's kept coefficients (the true spectrum at the payload's
+    indices) fitted by ``solve`` and by ``heuristic``, encoded and decoded
+    with the plain ``encode``/``decode``: eps, P and relative L2 error."""
+    rows = layout.n_buckets * layout.max_chunks
+    spec = torch.fft.rfft(stacked.reshape(rows, layout.chunk), dim=-1)
+    idx = payload.idx.reshape(rows, -1).long()
+    kept = torch.cat([torch.gather(spec.real, -1, idx), torch.gather(spec.imag, -1, idx)], -1)
+    del spec, idx
+    kept = kept.reshape(layout.n_buckets, -1)
+    lo, hi = kept.amin(-1), kept.amax(-1)
+    qcfg = Q.RangeQuantConfig()
+    out = {}
+    for method in ("solve", "heuristic"):
+        q = Q.fit_quantizer(lo, hi, qcfg, method=method)
+        rec = Q.decode(Q.encode(kept, q.map(lambda t: t[:, None])), q.map(lambda t: t[:, None]))
+        if not bool(torch.isfinite(rec).all()):
+            raise AssertionError(f"theory: the {method} fit reconstructs non-finite values")
+        rel = (torch.linalg.vector_norm(rec - kept, dim=-1)
+               / torch.linalg.vector_norm(kept, dim=-1).clamp_min(1e-30))
+        out[method] = (q.eps.tolist(), q.p_codes.tolist(), rel.tolist())
+    for b in range(layout.n_buckets):
+        (es, ps, rs), (eh, ph, rh) = ((out[m][0][b], out[m][1][b], out[m][2][b])
+                                      for m in ("solve", "heuristic"))
+        log(f"[theory] bucket {b}: range [{lo[b].item():.6e}, {hi[b].item():.6e}] solve eps "
+            f"{es:.6e} P {ps} rel_l2 {rs:.6e} | heuristic eps {eh:.6e} P {ph} rel_l2 {rh:.6e}")
+    for m in ("solve", "heuristic"):
+        rel = out[m][2]
+        log(f"[theory] {m}: relative L2 error mean {sum(rel) / len(rel):.6e}, "
+            f"max {max(rel):.6e} over {len(rel)} buckets")
+
+
+def lab_phase(kernels) -> None:
+    """Phase 16: the lab's smoke matrix at one worker on the card; every
+    claim's verdict must be ``LAB_VERDICTS``'s."""
+    import contextlib
+    import tempfile
+
+    from repro_torch.lab import report
+    from repro_torch.lab.evaluate import evaluate_results
+    from repro_torch.lab.runner import run_matrix
+    from repro_torch.lab.spec import smoke_matrix
+
+    row_launches = {}
+
+    @contextlib.contextmanager
+    def count(spec):
+        for kern in kernels:
+            kern.launches = 0
+        yield
+        row_launches[spec.name] = {kern.name: kern.launches for kern in kernels
+                                   if kern.launches}
+
+    matrix = smoke_matrix(1)
+    t0 = time.perf_counter()
+    results = run_matrix(matrix, verbose=False, device="cuda", around=count)
+    wall = time.perf_counter() - t0
+    runs = {name: r.to_dict() for name, r in results.items()}
+    claims, all_passed = evaluate_results(runs)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lab-") as tmp:
+        path = os.path.join(tmp, "convergence.json")
+        report.write_json(path, runs, [c.to_dict() for c in claims], all_passed)
+        log(f"[lab] wrote {os.path.getsize(path)} bytes of JSON to a temporary directory")
+    for spec in matrix:
+        r = results[spec.name]
+        log(f"[lab] {spec.name}: backend {spec.backend}, final loss {r.final_loss():.6f}, "
+            f"{spec.steps / r.walltime_s:.2f} steps/s, wall {r.walltime_s:.2f} s, "
+            f"launches {row_launches[spec.name]}")
+        if spec.backend == "cuda":
+            missing = [k for k in LAB_CUDA_KERNELS if row_launches[spec.name].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"lab: {spec.name} never launched {missing}")
+        elif row_launches[spec.name]:
+            raise AssertionError(f"lab: {spec.name} ({spec.backend} backend) launched "
+                                 f"{row_launches[spec.name]}")
+    got = {c.name: c.passed for c in claims}
+    for c in claims:
+        log(f"[lab] {'PASS' if c.passed else 'FAIL'} {c.name}: {c.detail} (expected "
+            f"{'PASS' if LAB_VERDICTS.get(c.name) else 'FAIL'})")
+    steps = sum(spec.steps for spec in matrix)
+    PHASE_MS["lab"] = sum(r.walltime_s for r in results.values()) * 1e3 / steps
+    log(f"[lab] {len(matrix)} rows, {steps} steps in {wall:.1f} s; "
+        f"{PHASE_MS['lab']:.1f} ms a step with its probe")
+    if got != LAB_VERDICTS:
+        differ = sorted(k for k in set(got) | set(LAB_VERDICTS)
+                        if got.get(k) != LAB_VERDICTS.get(k))
+        raise AssertionError(f"lab: verdicts differ from LAB_VERDICTS on {differ}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=None,
@@ -1681,7 +1904,13 @@ def main() -> int:
                     help="skip the ops and training phases")
     ap.add_argument("--profile", action="store_true",
                     help="trace the first training phase with torch.profiler")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after the kernel phases "
+                         "(theory, lab); default every phase")
     args = ap.parse_args()
+    only = set(args.only.split(",")) if args.only else None
+    if only is not None and not only <= {"theory", "lab"}:
+        ap.error(f"--only takes theory and lab, got {sorted(only)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1725,7 +1954,7 @@ def main() -> int:
 
     launches = {k.name: None for k in kernels}
     launches.update({r["kernel"].name: r["launches"] for r in results if "launches" in r})
-    if not args.skip_train:
+    if not args.skip_train and only is None:
         ops_counts = ops_phase(dev, kernels)
         for name in ("fft4096", "pack", "unpack", "range_quant_encode", "range_quant_decode"):
             launches[name] = ops_counts[name]
@@ -1762,6 +1991,11 @@ def main() -> int:
             serve_phase(dev, kernels, label)
         publish_phases(kernels, fused)
         publish_api_phase(dev, kernels)
+    if not args.skip_train:
+        if only is None or "theory" in only:
+            theory_phase(dev, kernels)
+        if only is None or "lab" in only:
+            lab_phase(kernels)
 
     if PHASE_MS:
         order = [k for k in ("train", "train-dense") if k in PHASE_MS]

@@ -8,9 +8,21 @@ codes ``P+1 .. 2**N - 1`` with the same pattern mirrored.  The value of
 positive code ``c`` is ``eps * 2**q * (1 + r / 2**m)`` with ``idx = c - 1``,
 ``q = idx >> m`` and ``r = idx & (2**m - 1)``.
 
-:func:`fit_quantizer` uses the closed form of the reference (``solve_eps``):
-``P = (2**N - 1 + 2**m * log2(max / |min|)) / 2`` and the top code pinned to
-``max``.  The paper's ×2/÷2 search (``tune_eps_heuristic``) is not ported.
+Two ways to fit ``eps``, picked by :func:`fit_quantizer`'s ``method``:
+
+* ``solve`` (the default, beyond the paper) -- :func:`solve_eps`, the
+  reference's closed form: ``P = (2**N - 1 + 2**m * log2(max / |min|)) / 2``
+  and the top code pinned to ``max``;
+* ``heuristic`` -- :func:`tune_eps_heuristic`, the paper's Algorithm 1: a
+  ×2/÷2 search on ``eps`` from 0.002 until the most negative code straddles
+  ``min``.  ``eps`` is only ever doubled, halved or clipped, so it carries
+  no rounding; the reference's ``lax.while_loop`` is a plain loop of at
+  most 64 iterations here, over every fit of a stack at once.  Its code
+  count ``ceil(2**m * (log2(max) - log2(eps)))`` sits exactly on an integer
+  whenever the search clipped eps to ``max`` and halved it, so its
+  ``log2`` is spelled as XLA lowers ``jnp.log2`` today, ``log(x) *
+  float32(1 / ln 2)`` (:func:`_log2_by_reciprocal`), which agrees with it
+  on every value where :func:`log2` agrees on ~85%.
 
 ``exp2`` and ``log2`` are spelled the way the reference lowers them --
 ``exp(ln2 * x)`` and ``log(x) / ln2`` in float32 -- so the port reproduces
@@ -35,12 +47,14 @@ __all__ = [
     "RangeQuantConfig",
     "FittedQuantizer",
     "solve_eps",
+    "tune_eps_heuristic",
     "fit_quantizer",
     "encode",
     "decode",
 ]
 
 LN2 = float(np.float32(np.log(2.0)))  # the float32 constant of the lowering
+INV_LN2 = float(np.float32(1.0 / np.float32(np.log(2.0))))
 
 
 def exp2(x: torch.Tensor) -> torch.Tensor:
@@ -51,6 +65,13 @@ def exp2(x: torch.Tensor) -> torch.Tensor:
 def log2(x: torch.Tensor) -> torch.Tensor:
     """``log2(x)`` as the reference computes it: ``log(x) / float32(ln 2)``."""
     return torch.log(x) / LN2
+
+
+def _log2_by_reciprocal(x: torch.Tensor) -> torch.Tensor:
+    """``log2(x)`` as XLA lowers ``jnp.log2``: ``log(x) * float32(1/ln 2)``.
+    Only the heuristic's code count uses it; :func:`log2` keeps the
+    division, which the CUDA kernels' encode mirrors bit for bit."""
+    return torch.log(x) * INV_LN2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,10 +143,52 @@ def solve_eps(vmin: torch.Tensor, vmax: torch.Tensor,
     return eps, p
 
 
+def tune_eps_heuristic(vmin, vmax, config: RangeQuantConfig, eps_init: float = 0.002,
+                       max_iters: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paper Algorithm 1: ×2/÷2 search on eps until the decoded "1...1" code
+    (the most negative representable) straddles ``vmin``.
+
+    As the paper's loop: when the most negative code lies below ``vmin``
+    there are too many negative codes, so eps halves; else it doubles.  A
+    fit stops when the sign of that error flips or after ``max_iters``.
+    ``vmin``/``vmax`` are scalars or tensors of one shape (each element its
+    own search).  Returns (eps, P)."""
+    m_scale = config.mantissa_scale
+    n_codes = config.n_codes
+    vmax = torch.clamp_min(torch.as_tensor(vmax, dtype=torch.float32), 1e-30)
+    vmin = torch.as_tensor(vmin, dtype=torch.float32, device=vmax.device)
+
+    def p_of_eps(eps):
+        # codes needed to reach vmax from eps (ceil), >= 1
+        steps = torch.ceil(m_scale * (_log2_by_reciprocal(vmax) - _log2_by_reciprocal(eps)))
+        return torch.clamp(steps, 1, n_codes - 2).to(torch.int32)
+
+    def actual_min_of_eps(eps):
+        n_neg = n_codes - 1 - p_of_eps(eps)
+        return -_value_of_index(torch.clamp_min(n_neg - 1, 0), eps, config.m_bits)
+
+    eps = torch.full_like(vmax, eps_init)
+    prev_sign = torch.zeros(vmax.shape, dtype=torch.int32, device=vmax.device)
+    done = torch.zeros(vmax.shape, dtype=torch.bool, device=vmax.device)
+    for _ in range(max_iters):
+        if bool(done.all()):
+            break
+        one = torch.ones_like(prev_sign)
+        sign = torch.where(actual_min_of_eps(eps) < vmin, -one, one)
+        flipped = (prev_sign != 0) & (sign != prev_sign)
+        new_eps = torch.minimum(torch.clamp_min(torch.where(sign < 0, eps * 0.5, eps * 2.0),
+                                                1e-30), vmax)
+        done = done | flipped
+        eps = torch.where(done, eps, new_eps)
+        prev_sign = sign
+    return eps, p_of_eps(eps)
+
+
 def fit_quantizer(vmin, vmax, config: RangeQuantConfig = RangeQuantConfig(),
-                  device=None) -> FittedQuantizer:
+                  method: str = "solve", device=None) -> FittedQuantizer:
     """Fit the quantizer to an observed range (scalars or stacked tensors)
-    with the closed form :func:`solve_eps`.
+    with :func:`solve_eps` (``method="solve"``) or the paper's search
+    :func:`tune_eps_heuristic` (``method="heuristic"``).
 
     A one-sided range still reserves one code on the empty side: the math
     needs vmin < 0 < vmax."""
@@ -134,7 +197,12 @@ def fit_quantizer(vmin, vmax, config: RangeQuantConfig = RangeQuantConfig(),
     span = torch.clamp_min(vmax - vmin, 1e-30)
     vmax_eff = torch.maximum(vmax, span * 1e-6)
     vmin_eff = torch.minimum(vmin, -span * 1e-6)
-    eps, p = solve_eps(vmin_eff, vmax_eff, config)
+    if method == "solve":
+        eps, p = solve_eps(vmin_eff, vmax_eff, config)
+    elif method == "heuristic":
+        eps, p = tune_eps_heuristic(vmin_eff, vmax_eff, config)
+    else:
+        raise ValueError(f"unknown fit method {method!r}")
     n_neg = config.n_codes - 1 - p
     vmax_rep = _value_of_index(p - 1, eps, config.m_bits)
     vmin_rep = -_value_of_index(torch.clamp_min(n_neg - 1, 0), eps, config.m_bits)

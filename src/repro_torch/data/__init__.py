@@ -1,3 +1,4 @@
-from repro_torch.data.synthetic import SyntheticConfig, SyntheticStream
+from repro_torch.data.synthetic import (ImageConfig, ImageStream, SyntheticConfig,
+                                        SyntheticStream)
 
-__all__ = ["SyntheticConfig", "SyntheticStream"]
+__all__ = ["SyntheticConfig", "SyntheticStream", "ImageConfig", "ImageStream"]

@@ -9,6 +9,7 @@ as in the reference.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,9 +56,13 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, dtype=COMPUTE_DTYPE) -> tor
     return F.embedding(tokens, table).to(dtype)
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor, vocab: int = 0) -> torch.Tensor:
-    """f32 logits over the padded vocab (tied head); pad columns -> -1e30."""
-    logits = (x @ table.to(x.dtype).T).float()
+def unembed(table: torch.Tensor, x: torch.Tensor, vocab: int = 0,
+            head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 logits over the padded vocab, through the untied ``head``
+    ``(d, padded_vocab)`` when given, else the table's transpose; pad
+    columns -> -1e30."""
+    w = table.T if head is None else head
+    logits = (x @ w.to(x.dtype)).float()
     vp = logits.shape[-1]
     if vocab and vocab < vp:
         mask = torch.arange(vp, device=logits.device) < vocab

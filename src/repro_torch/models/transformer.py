@@ -3,8 +3,11 @@ family: ``forward``, ``loss`` and ``_chunked_ce`` for training, and
 ``init_caches``, ``prefill`` and ``decode_step`` for serving).
 
 The parameter layout is the reference's tree, one ``nn.Parameter`` per leaf:
-``embed.table``, ``final_norm.scale`` and, for the repeating group of layer
-kinds, ``layers.l{i}_{kind}.{attn,mlp,norm1,norm2}.*`` with a leading
+``embed.table`` (and, with ``tie_embeddings=False``, the output head
+``embed.head`` of shape ``(d_model, padded_vocab)``, which the logits use
+in place of the table's transpose), ``final_norm.scale`` and, for the
+repeating group of layer kinds,
+``layers.l{i}_{kind}.{attn,mlp,norm1,norm2}.*`` with a leading
 stacked ``(n_groups, ...)`` axis (the reference's ``_stack_spec``); the
 forward pass indexes ``p[g]`` per group.  ``named_parameters()`` therefore
 yields the reference's leaf paths, ``reducers.flatten_tree`` yields the
@@ -59,10 +62,10 @@ def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
 
 
 def _param_spec(cfg) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    spec = {"embed.table": ((padded_vocab(cfg.vocab_size), cfg.d_model), "normal")}
     if not cfg.tie_embeddings:
-        raise NotImplementedError("untied embeddings are not ported yet; see ROADMAP.md")
-    spec = {"embed.table": ((padded_vocab(cfg.vocab_size), cfg.d_model), "normal"),
-            "final_norm.scale": ((cfg.d_model,), "ones")}
+        spec["embed.head"] = ((cfg.d_model, padded_vocab(cfg.vocab_size)), "normal")
+    spec["final_norm.scale"] = ((cfg.d_model,), "ones")
     n = cfg.n_groups()
     for i, kind in enumerate(cfg.layer_pattern()):
         for name, (shape, init) in _layer_shapes(cfg, kind).items():
@@ -145,9 +148,14 @@ class LM(nn.Module):
         h2 = rmsnorm(p["norm2"]["scale"][g], x, cfg.norm_eps)
         return x + mlp({k: v[g] for k, v in p["mlp"].items()}, h2, cfg.mlp_activation)
 
+    def _head(self) -> Optional[torch.Tensor]:
+        """The untied output head, or None when the table is tied."""
+        return self.embed["head"] if "head" in self.embed else None
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final hidden (B,S,D) -> softcapped f32 logits (B,S,V)."""
-        logits = unembed(self.embed["table"], x, self.cfg.vocab_size)[..., : self.cfg.vocab_size]
+        logits = unembed(self.embed["table"], x, self.cfg.vocab_size,
+                         head=self._head())[..., : self.cfg.vocab_size]
         return softcap(logits, self.cfg.final_softcap)
 
     def _stack(self, x: torch.Tensor, positions: torch.Tensor, caches: Optional[Caches] = None,
@@ -206,11 +214,12 @@ class LM(nn.Module):
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch {tokens, targets} -> (loss, {ce, aux})."""
         hidden, aux = self.forward(batch["tokens"], return_hidden=True)
-        ce = _chunked_ce(self.embed["table"], hidden, batch["targets"], self.cfg)
+        ce = _chunked_ce(self.embed["table"], hidden, batch["targets"], self.cfg,
+                         head=self._head())
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
-def _chunked_ce(table, hidden, targets, cfg) -> torch.Tensor:
+def _chunked_ce(table, hidden, targets, cfg, head=None) -> torch.Tensor:
     """Mean cross-entropy over ``ce_chunk``-position slices of the sequence,
     so the (B, S, V) f32 logits never exist at once."""
     s = hidden.shape[1]
@@ -219,7 +228,7 @@ def _chunked_ce(table, hidden, targets, cfg) -> torch.Tensor:
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, s, chunk):
         h_c, t_c = hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk]
-        logits = softcap(unembed(table, h_c, cfg.vocab_size), cfg.final_softcap)
+        logits = softcap(unembed(table, h_c, cfg.vocab_size, head=head), cfg.final_softcap)
         logp = torch.log_softmax(logits.float(), dim=-1)
         valid = t_c >= 0
         ce = -torch.gather(logp, -1, torch.clamp_min(t_c, 0)[..., None].long())[..., 0]

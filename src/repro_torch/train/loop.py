@@ -87,6 +87,18 @@ class TrainLoopConfig:
     fired_faults: Set[int] = dataclasses.field(default_factory=set, repr=False, compare=False)
 
 
+def _batch_tokens(batch) -> Optional[int]:
+    """A step's token count for the auto-schedule policy (the reference's
+    ``_batch_tokens``): B·S for a ``tokens`` batch, otherwise the leading
+    dimension of the first leaf in sorted-key order (``images``)."""
+    if "tokens" in batch:
+        return int(batch["tokens"].numel())
+    leaves = [batch[k] for k in sorted(batch)]
+    if not leaves or not leaves[0].shape:
+        return None
+    return int(leaves[0].shape[0])
+
+
 def _recoverable(e: BaseException) -> bool:
     return isinstance(e, RECOVERABLE) and not isinstance(e, FATAL)
 
@@ -112,7 +124,7 @@ def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
 
     rank, world = rank_and_world(group)
     device = next(model.parameters()).device
-    batch_tokens = stream.batch_at(0)["tokens"].numel()
+    batch_tokens = _batch_tokens(stream.batch_at(0))
     live_cfg = step_cfg
     step_fns: Dict[float, Callable] = {}
     first: List[Callable] = []  # the first step function built
