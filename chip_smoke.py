@@ -116,7 +116,32 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    selector, stacked and streamed dispatch), each row's final loss, steps
    a second and kernel launches (B1, B2 and B3 in each ``_cuda`` row, none
    in any other), then the lab's 20 claims, whose verdicts must be
-   ``LAB_VERDICTS``.
+   ``LAB_VERDICTS``;
+17. the model zoo's training at full width: ``train-hymba`` (hymba_1_5b, 8
+   of its 32 layers) and ``train-xlstm`` (xlstm_1_3b, one group: 7 mLSTM
+   and 1 sLSTM layers), each the ``train`` phase's flags for 3 steps,
+   launching B4, B2 and B3 2, 2 and 1 times a step, the losses finite, then
+   the same 3 steps on the dense baseline (``-dense``, no kernel): step 0's
+   batch's loss lower after the 3 steps on both, the compressed drop at
+   least ``ZOO_DROP_RATIO`` of the dense one; ``train-moe``: mixtral_8x22b
+   at one layer, 2 steps of the dense baseline at batch 2 x 256 (a
+   full-width MoE backward pass; compression at this size does not fit the
+   card), a finite loss and aux, no kernel;
+18. ``serve-hymba`` and ``serve-xlstm``: phase 12 at hymba's 32 and xlstm's
+   48 layers, batch 8 x prompt 512 + 32, every cache leaf of the
+   reference's shape (``SERVE_CACHE_SHAPES``), each layer's decode path
+   held to its full path, and decode held to ``forward`` within
+   ``SERVE_LOGITS_REL`` end to end (xlstm's printed at 48 layers and at one
+   group, and held at one group and the width the reference was read at:
+   ``XLSTM_GROUP``);
+19. ``zoo``: internlm2_20b, phi3_medium_14b, qwen1_5_110b (QKV bias),
+   mixtral_8x22b and qwen3_moe_235b_a22b at full width and one group, each
+   built on the card, prefilling batch 2 x 256 and decoding 8 tokens, decode
+   held to ``forward`` (for the MoE archs, at the configured capacity and
+   at one that drops nothing, on the positions whose experts agree on both
+   sides, at least half of those not dropped; the flipped and dropped ones
+   counted, a flip only at a near-tie of the router: ``FLIP_MARGIN``),
+   with its parameters, prefill and decode ms and peak.
 
 Phase 10 also runs ``train-psum-noderound``: ``train-psum`` with its
 exchange fed the island mean's irfft(rfft(g)), as ``train-hierarchical``
@@ -130,8 +155,8 @@ Then each training phase's mean steady step (``train-dense`` beside
 ``train``) and the ops phase's time, one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package.  ``--rows`` and ``--skip-train`` (which skips phases 4 to 6)
-shorten a run while a kernel is being brought up; ``--only theory,lab``
-runs only the named phases after the kernel phases; ``--profile`` traces the
+shorten a run while a kernel is being brought up; ``--only theory,lab,zoo``
+runs only the named phases after the kernel phases (``zoo``: phases 17-19); ``--profile`` traces the
 first training phase with ``torch.profiler`` and prints device time by
 kernel, by op and per step.
 """
@@ -1474,14 +1499,55 @@ def chaos_phase(dev, kernels, fused) -> None:
                 transitions=("kind:fft->dense",))
 
 
-# the serving phases: gemma2_2b at its full 26 layers, batch x prompt + new
-SERVE_SHAPES = {"serve": (8, 512, 32), "serve-long": (2, 4608, 64)}
-SERVE_LAYERS = 26
+# the serving phases: batch x prompt + new tokens, and the arch each serves
+# at its full depth (gemma2_2b 26 layers, hymba_1_5b 32, xlstm_1_3b 48)
+SERVE_SHAPES = {"serve": (8, 512, 32), "serve-long": (2, 4608, 64),
+                "serve-hymba": (8, 512, 32), "serve-xlstm": (8, 512, 32)}
+SERVE_ARCH = {"serve": "gemma2_2b", "serve-long": "gemma2_2b", "serve-hymba": "hymba_1_5b",
+              "serve-xlstm": "xlstm_1_3b"}
 # decode_step's logits against one forward over the same tokens (relative L2
 # over every compared position): both run bf16 matmuls, but a one-token
 # product rounds and accumulates otherwise than a whole sequence's, through
-# 26 layers; the model tests' gradient tolerance
+# 26 layers; the model tests' gradient tolerance.  The recurrent kinds'
+# decode (hymba's SSM step, xlstm's mLSTM at one step and sLSTM) is another
+# arrangement than their chunked forward: each layer's decode path is also
+# held to its full-sequence path on the same inputs (``layerwise_gap``),
+# within the same limit.  At reduced size on the CPU the reference's own
+# decode-to-forward gap is 0.0 for both archs and the port's 3.0e-3 (hymba)
+# and 0.0 (xlstm)
 SERVE_LOGITS_REL = 5e-2
+# xlstm's end-to-end gap is printed at its served depth and at one group
+# (8 layers) at full width, and held at the one config the reference has
+# been read at: one group, d_model 1024 and the reduced sizes otherwise,
+# batch 2 x prompt 20 + 6 of seeded tokens (XLSTM_GROUP).  xlstm amplifies
+# bf16 rounding through depth and width, so its decode and forward part by
+# their rounding alone: the reference's own gap there (CPU, jitted) is
+# XLSTM_GROUP_REF_GAP, as tests/test_torch_xlstm.py reads it (the port's
+# there: 2.09e-2 on one CPU thread).  On the card the port's reads 0.106 at
+# one group and full width (d_model 2048), 0.78 at 48 layers.  Held within
+# SERVE_LOGITS_REL
+XLSTM_GROUP = {"changes": {"n_layers": 8, "d_model": 1024, "n_heads": 4, "head_dim": 256},
+               "shape": (2, 20, 6), "seed": 0}
+XLSTM_GROUP_REF_GAP = 1.79e-2
+
+
+def xlstm_group_tokens(cfg) -> torch.Tensor:
+    """``XLSTM_GROUP``'s tokens, (batch, prompt + new) int64 on the CPU."""
+    b, p, n = XLSTM_GROUP["shape"]
+    return torch.randint(0, cfg.vocab_size, (b, p + n),
+                         generator=torch.Generator().manual_seed(XLSTM_GROUP["seed"]))
+# each cache leaf's shape at the zoo serve phases' batch 8 and max_seq 552
+# (prompt 512 + 32 + 8): the reference's LM.init_caches, as
+# tests/test_torch_zoo.py holds this table to it
+_MLSTM_CACHE = {"c": (6, 8, 4, 1024, 1024), "n": (6, 8, 4, 1024), "m": (6, 8, 4),
+                "conv": (6, 8, 3, 4096)}
+SERVE_CACHE_SHAPES = {
+    "serve-hymba": {"l0_hybrid": ({"k": (32, 8, 552, 5, 64), "v": (32, 8, 552, 5, 64),
+                                   "pos": (32, 552)},
+                                  {"conv": (32, 8, 3, 3200), "h": (32, 8, 3200, 16)})},
+    "serve-xlstm": {**{f"l{i}_mlstm": _MLSTM_CACHE for i in range(7)},
+                    "l7_slstm": {name: (6, 8, 2048) for name in ("c", "n", "h", "m")}},
+}
 # train-publish's ring: a delta every step, a snapshot every 2 deltas, 2
 # buffered
 PUBLISH_ARGS = ["--publish-every", "1", "--publish-snapshot-every", "2",
@@ -1493,52 +1559,34 @@ PUBLISH_STEPS = 5
 STALENESS = 0.1
 
 
-def serve_phase(dev, counted, label: str) -> None:
-    """``launch.serve`` standalone at gemma2_2b's full width and depth (26
-    layers, ~2.61 B parameters): batch x prompt, then the new tokens
-    greedily; the tokens again through ``Engine`` (equal); then
-    ``decode_step``'s logits along the generated sequence, teacher-forced,
-    against one ``forward`` over it (``SERVE_LOGITS_REL``).  No kernel
-    launches.  With a prompt past the 4096 window, the 13 local layers'
-    caches are rings and the global layers' are not."""
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.serve import Engine, ServeConfig
+def serve_max_seq(label: str) -> int:
+    """The cache length a serve phase's engine allocates (``launch.serve``'s
+    prompt + new + 8)."""
+    _, prompt, new = SERVE_SHAPES[label]
+    return prompt + new + 8
 
-    batch, prompt, new = SERVE_SHAPES[label]
-    for kern in counted:
-        kern.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    result = serve_cli.main(["--arch", "gemma2_2b", "--batch", str(batch), "--prompt-len",
-                             str(prompt), "--new-tokens", str(new)])
-    wall = time.perf_counter() - t0
-    model, cfg, tokens, prompts = (result[k] for k in ("model", "config", "tokens", "prompts"))
-    tm = result["timings"]
-    del result
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {kern.name: kern.launches for kern in counted}
-    if any(launches.values()):
-        raise AssertionError(f"{label} launched kernels: {launches}")
-    if cfg.n_layers != SERVE_LAYERS:
-        raise AssertionError(f"{label} served {cfg.n_layers} layers, not {SERVE_LAYERS}")
-    params = sum(p.numel() for p in model.parameters())
-    max_seq = prompt + new + 8
-    warm = {}  # the second run's times: the first's include the card's first launches
-    again = Engine(model, ServeConfig(max_seq=max_seq, batch=batch)).generate(
-        prompts, new, timings=warm)
-    if not torch.equal(again, tokens):
-        raise AssertionError(f"{label}: a second run gave other tokens")
-    if tuple(tokens.shape) != (batch, prompt + new) or not torch.equal(tokens[:, :prompt],
-                                                                      prompts):
-        raise AssertionError(f"{label}: tokens of shape {tuple(tokens.shape)}")
-    # decode_step's logits, teacher-forced along the generated tokens
+
+def cache_shapes(caches) -> dict:
+    """``{"l{i}_{kind}": {field: shape}}`` (a pair of them for a hybrid
+    layer) of either package's caches: every array field of each cache
+    dataclass, KVCache's ``ring`` flag left out."""
+    import dataclasses
+
+    def one(cache):
+        if isinstance(cache, tuple):
+            return tuple(one(c) for c in cache)
+        return {f.name: tuple(getattr(cache, f.name).shape) for f in dataclasses.fields(cache)
+                if hasattr(getattr(cache, f.name), "shape")}
+
+    return {key: one(c) for key, c in caches.items()}
+
+
+def decode_and_forward(model, tokens, prompt: int, max_seq: int):
+    """``decode_step``'s logits, teacher-forced along ``tokens`` after a
+    prefill of ``prompt``, and one ``forward``'s over the same tokens, at
+    every decoded position -> (stepped, full), each (B, new, V) f32."""
+    new = tokens.shape[1] - prompt
     logits, caches = model.prefill(tokens[:, :prompt], max_seq=max_seq, last_only=True)
-    rings = {key: (c.ring, c.k.shape[2]) for key, c in caches.items()}
-    want_rings = {key: (("local" in key) and max_seq > cfg.sliding_window,
-                        min(max_seq, cfg.sliding_window) if "local" in key else max_seq)
-                  for key in caches}
-    if rings != want_rings:
-        raise AssertionError(f"{label}: caches {rings}, expected {want_rings}")
     stepped = [logits[:, 0]]
     for i in range(new - 1):
         logits, caches = model.decode_step(caches, tokens[:, prompt + i:prompt + i + 1],
@@ -1549,26 +1597,226 @@ def serve_phase(dev, counted, label: str) -> None:
     with torch.no_grad():
         hidden, _ = model(tokens[:, :prompt + new - 1], return_hidden=True)
         full = model._logits(hidden[:, prompt - 1:])
-    del hidden
-    rel = float(torch.linalg.vector_norm(stepped - full) / torch.linalg.vector_norm(full))
-    max_abs = float((stepped - full).abs().max())
-    agree = float((stepped.argmax(-1) == full.argmax(-1)).float().mean())
-    if not math.isfinite(rel) or rel > SERVE_LOGITS_REL:
-        raise AssertionError(f"{label}: decode logits {rel:.3e} (relative L2) from forward's, "
-                             f"limit {SERVE_LOGITS_REL}")
+    return stepped, full
+
+
+def logits_gap(stepped, full) -> dict:
+    """Relative L2, max abs and argmax agreement of ``stepped`` against
+    ``full`` over every position they hold."""
+    return {"rel": float(torch.linalg.vector_norm(stepped - full)
+                         / torch.linalg.vector_norm(full)),
+            "max_abs": float((stepped - full).abs().max()),
+            "agree": float((stepped.argmax(-1) == full.argmax(-1)).float().mean()),
+            "positions": stepped.shape[:-1].numel()}
+
+
+def decode_vs_forward(model, tokens, prompt: int, max_seq: int) -> dict:
+    """``logits_gap`` of ``decode_and_forward`` over every decoded position."""
+    stepped, full = decode_and_forward(model, tokens, prompt, max_seq)
+    out = logits_gap(stepped, full)
+    del stepped, full
+    return out
+
+
+def moe_decode_vs_forward(model, tokens, prompt: int, max_seq: int) -> dict:
+    """``decode_and_forward`` of a model with one MoE layer, with the experts
+    each decoded position went to on either side: a position's logits
+    depend on its own choices alone (the attention before the MoE block
+    reads the layer's input, and only the head follows it).  The experts a
+    position used are its kept choices (top-k within capacity).  ->
+    ``logits_gap`` over the positions whose experts agree, and the counts
+    of the others: ``flipped`` (the router's top-k differ) and ``dropped``
+    (the same top-k, a choice over capacity on one side), with forward's
+    k-th over (k+1)-th probability at each flipped position."""
+    from repro_torch.models import moe as M
+
+    cfg = model.cfg
+    if sum(kind.endswith("moe") for kind in model.pattern) * model.n_groups != 1:
+        raise AssertionError(f"{cfg.name}: the choice check takes one MoE layer")
+    k, b = cfg.experts_per_token, tokens.shape[0]
+    calls, route = [], M.route
+
+    def recording(groups, router, cfg):
+        r = route(groups, router, cfg)
+        calls.append(r)
+        return r
+
+    M.route = recording
+    try:
+        stepped, full = decode_and_forward(model, tokens, prompt, max_seq)
+    finally:
+        M.route = route
+    new = tokens.shape[1] - prompt
+    if len(calls) != new + 1:
+        raise AssertionError(f"{cfg.name}: {len(calls)} MoE calls, not {new + 1}")
+
+    def per_token(r, n, field):
+        value = getattr(r, field)
+        return value.reshape(-1, *value.shape[2:])[: b * n].reshape(b, n, *value.shape[2:])
+
+    def experts(r, n):
+        kept = torch.where(per_token(r, n, "slot") < r.cap, per_token(r, n, "top_e"), -1)
+        return (torch.sort(kept, dim=-1).values,
+                torch.sort(per_token(r, n, "top_e"), dim=-1).values)
+
+    dec = [tuple(t[:, -1:] for t in experts(calls[0], prompt))]
+    dec += [experts(r, 1) for r in calls[1:new]]
+    dec_kept, dec_top = (torch.cat([d[j] for d in dec], dim=1) for j in (0, 1))
+    fwd_kept, fwd_top = (t[:, prompt - 1:] for t in experts(calls[new], prompt + new - 1))
+    same = torch.all(dec_kept == fwd_kept, dim=-1)
+    flipped = ~torch.all(dec_top == fwd_top, dim=-1)
+    probs = per_token(calls[new], prompt + new - 1, "probs")[:, prompt - 1:]
+    top = torch.sort(probs, dim=-1, descending=True).values
+    margins = (top[..., k - 1] - top[..., k])[flipped]
+    del calls
+    out = logits_gap(stepped[same], full[same]) if bool(same.any()) else {
+        "rel": float("nan"), "max_abs": float("nan"), "agree": float("nan"), "positions": 0}
+    out.update(all=logits_gap(stepped, full), flipped=int(flipped.sum()),
+               dropped=int((~same & ~flipped).sum()), margins=margins.tolist())
+    del stepped, full
+    return out
+
+
+def layerwise_gap(model, tokens, prompt: int, max_seq: int) -> float:
+    """Each layer's decode path against its full-sequence path on the same
+    inputs: the inputs of every layer along ``tokens`` come from one
+    forward; the full path runs the layer over all of them, the decode path
+    prefills the layer's cache over the prompt and steps it one position at
+    a time through the rest.  -> the largest relative L2, over layers, of
+    the layer's update (its output less its input) at the decoded
+    positions."""
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import _group_cache
+
+    caches = model.init_caches(tokens.shape[0], max_seq)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed(model.embed["table"], tokens)
+    worst = 0.0
+    with torch.no_grad():
+        for g in range(model.n_groups):
+            for i, kind in enumerate(model.pattern):
+                cache = _group_cache(caches[f"l{i}_{kind}"], g)
+                full, _ = model._layer(i, kind, g, x, positions)
+                model._layer(i, kind, g, x[:, :prompt], positions[:prompt], cache)
+                stepped = torch.cat([
+                    model._layer(i, kind, g, x[:, t:t + 1], positions[t:t + 1], cache, t)[0]
+                    for t in range(prompt, tokens.shape[1])], dim=1)
+                want = (full[:, prompt:] - x[:, prompt:]).float()
+                got = (stepped - x[:, prompt:]).float()
+                worst = max(worst, float(torch.linalg.vector_norm(got - want)
+                                         / torch.linalg.vector_norm(want)))
+                x = full
+    del caches
+    return worst
+
+
+def serve_phase(dev, counted, label: str) -> None:
+    """``launch.serve`` standalone at its arch's full width and depth
+    (gemma2_2b: 26 layers, ~2.61 B parameters; hymba_1_5b: 32, ~0.80 B;
+    xlstm_1_3b: 48, ~4.39 B): batch x prompt, then the new tokens greedily;
+    the tokens again through ``Engine`` (equal); then ``decode_step``'s
+    logits along the generated sequence, teacher-forced, against one
+    ``forward`` over it (``SERVE_LOGITS_REL``; xlstm's printed at 48 layers
+    and at one group, and held at ``XLSTM_GROUP``).  No kernel launches.
+    gemma2: with a prompt past the 4096 window, the 13 local layers' caches
+    are rings and the global layers' are not; hymba and xlstm: every cache
+    leaf has the reference's shape (``SERVE_CACHE_SHAPES``), and each
+    layer's decode path is held to its full path (``layerwise_gap``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    arch = SERVE_ARCH[label]
+    batch, prompt, new = SERVE_SHAPES[label]
+    for kern in counted:
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = serve_cli.main(["--arch", arch, "--batch", str(batch), "--prompt-len",
+                             str(prompt), "--new-tokens", str(new)])
+    wall = time.perf_counter() - t0
+    model, cfg, tokens, prompts = (result[k] for k in ("model", "config", "tokens", "prompts"))
+    tm = result["timings"]
+    del result
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {kern.name: kern.launches for kern in counted}
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched kernels: {launches}")
+    depth = configs.get_config(arch).n_layers
+    if cfg.n_layers != depth:
+        raise AssertionError(f"{label} served {cfg.n_layers} layers, not {depth}")
+    params = sum(p.numel() for p in model.parameters())
+    max_seq = serve_max_seq(label)
+    warm = {}  # the second run's times: the first's include the card's first launches
+    again = Engine(model, ServeConfig(max_seq=max_seq, batch=batch)).generate(
+        prompts, new, timings=warm)
+    if not torch.equal(again, tokens):
+        raise AssertionError(f"{label}: a second run gave other tokens")
+    if tuple(tokens.shape) != (batch, prompt + new) or not torch.equal(tokens[:, :prompt],
+                                                                      prompts):
+        raise AssertionError(f"{label}: tokens of shape {tuple(tokens.shape)}")
+    _, caches = model.prefill(tokens[:, :prompt], max_seq=max_seq, last_only=True)
+    if arch == "gemma2_2b":
+        got = {key: (c.ring, c.k.shape[2]) for key, c in caches.items()}
+        want = {key: (("local" in key) and max_seq > cfg.sliding_window,
+                      min(max_seq, cfg.sliding_window) if "local" in key else max_seq)
+                for key in caches}
+        what = "caches (ring, slots)"
+    else:
+        got, want = cache_shapes(caches), SERVE_CACHE_SHAPES[label]
+        what = "cache leaf shapes"
+    del caches
+    if got != want:
+        raise AssertionError(f"{label}: {what} {got}, expected {want}")
+    gap = decode_vs_forward(model, tokens, prompt, max_seq)
+    checks = ""
+    if any(kind in ("hybrid", "mlstm", "slstm") for kind in model.pattern):
+        worst = layerwise_gap(model, tokens, prompt, max_seq)
+        if not math.isfinite(worst) or worst > SERVE_LOGITS_REL:
+            raise AssertionError(f"{label}: a layer's decode path is {worst:.3e} (relative L2) "
+                                 f"from its full-sequence path, limit {SERVE_LOGITS_REL}")
+        checks += (f"; each layer's decode path against its full-sequence path on the same "
+                   f"inputs: at most {worst:.3e} (limit {SERVE_LOGITS_REL})")
+    held = gap
+    if arch == "xlstm_1_3b":
+        del model
+        torch.cuda.empty_cache()
+        group = dataclasses.replace(cfg, n_layers=XLSTM_GROUP["changes"]["n_layers"])
+        model = build(group, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        one = decode_vs_forward(model, tokens, prompt, max_seq)
+        del model
+        b, p, n = XLSTM_GROUP["shape"]
+        small = dataclasses.replace(cfg.reduced(), **XLSTM_GROUP["changes"])
+        model = build(small, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        seeded = xlstm_group_tokens(small).to(dev)
+        held = decode_vs_forward(model, seeded, p, p + n + 8)
+        checks += (f"; at one group and full width: {one['rel']:.3e} relative L2 (printed), "
+                   f"max abs {one['max_abs']:.3e}, argmax agreement {one['agree']:.4f}; at "
+                   f"one group and d_model {small.d_model} (the reference's reading "
+                   f"{XLSTM_GROUP_REF_GAP}): {held['rel']:.3e} relative L2 (limit "
+                   f"{SERVE_LOGITS_REL}), argmax agreement {held['agree']:.4f}")
     steps = warm["decode_steps"]
     decode_ms = warm["decode_s"] * 1e3 / steps
     PHASE_MS[label] = decode_ms
-    log(f"[{label}] {params} parameters, batch {batch} x prompt {prompt} + {new} new, "
+    log(f"[{label}] {arch}, {params} parameters, batch {batch} x prompt {prompt} + {new} new, "
         f"second run: prefill {warm['prefill_s'] * 1e3:.1f} ms, decode {decode_ms:.2f} ms a "
         f"step, {batch * steps / warm['decode_s']:.1f} decoded tokens/s (first run: prefill "
         f"{tm['prefill_s'] * 1e3:.1f} ms, decode {tm['decode_s'] * 1e3 / steps:.2f} ms a "
         f"step); wall {wall:.1f}s, "
         f"peak_memory={peak_gb:.2f} GB; two runs equal; decode vs forward over "
-        f"{stepped.shape[1]} positions: {rel:.3e} relative L2 (limit {SERVE_LOGITS_REL}), "
-        f"max abs {max_abs:.3e}, argmax agreement {agree:.4f}; caches (ring, slots) {rings}")
-    del model, stepped, full
+        f"{gap['positions']} positions: {gap['rel']:.3e} relative L2 ("
+        f"{f'limit {SERVE_LOGITS_REL}' if held is gap else 'printed, not held'}), max "
+        f"abs {gap['max_abs']:.3e}, argmax agreement {gap['agree']:.4f}{checks}; {what} "
+        f"{got if arch == 'gemma2_2b' else 'as the reference'}")
+    del model
     torch.cuda.empty_cache()
+    if not math.isfinite(gap["rel"]) or not math.isfinite(held["rel"]) or \
+            held["rel"] > SERVE_LOGITS_REL:
+        raise AssertionError(f"{label}: decode logits {held['rel']:.3e} (relative L2) from "
+                             f"forward's, limit {SERVE_LOGITS_REL}")
 
 
 def _flat_host(leaves) -> torch.Tensor:
@@ -1896,6 +2144,193 @@ def lab_phase(kernels) -> None:
     torch.cuda.empty_cache()
 
 
+# the zoo's compressed training phases: the train phase's flags at another
+# arch and depth, full width (hymba_1_5b: 8 of its 32 layers, 0.277 B
+# parameters; xlstm_1_3b: one group, 7 mLSTM + 1 sLSTM, 0.903 B)
+ZOO_TRAIN = {"train-hymba": ("hymba_1_5b", 8), "train-xlstm": ("xlstm_1_3b", 8)}
+ZOO_TRAIN_STEPS = 3
+# the compressed path's drop of step 0's loss over the dense path's, at
+# least: the sketch keeps theta = 0.7 of each bucket's spectrum and error
+# feedback carries the rest into the next step, so 3 steps should go most
+# of the dense path's way (a gradient of half the batch, or of the wrong
+# rows, goes a small part of it; AdamW hides a gradient's scale)
+ZOO_DROP_RATIO = 0.5
+# a full-width MoE backward pass: mixtral_8x22b at one layer (2.91 B
+# parameters) on the dense baseline (--mode pjit: ~46.5 GB of weights, grads
+# and AdamW moments); compression would add ~55 GB, more than the card has
+MOE_TRAIN_ARGS = ["--arch", "mixtral_8x22b", "--n-layers", "1", "--mode", "pjit",
+                  "--batch", "2", "--seq", "256", "--steps", "2"]
+# the zoo's serving phase: one group of each arch the other phases do not
+# run, built on the card, batch x prompt + new tokens
+ZOO_ARCHS = ("internlm2_20b", "phi3_medium_14b", "qwen1_5_110b", "mixtral_8x22b",
+             "qwen3_moe_235b_a22b")
+ZOO_SHAPE = (2, 256, 8)
+# a top-k choice may flip between decode and forward only where the router
+# nearly ties: forward's k-th over (k+1)-th probability below this.  Their
+# MoE inputs part by bf16 rounding, ~1e-2 relative; the router's logits
+# (std ~0.02 at init) then move by ~2e-4 and its probabilities by ~2e-4 /
+# n_experts
+FLIP_MARGIN = 1e-4
+
+
+def zoo_train_phases(kernels, fused) -> None:
+    """``train-hymba`` and ``train-xlstm``: 3 compressed_dp EF steps each
+    (sequenced, 64 MB buckets, backend and selector auto), B4, B2 and B3
+    launched 2, 2 and 1 times a step as in ``train``, the losses finite;
+    then the same 3 steps on the dense baseline (``--mode pjit``, the exact
+    gradient, no kernel).  Each step draws a fresh batch of a 32k-50k token
+    Markov stream, so the step losses need not fall in 3 steps; what is
+    held is the loss of step 0's batch: lower under the trained weights
+    than at step 0 on both paths, and the compressed path's drop at least
+    ``ZOO_DROP_RATIO`` of the dense path's.  Then ``train-moe``: 2 dense
+    steps of mixtral at one layer, a finite loss and aux, no kernel
+    launched."""
+    from repro_torch.data import SyntheticConfig, SyntheticStream
+    from repro_torch.launch import train as train_cli
+
+    for label, (arch, layers) in ZOO_TRAIN.items():
+        model_args = ["--arch", arch, "--n-layers", str(layers), "--batch", str(BATCH),
+                      "--seq", str(SEQ), "--steps", str(ZOO_TRAIN_STEPS)]
+        seen = []
+
+        def run(args):
+            def go():
+                result = train_cli.main(args)
+                model = result["state"]["model"]
+                first = SyntheticStream(SyntheticConfig(
+                    vocab_size=model.cfg.vocab_size, seq_len=SEQ, global_batch=BATCH, seed=0),
+                    device=model.embed["table"].device).batch_at(0)
+                with torch.no_grad():
+                    seen.append(float(model.loss(first)[0]))
+                return result
+            return go
+
+        counts, history = train_phase(run(model_args + TRAIN_ARGS[8:] + SEQUENCED), kernels,
+                                      label, fused)
+        if {k: counts[k] for k in LAUNCHES_PER_STEP} != {
+                k: ZOO_TRAIN_STEPS * v for k, v in LAUNCHES_PER_STEP.items()}:
+            raise AssertionError(f"{label} launched {counts} in {ZOO_TRAIN_STEPS} steps, not "
+                                 f"{ZOO_TRAIN_STEPS} x {LAUNCHES_PER_STEP}")
+        _, dense = train_phase(run(model_args), kernels, f"{label}-dense", (),
+                               must_not_launch=True)
+        (before, dense_before), (after, dense_after) = ((history[0]["loss"], dense[0]["loss"]),
+                                                        seen)
+        drop, dense_drop = before - after, dense_before - dense_after
+        log(f"[{label}] step 0's batch: loss {before:.4f} at step 0, {after:.4f} after "
+            f"{ZOO_TRAIN_STEPS} compressed steps (drop {drop:.4f}); dense: {dense_before:.4f} "
+            f"-> {dense_after:.4f} (drop {dense_drop:.4f}); compressed over dense "
+            f"{drop / dense_drop:.3f} (at least {ZOO_DROP_RATIO})")
+        if not (0 < dense_drop and ZOO_DROP_RATIO * dense_drop <= drop):
+            raise AssertionError(f"{label}: step 0's loss fell by {drop} compressed and "
+                                 f"{dense_drop} dense")
+    _, history = train_phase(lambda: train_cli.main(MOE_TRAIN_ARGS), kernels, "train-moe", (),
+                             must_not_launch=True)
+    aux = [row["aux"] for row in history]
+    if not all(math.isfinite(a) and a > 0 for a in aux):
+        raise AssertionError(f"train-moe: aux {aux}")
+    log(f"[train-moe] aux (the MoE layer's Switch loss, 1 at uniform routing) {aux}")
+
+
+def zoo_serve_phase(dev, counted) -> None:
+    """``zoo``: each of ``ZOO_ARCHS`` at full width and one group, built on
+    the card from a seed, prefills batch 2 x 256 and decodes 8 tokens
+    greedily; ``decode_step``'s logits along them against one ``forward``
+    (``SERVE_LOGITS_REL``).  A MoE layer's output is not continuous in its
+    input: a token whose experts differ between decode and forward gets
+    another output.  Two causes move them: bf16 rounding that differs
+    between decode and forward flips a near-tied top-k choice of the
+    router (at init its probabilities sit within ~1e-2 of uniform), and
+    forward's padded last group (zero tokens, whose tied router picks the
+    first experts) fills capacity that decode's one-token groups leave
+    free.  For the MoE archs the experts of every decoded position are
+    recorded on both sides (``moe_decode_vs_forward``), at the configured
+    capacity and at one that drops nothing: the flipped and dropped
+    positions are counted and printed; a flip must sit at a near-tie
+    (``FLIP_MARGIN``); of the positions not dropped at least half must
+    agree (forward's padded group can hold a whole row's decoded
+    positions); and the logits are held on the positions that agree.  No
+    kernel launches; each model is freed before the next."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.serve import Engine, ServeConfig
+
+    batch, prompt, new = ZOO_SHAPE
+    max_seq = prompt + new + 8
+    for arch in ZOO_ARCHS:
+        for kern in counted:
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        base = configs.get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=len(base.layer_pattern()))
+        t0 = time.perf_counter()
+        model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(1))
+        engine = Engine(model, ServeConfig(max_seq=max_seq, batch=batch))
+        engine.generate(prompts, new)  # the card's first launches
+        tm = {}
+        tokens = engine.generate(prompts, new, timings=tm)
+        if cfg.n_experts:
+            gaps = {"configured": moe_decode_vs_forward(model, tokens, prompt, max_seq)}
+            model.cfg = dataclasses.replace(
+                cfg, moe_capacity_factor=cfg.n_experts / cfg.experts_per_token)
+            gaps["drop-free"] = moe_decode_vs_forward(model, tokens, prompt, max_seq)
+            model.cfg = cfg
+        else:
+            gaps = {"configured": decode_vs_forward(model, tokens, prompt, max_seq)}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {kern.name: kern.launches for kern in counted}
+        params = sum(p.numel() for p in model.parameters())
+        del model, engine
+        torch.cuda.empty_cache()
+        if any(launches.values()):
+            raise AssertionError(f"zoo {arch} launched kernels: {launches}")
+        steps = tm["decode_steps"]
+        decode_ms = tm["decode_s"] * 1e3 / steps
+
+        def line(g):
+            return (f"{g['rel']:.3e} relative L2, max abs {g['max_abs']:.3e}, argmax agreement "
+                    f"{g['agree']:.4f} over {g['positions']} positions")
+
+        PHASE_MS[f"zoo-{arch}"] = decode_ms
+        log(f"[zoo] {arch}: {len(cfg.layer_pattern())} layer(s), {params} parameters (built in "
+            f"{build_s:.1f} s), batch {batch} x prompt {prompt} + {new} new: prefill "
+            f"{tm['prefill_s'] * 1e3:.1f} ms, decode {decode_ms:.2f} ms a step, peak_memory="
+            f"{peak_gb:.2f} GB; decode vs forward (limit {SERVE_LOGITS_REL}) " + "; ".join(
+                f"{name}: {line(g)}" if "all" not in g else
+                f"{name}: {g['flipped']} flipped and {g['dropped']} dropped of "
+                f"{g['all']['positions']} positions (forward's k-th over (k+1)-th probability "
+                f"at the flipped: {', '.join(f'{m:.2e}' for m in g['margins']) or '-'}), "
+                f"where the experts agree {line(g)}, everywhere {line(g['all'])}"
+                for name, g in gaps.items()))
+        for name, g in gaps.items():
+            if "all" in g and (2 * g["positions"] < g["all"]["positions"] - g["dropped"]
+                               or not g["positions"]):
+                raise AssertionError(f"zoo {arch} {name}: the experts agree at "
+                                     f"{g['positions']} of {g['all']['positions']} positions "
+                                     f"({g['dropped']} dropped)")
+            if "all" in g and any(m >= FLIP_MARGIN for m in g["margins"]):
+                raise AssertionError(f"zoo {arch} {name}: a choice flipped at a margin of "
+                                     f"{max(g['margins'])}, limit {FLIP_MARGIN}")
+            if not math.isfinite(g["rel"]) or g["rel"] > SERVE_LOGITS_REL:
+                raise AssertionError(f"zoo {arch} {name}: decode logits {g['rel']:.3e} "
+                                     f"(relative L2) from forward's, limit {SERVE_LOGITS_REL}")
+
+
+def zoo_phases(dev, kernels, fused) -> None:
+    """Phases 17-19: the zoo's training, its two full-depth serve phases
+    and ``zoo``."""
+    zoo_train_phases(kernels, fused)
+    torch.cuda.empty_cache()
+    for label in ("serve-hymba", "serve-xlstm"):
+        serve_phase(dev, kernels, label)
+    zoo_serve_phase(dev, kernels)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=None,
@@ -1906,11 +2341,11 @@ def main() -> int:
                     help="trace the first training phase with torch.profiler")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel phases "
-                         "(theory, lab); default every phase")
+                         "(theory, lab, zoo); default every phase")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
-    if only is not None and not only <= {"theory", "lab"}:
-        ap.error(f"--only takes theory and lab, got {sorted(only)}")
+    if only is not None and not only <= {"theory", "lab", "zoo"}:
+        ap.error(f"--only takes theory, lab and zoo, got {sorted(only)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1987,7 +2422,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         bytecodec_phase(dev)
         torch.cuda.empty_cache()
-        for label in SERVE_SHAPES:
+        for label in ("serve", "serve-long"):
             serve_phase(dev, kernels, label)
         publish_phases(kernels, fused)
         publish_api_phase(dev, kernels)
@@ -1996,6 +2431,8 @@ def main() -> int:
             theory_phase(dev, kernels)
         if only is None or "lab" in only:
             lab_phase(kernels)
+        if only is None or "zoo" in only:
+            zoo_phases(dev, kernels, tuple(LAUNCHES_PER_STEP))
 
     if PHASE_MS:
         order = [k for k in ("train", "train-dense") if k in PHASE_MS]

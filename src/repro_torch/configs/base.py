@@ -1,9 +1,20 @@
-"""Architecture configuration (port of ``repro.configs.base.ArchConfig``, the
-fields and methods of the dense family).
+"""Architecture and shape configuration (port of ``repro.configs.base``).
 
-One :class:`ArchConfig` describes a model; ``layer_pattern()`` is the
-repeating group of layer kinds the stack walks ``n_groups()`` times, and
-``reduced()`` the tiny same-family config the CPU tests use.
+One :class:`ArchConfig` describes any of the ten architectures;
+``layer_pattern()`` is the repeating group of layer kinds the stack walks
+``n_groups()`` times, and ``reduced()`` the tiny same-family config the CPU
+tests use.  Every field of the reference is here, so ``dataclasses.asdict``
+of a config equals the reference's; the port reads the MoE, SSM and xLSTM
+fields, and keeps the encoder, cross-attention, frontend, ``remat``,
+``scan_layers`` and flash-tile fields for that parity alone (the kinds that
+need them raise in ``models/transformer.py``; see ROADMAP.md).
+
+:class:`ShapeConfig` and ``SHAPES`` are the four assigned input shapes.
+
+``param_count()`` sums the port's own parameter shapes, which are the
+reference spec's.  The reference's analytic ``ArchConfig.param_count`` is not
+ported: it disagrees with its own spec for hymba (it counts an MLP that a
+``hybrid`` layer does not build) and for xlstm (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -11,13 +22,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port runs the dense family
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -25,28 +36,67 @@ class ArchConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+
+    # attention
     rope_theta: float = 1e4
     qkv_bias: bool = False
     attn_softcap: float = 0.0  # gemma2: 50.0
     final_softcap: float = 0.0  # gemma2: 30.0
-    sliding_window: int = 0
-    local_global_period: int = 0  # gemma2: 2 -> [local, global]
+    sliding_window: int = 0  # mixtral / gemma2 local layers
+    local_global_period: int = 0  # gemma2: 2 -> [local, global] alternating
     mlp_activation: str = "swiglu"  # swiglu | geglu | relu
+
+    # moe
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_group_size: int = 512
+    moe_capacity_factor: float = 1.25
+    router_normalize_topk: bool = True
+
+    # ssm / hybrid (hymba)
+    ssm_state: int = 0
+    ssm_conv_width: int = 4
+    ssm_expand: int = 2
+
+    # xlstm
+    slstm_every: int = 0  # every k-th layer is sLSTM (0 = none)
+    xlstm_proj_factor: float = 2.0
+
+    # enc-dec / cross-attn (not ported yet)
+    n_encoder_layers: int = 0
+    cross_attn_period: int = 0  # llama-vision: every 5th decoder layer
+
+    # modality frontend stub: precomputed embeddings (not ported yet)
+    frontend: str = "none"  # none | audio_frames | vision_patches
+    n_frontend_tokens: int = 0
+
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    remat: str = "full"  # full | dots | none (the port does not rematerialize)
+    scan_layers: bool = True  # the reference's lax.scan over groups
     ce_chunk: int = 512  # chunked cross-entropy: seq positions per unembed
+    attn_q_chunk: int = 512  # the reference's flash tile sizes
+    attn_kv_chunk: int = 1024
 
     def layer_pattern(self) -> Tuple[str, ...]:
-        """The repeating group of layer kinds."""
-        if self.family != "dense":
-            raise NotImplementedError(
-                f"{self.name}: family {self.family!r} is not ported yet (ROADMAP.md)")
+        """The repeating group of layer kinds the stack walks."""
+        if self.n_encoder_layers:  # enc-dec: every decoder layer has cross-attn
+            return ("dec_cross_mlp",)
+        if self.family == "ssm":  # xlstm
+            period = self.slstm_every or self.n_layers + 1
+            return tuple("slstm" if (i + 1) % period == 0 else "mlstm" for i in range(period))
+        if self.family == "hybrid":
+            return ("hybrid",)
+        mlp = "moe" if self.n_experts else "mlp"
         if self.local_global_period:
-            return tuple("attn_local_mlp" if i % self.local_global_period == 0 else "attn_mlp"
-                         for i in range(self.local_global_period))
+            return tuple(f"attn_local_{mlp}" if i % self.local_global_period == 0
+                         else f"attn_{mlp}" for i in range(self.local_global_period))
+        if self.cross_attn_period:
+            return tuple([f"attn_{mlp}"] * (self.cross_attn_period - 1)
+                         + [f"cross_attn_{mlp}"])
         if self.sliding_window:
-            return ("attn_local_mlp",)
-        return ("attn_mlp",)
+            return (f"attn_local_{mlp}",)
+        return (f"attn_{mlp}",)
 
     def n_groups(self) -> int:
         pattern = self.layer_pattern()
@@ -71,8 +121,35 @@ class ArchConfig:
             head_dim=16,
             d_ff=128 if self.d_ff else 0,
             vocab_size=256,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            experts_per_token=min(self.experts_per_token, 2) if self.n_experts else 0,
+            moe_group_size=32,
+            ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
+            n_encoder_layers=2 if self.n_encoder_layers else 0,
             sliding_window=min(self.sliding_window, 32) if self.sliding_window else 0,
+            n_frontend_tokens=16 if self.frontend != "none" else 0,
+            remat="none",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def _numel(shape) -> int:

@@ -11,10 +11,12 @@ what ``train/checkpoint.py`` writes, so a checkpoint of either package
 restores in the other.  The step and the optimizer's count are int32
 scalars there; the residual is one row per worker, ``(workers, n)``.
 
-Serving caches map the same way: the reference's ``{"l{i}_{kind}":
-KVCache(k, v, pos, ring)}``, each leaf with its leading ``(n_groups,)``
-axis, is the port's structure, so :func:`caches_from_jax` is a rename (bf16
-arrays travel as their bit patterns).
+Serving caches map the same way: the reference's ``{"l{i}_{kind}": cache}``
+(a ``KVCache(k, v, pos, ring)``, a ``(KVCache, SSMState)`` pair for a
+hybrid layer, an ``MLSTMState`` or an ``SLSTMState``), each leaf with its
+leading ``(n_groups,)`` axis, is the port's structure, so
+:func:`caches_from_jax` is a rename by class name and field (bf16 arrays
+travel as their bit patterns).
 """
 
 from __future__ import annotations
@@ -63,13 +65,27 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def caches_from_jax(caches: Mapping[str, Any]):
-    """The reference's caches (``{"l{i}_{kind}": KVCache}`` whose leaves
-    are numpy arrays, or anything ``np.asarray`` takes) -> the port's
-    ``{"l{i}_{kind}": models.attention.KVCache}``, leaf for leaf."""
-    from repro_torch.models.attention import KVCache
+    """The reference's caches (``{"l{i}_{kind}": cache}`` whose leaves are
+    numpy arrays, or anything ``np.asarray`` takes) -> the port's, leaf for
+    leaf: each reference cache class becomes the port's class of that name
+    (``KVCache``, ``SSMState``, ``MLSTMState``, ``SLSTMState``), a pair
+    stays a pair."""
+    return {key: _cache_from_jax(c) for key, c in caches.items()}
 
-    return {key: KVCache(_tensor(c.k), _tensor(c.v), _tensor(c.pos), bool(c.ring))
-            for key, c in caches.items()}
+
+def _cache_from_jax(cache):
+    import dataclasses
+
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import SSMState
+    from repro_torch.models.xlstm import MLSTMState, SLSTMState
+
+    if isinstance(cache, (tuple, list)):
+        return tuple(_cache_from_jax(c) for c in cache)
+    cls = {c.__name__: c for c in (KVCache, SSMState, MLSTMState, SLSTMState)}[
+        type(cache).__name__]
+    return cls(**{f.name: bool(v) if f.name == "ring" else _tensor(v)
+                  for f in dataclasses.fields(cls) for v in (getattr(cache, f.name),)})
 
 
 def keystr(*parts: str) -> str:

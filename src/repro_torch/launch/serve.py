@@ -14,7 +14,8 @@ stream; arch, ``reduced`` and ``n_layers`` come from the ring's manifest:
     PYTHONPATH=src python -m repro_torch.launch.serve --follow /path/to/ring
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-GPU.  Prompts are drawn from ``--seed``; greedy unless ``--temperature``.
+GPU.  ``--arch`` takes the arch names of ``launch.train`` and refuses the
+same ones.  Prompts are drawn from ``--seed``; greedy unless ``--temperature``.
 Prints the tokens and one ``[serve]`` line of prefill and decode times.
 """
 
@@ -27,8 +28,7 @@ import time
 import torch
 
 from repro_torch import configs, device as device_mod
-from repro_torch.launch.train import ARCH_CHOICES
-from repro_torch.models import build
+from repro_torch.models import build, registry
 from repro_torch.serve import Engine, ReplicaSubscriber, ServeConfig
 
 
@@ -71,7 +71,7 @@ def _follow_ring(args, dev, timings):
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2_2b", choices=ARCH_CHOICES)
+    ap.add_argument("--arch", default="gemma2_2b", choices=registry.ARCH_NAMES)
     ap.add_argument("--reduced", action="store_true", help="smoke-size config")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth to this many layers at full width")
@@ -94,7 +94,10 @@ def main(argv=None):
     """Returns ``{"tokens", "prompts", "model", "config", "timings",
     "subscriber"}`` (the subscriber None when standalone; ``timings`` as
     ``Engine.generate`` fills them, plus ``follow_s`` with ``--follow``)."""
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.follow is None:
+        registry.check_arch(ap, args.arch, args.n_layers)
     dev = device_mod.resolve(args.device)
     sub, timings = None, {}
     if args.follow is not None:

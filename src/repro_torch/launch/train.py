@@ -30,7 +30,10 @@ compressed weight delta to the ring at D every ``--publish-every`` steps
       --backend auto --selector auto
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-GPU.  ``--n-layers`` cuts the depth at full width (a port-only flag).  Flags
+GPU.  ``--arch`` takes the registry's ten names; the two whose layer kinds
+are not ported (``seamless_m4t_large_v2``, ``llama3_2_vision_11b``) fail at
+parsing.  ``--n-layers`` cuts the depth at full width (a port-only flag, a
+multiple of the arch's layer pattern: 2 for gemma2_2b, 8 for xlstm).  Flags
 and values the port does not run (``--mode hierarchical``, ``--mesh
 production|multi_pod``) raise with a pointer to ROADMAP.md.  One difference
 from the reference CLI: the publisher's delta codec runs on ``--backend``
@@ -61,14 +64,10 @@ from repro_torch.comms.reducers import ReducerConfig
 from repro_torch.core import schedules as theta_schedules
 from repro_torch.data import SyntheticConfig, SyntheticStream
 from repro_torch.launch.mesh import make_two_level_mesh
-from repro_torch.models import build
+from repro_torch.models import build, registry
 from repro_torch.optim import OptConfig, lr_schedules
 from repro_torch.train import TrainLoopConfig, init_state, train_loop
 from repro_torch.train.step import StepConfig
-
-ARCH_CHOICES = ("gemma2_2b", "internlm2_20b", "qwen1_5_110b", "phi3_medium_14b",
-                "mixtral_8x22b", "qwen3_moe_235b_a22b", "hymba_1_5b", "xlstm_1_3b",
-                "seamless_m4t_large_v2", "llama3_2_vision_11b")
 
 
 def _not_ported(ap, what: str):
@@ -77,7 +76,7 @@ def _not_ported(ap, what: str):
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2_2b", choices=ARCH_CHOICES)
+    ap.add_argument("--arch", default="gemma2_2b", choices=registry.ARCH_NAMES)
     ap.add_argument("--reduced", action="store_true", help="smoke-size config")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the depth to this many layers at full width")
@@ -120,6 +119,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(ap, args) -> None:
+    registry.check_arch(ap, args.arch, args.n_layers)
     if args.mode == "hierarchical":
         _not_ported(ap, f"--mode {args.mode}")
     if args.mesh != "local":

@@ -1,10 +1,7 @@
-"""Models of the port (the dense transformer family so far)."""
+"""Models of the port: the decoder-only LM zoo (dense, MoE, hybrid, xLSTM)
+and the convnet."""
 
+from repro_torch.models.registry import build
 from repro_torch.models.transformer import LM
 
 __all__ = ["LM", "build"]
-
-
-def build(cfg, *, device=None, generator=None) -> LM:
-    """The model for ``cfg`` with weights drawn from ``generator``."""
-    return LM(cfg, device=device, generator=generator)

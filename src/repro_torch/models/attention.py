@@ -1,7 +1,8 @@
-"""Attention (port of ``repro.models.attention``): GQA projections with RoPE,
-causal and sliding-window masks, the attention-logit softcap, the output
-projection, and the KV caches of serving (flat, or a ring buffer of
-``window`` slots for a sliding-window layer).
+"""Attention (port of ``repro.models.attention``): GQA projections with the
+optional QKV bias and RoPE, causal and sliding-window masks, the
+attention-logit softcap, the output projection, and the KV caches of
+serving (flat, or a ring buffer of ``window`` slots for a sliding-window
+layer).
 
 Plain PyTorch math: the scores of one layer are materialized as
 ``(B, Kh, G, Sq, Skv)`` f32, which at the port's training shapes (S <= 512)
@@ -25,11 +26,16 @@ _NEG_INF = -1e30
 
 
 def project_qkv(p, x: torch.Tensor, positions: torch.Tensor, rope_theta: float = 1e4):
-    """x (B,S,D) -> q (B,S,Kh,G,Dh), k/v (B,S,Kh,Dh), rope applied."""
+    """x (B,S,D) -> q (B,S,Kh,G,Dh), k/v (B,S,Kh,Dh), rope applied; with
+    ``qkv_bias`` the biases ``bq``/``bk``/``bv`` are added before rope."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
     b, s, h, dh = q.shape

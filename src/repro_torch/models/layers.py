@@ -1,5 +1,6 @@
 """Shared layers (port of ``repro.models.layers``): RMSNorm, gated MLPs,
-embedding, RoPE, softcap.
+embedding, RoPE, softcap; and ``associative_scan``, JAX's parallel-prefix
+recursion, which the SSM's scan rounds through.
 
 Params are stored f32 and cast to ``COMPUTE_DTYPE`` (bf16) at use;
 activations flow in bf16 and reductions (norms, softmax, loss) run in f32,
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["COMPUTE_DTYPE", "padded_vocab", "softcap", "rmsnorm", "mlp", "embed",
-           "unembed", "rope"]
+           "unembed", "rope", "associative_scan"]
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -81,3 +82,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def associative_scan(fn, elems, dim: int = 0):
+    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` under
+    the associative ``fn(earlier, later) -> tuple``.
+
+    The odd/even recursion of ``jax.lax.associative_scan``: combine adjacent
+    pairs, scan the half-length sequence, then combine each odd result with
+    the next even element, so every output is built from the same combines
+    in the same order as the reference's (log-depth, ~2n combines)."""
+    moved = tuple(e.movedim(dim, 0) for e in elems)
+    return tuple(e.movedim(0, dim) for e in _scan0(fn, moved))
+
+
+def _scan0(fn, elems):
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = _scan0(fn, fn(tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems)))
+    if n % 2 == 0:
+        even = fn(tuple(e[:-1] for e in odd), tuple(e[2::2] for e in elems))
+    else:
+        even = fn(odd, tuple(e[2::2] for e in elems))
+    even = tuple(torch.cat([e[:1], r]) for e, r in zip(elems, even))
+    return tuple(_interleave(a, b) for a, b in zip(even, odd))
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a[0], b[0], a[1], b[1], ... along dim 0 (``a`` one longer, or as long)."""
+    m = b.shape[0]
+    pairs = torch.stack([a[:m], b], dim=1).reshape((2 * m,) + b.shape[1:])
+    return pairs if a.shape[0] == m else torch.cat([pairs, a[m:]])
