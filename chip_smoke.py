@@ -117,23 +117,34 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    a second and kernel launches (B1, B2 and B3 in each ``_cuda`` row, none
    in any other), then the lab's 20 claims, whose verdicts must be
    ``LAB_VERDICTS``;
-17. the model zoo's training at full width: ``train-hymba`` (hymba_1_5b, 8
-   of its 32 layers) and ``train-xlstm`` (xlstm_1_3b, one group: 7 mLSTM
-   and 1 sLSTM layers), each the ``train`` phase's flags for 3 steps,
-   launching B4, B2 and B3 2, 2 and 1 times a step, the losses finite, then
-   the same 3 steps on the dense baseline (``-dense``, no kernel): step 0's
-   batch's loss lower after the 3 steps on both, the compressed drop at
-   least ``ZOO_DROP_RATIO`` of the dense one; ``train-moe``: mixtral_8x22b
-   at one layer, 2 steps of the dense baseline at batch 2 x 256 (a
-   full-width MoE backward pass; compression at this size does not fit the
-   card), a finite loss and aux, no kernel;
-18. ``serve-hymba`` and ``serve-xlstm``: phase 12 at hymba's 32 and xlstm's
-   48 layers, batch 8 x prompt 512 + 32, every cache leaf of the
-   reference's shape (``SERVE_CACHE_SHAPES``), each layer's decode path
-   held to its full path, and decode held to ``forward`` within
-   ``SERVE_LOGITS_REL`` end to end (xlstm's printed at 48 layers and at one
-   group, and held at one group and the width the reference was read at:
-   ``XLSTM_GROUP``);
+17. the model zoo's training at full width, under each config's
+   ``remat="full"`` (every group of the stack, and each encoder layer,
+   checkpointed): ``train-hymba`` (hymba_1_5b, all 32 layers),
+   ``train-xlstm`` (xlstm_1_3b, one group: 7 mLSTM and 1 sLSTM layers) and
+   ``train-seamless`` (seamless_m4t_large_v2, ``SEAMLESS_LAYERS`` decoder
+   and as many encoder layers, 512 audio frames a row), each the ``train``
+   phase's flags for 3 steps, launching B4, B2 and B3 2, 2 and 1 times a
+   step, the losses finite, then the same 3 steps on the dense baseline
+   (``-dense``, no kernel): step 0's batch's loss lower after the 3 steps
+   on both, the compressed drop at least ``ZOO_DROP_RATIO`` of the dense
+   one; ``train-moe``: mixtral_8x22b at one layer, 2 steps of the dense
+   baseline at batch 2 x 256 (a full-width MoE backward pass; compression
+   at this size does not fit the card), a finite loss and aux, no kernel;
+   ``train-vision``: llama3_2_vision_11b at one group (4 self-attention
+   layers and the cross layer), 2 dense steps at batch 2 x 256 over 1601
+   patches a row: step 0's ``cross.*`` gradients exactly zero (its gate
+   starts at zero) and the gate's not, step 1's ``cross.*`` gradients
+   non-zero, no kernel;
+18. ``serve-hymba``, ``serve-xlstm``, ``serve-seamless`` and
+   ``serve-vision``: phase 12 at hymba's 32, xlstm's 48, seamless's 24 +
+   24 and llama-vision's 40 layers, batch 8 x prompt 512 + 32 (seamless
+   over the prompt's 512 audio frames, vision over 1601 patches), every
+   cache leaf after the prefill of the reference's shape
+   (``SERVE_CACHE_SHAPES``; the cross caches as long as the memory), each
+   recurrent layer's decode path held to its full path, and decode held to
+   ``forward`` within ``SERVE_LOGITS_REL`` end to end (xlstm's printed at
+   48 layers and at one group, and held at one group and the width the
+   reference was read at: ``XLSTM_GROUP``);
 19. ``zoo``: internlm2_20b, phi3_medium_14b, qwen1_5_110b (QKV bias),
    mixtral_8x22b and qwen3_moe_235b_a22b at full width and one group, each
    built on the card, prefilling batch 2 x 256 and decoding 8 tokens, decode
@@ -1500,11 +1511,15 @@ def chaos_phase(dev, kernels, fused) -> None:
 
 
 # the serving phases: batch x prompt + new tokens, and the arch each serves
-# at its full depth (gemma2_2b 26 layers, hymba_1_5b 32, xlstm_1_3b 48)
+# at its full depth (gemma2_2b 26 layers, hymba_1_5b 32, xlstm_1_3b 48,
+# seamless_m4t_large_v2 24 + 24 encoder layers over the prompt's 512 audio
+# frames, llama3_2_vision_11b 40 over 1601 patches)
 SERVE_SHAPES = {"serve": (8, 512, 32), "serve-long": (2, 4608, 64),
-                "serve-hymba": (8, 512, 32), "serve-xlstm": (8, 512, 32)}
+                "serve-hymba": (8, 512, 32), "serve-xlstm": (8, 512, 32),
+                "serve-seamless": (8, 512, 32), "serve-vision": (8, 512, 32)}
 SERVE_ARCH = {"serve": "gemma2_2b", "serve-long": "gemma2_2b", "serve-hymba": "hymba_1_5b",
-              "serve-xlstm": "xlstm_1_3b"}
+              "serve-xlstm": "xlstm_1_3b", "serve-seamless": "seamless_m4t_large_v2",
+              "serve-vision": "llama3_2_vision_11b"}
 # decode_step's logits against one forward over the same tokens (relative L2
 # over every compared position): both run bf16 matmuls, but a one-token
 # product rounds and accumulates otherwise than a whole sequence's, through
@@ -1526,6 +1541,9 @@ SERVE_LOGITS_REL = 5e-2
 # there: 2.09e-2 on one CPU thread).  On the card the port's reads 0.106 at
 # one group and full width (d_model 2048), 0.78 at 48 layers.  Held within
 # SERVE_LOGITS_REL
+# the cross layers' gate (tanh of a parameter that starts at zero) opened for
+# serve-vision's per-layer check and its printed end-to-end gap
+CROSS_GATE_OPEN = 0.5
 XLSTM_GROUP = {"changes": {"n_layers": 8, "d_model": 1024, "n_heads": 4, "head_dim": 256},
                "shape": (2, 20, 6), "seed": 0}
 XLSTM_GROUP_REF_GAP = 1.79e-2
@@ -1537,8 +1555,10 @@ def xlstm_group_tokens(cfg) -> torch.Tensor:
     return torch.randint(0, cfg.vocab_size, (b, p + n),
                          generator=torch.Generator().manual_seed(XLSTM_GROUP["seed"]))
 # each cache leaf's shape at the zoo serve phases' batch 8 and max_seq 552
-# (prompt 512 + 32 + 8): the reference's LM.init_caches, as
-# tests/test_torch_zoo.py holds this table to it
+# (prompt 512 + 32 + 8) after the prefill: the reference's LM.init_caches, as
+# tests/test_torch_zoo.py holds this table to it, and for the frontend archs
+# the reference's prefill output, whose cross caches are as long as the
+# memory (tests/test_torch_encdec.py)
 _MLSTM_CACHE = {"c": (6, 8, 4, 1024, 1024), "n": (6, 8, 4, 1024), "m": (6, 8, 4),
                 "conv": (6, 8, 3, 4096)}
 SERVE_CACHE_SHAPES = {
@@ -1547,6 +1567,13 @@ SERVE_CACHE_SHAPES = {
                                   {"conv": (32, 8, 3, 3200), "h": (32, 8, 3200, 16)})},
     "serve-xlstm": {**{f"l{i}_mlstm": _MLSTM_CACHE for i in range(7)},
                     "l7_slstm": {name: (6, 8, 2048) for name in ("c", "n", "h", "m")}},
+    "serve-seamless": {"l0_dec_cross_mlp": (
+        {"k": (24, 8, 552, 16, 64), "v": (24, 8, 552, 16, 64), "pos": (24, 552)},
+        {"k": (24, 8, 512, 16, 64), "v": (24, 8, 512, 16, 64), "pos": (24, 512)})},
+    "serve-vision": {**{f"l{i}_attn_mlp": {"k": (8, 8, 552, 8, 128), "v": (8, 8, 552, 8, 128),
+                                           "pos": (8, 552)} for i in range(4)},
+                     "l4_cross_attn_mlp": {"k": (8, 8, 1601, 8, 128),
+                                           "v": (8, 8, 1601, 8, 128), "pos": (8, 1601)}},
 }
 # train-publish's ring: a delta every step, a snapshot every 2 deltas, 2
 # buffered
@@ -1581,12 +1608,16 @@ def cache_shapes(caches) -> dict:
     return {key: one(c) for key, c in caches.items()}
 
 
-def decode_and_forward(model, tokens, prompt: int, max_seq: int):
+def decode_and_forward(model, tokens, prompt: int, max_seq: int, frontend=None):
     """``decode_step``'s logits, teacher-forced along ``tokens`` after a
     prefill of ``prompt``, and one ``forward``'s over the same tokens, at
-    every decoded position -> (stepped, full), each (B, new, V) f32."""
+    every decoded position -> (stepped, full), each (B, new, V) f32; an arch
+    with a frontend attends to ``frontend``'s memory on both sides."""
     new = tokens.shape[1] - prompt
-    logits, caches = model.prefill(tokens[:, :prompt], max_seq=max_seq, last_only=True)
+    with torch.no_grad():
+        memory = model.frontend_memory(frontend)
+    logits, caches = model.prefill(tokens[:, :prompt], memory=memory, max_seq=max_seq,
+                                   last_only=True)
     stepped = [logits[:, 0]]
     for i in range(new - 1):
         logits, caches = model.decode_step(caches, tokens[:, prompt + i:prompt + i + 1],
@@ -1595,7 +1626,7 @@ def decode_and_forward(model, tokens, prompt: int, max_seq: int):
     del caches
     stepped = torch.stack(stepped, dim=1)
     with torch.no_grad():
-        hidden, _ = model(tokens[:, :prompt + new - 1], return_hidden=True)
+        hidden, _ = model(tokens[:, :prompt + new - 1], memory=memory, return_hidden=True)
         full = model._logits(hidden[:, prompt - 1:])
     return stepped, full
 
@@ -1610,9 +1641,9 @@ def logits_gap(stepped, full) -> dict:
             "positions": stepped.shape[:-1].numel()}
 
 
-def decode_vs_forward(model, tokens, prompt: int, max_seq: int) -> dict:
+def decode_vs_forward(model, tokens, prompt: int, max_seq: int, frontend=None) -> dict:
     """``logits_gap`` of ``decode_and_forward`` over every decoded position."""
-    stepped, full = decode_and_forward(model, tokens, prompt, max_seq)
+    stepped, full = decode_and_forward(model, tokens, prompt, max_seq, frontend)
     out = logits_gap(stepped, full)
     del stepped, full
     return out
@@ -1677,18 +1708,22 @@ def moe_decode_vs_forward(model, tokens, prompt: int, max_seq: int) -> dict:
     return out
 
 
-def layerwise_gap(model, tokens, prompt: int, max_seq: int) -> float:
+def layerwise_gap(model, tokens, prompt: int, max_seq: int, frontend=None) -> float:
     """Each layer's decode path against its full-sequence path on the same
     inputs: the inputs of every layer along ``tokens`` come from one
     forward; the full path runs the layer over all of them, the decode path
     prefills the layer's cache over the prompt and steps it one position at
-    a time through the rest.  -> the largest relative L2, over layers, of
-    the layer's update (its output less its input) at the decoded
-    positions."""
+    a time through the rest (a cross layer attends to ``frontend``'s
+    memory, through its cache when decoding).  -> the largest relative L2,
+    over layers, of the layer's update (its output less its input) at the
+    decoded positions."""
     from repro_torch.models.layers import embed
     from repro_torch.models.transformer import _group_cache
 
-    caches = model.init_caches(tokens.shape[0], max_seq)
+    with torch.no_grad():
+        memory = model.frontend_memory(frontend)
+    caches = model.init_caches(tokens.shape[0], max_seq,
+                               memory_len=None if memory is None else memory.shape[1])
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = embed(model.embed["table"], tokens)
     worst = 0.0
@@ -1696,10 +1731,12 @@ def layerwise_gap(model, tokens, prompt: int, max_seq: int) -> float:
         for g in range(model.n_groups):
             for i, kind in enumerate(model.pattern):
                 cache = _group_cache(caches[f"l{i}_{kind}"], g)
-                full, _ = model._layer(i, kind, g, x, positions)
-                model._layer(i, kind, g, x[:, :prompt], positions[:prompt], cache)
+                full, _ = model._layer(i, kind, g, x, positions, memory=memory)
+                model._layer(i, kind, g, x[:, :prompt], positions[:prompt], cache,
+                             memory=memory)
                 stepped = torch.cat([
-                    model._layer(i, kind, g, x[:, t:t + 1], positions[t:t + 1], cache, t)[0]
+                    model._layer(i, kind, g, x[:, t:t + 1], positions[t:t + 1], cache, t,
+                                 memory)[0]
                     for t in range(prompt, tokens.shape[1])], dim=1)
                 want = (full[:, prompt:] - x[:, prompt:]).float()
                 got = (stepped - x[:, prompt:]).float()
@@ -1713,20 +1750,28 @@ def layerwise_gap(model, tokens, prompt: int, max_seq: int) -> float:
 def serve_phase(dev, counted, label: str) -> None:
     """``launch.serve`` standalone at its arch's full width and depth
     (gemma2_2b: 26 layers, ~2.61 B parameters; hymba_1_5b: 32, ~0.80 B;
-    xlstm_1_3b: 48, ~4.39 B): batch x prompt, then the new tokens greedily;
-    the tokens again through ``Engine`` (equal); then ``decode_step``'s
-    logits along the generated sequence, teacher-forced, against one
-    ``forward`` over it (``SERVE_LOGITS_REL``; xlstm's printed at 48 layers
-    and at one group, and held at ``XLSTM_GROUP``).  No kernel launches.
-    gemma2: with a prompt past the 4096 window, the 13 local layers' caches
-    are rings and the global layers' are not; hymba and xlstm: every cache
-    leaf has the reference's shape (``SERVE_CACHE_SHAPES``), and each
-    layer's decode path is held to its full path (``layerwise_gap``)."""
+    xlstm_1_3b: 48, ~4.39 B; seamless_m4t_large_v2: 24 + 24, ~1.63 B;
+    llama3_2_vision_11b: 40, ~9.78 B): batch x prompt, then the new tokens
+    greedily; the tokens again through ``Engine`` (equal); then
+    ``decode_step``'s logits along the generated sequence, teacher-forced,
+    against one ``forward`` over it (``SERVE_LOGITS_REL``; xlstm's printed
+    at 48 layers and at one group, and held at ``XLSTM_GROUP``).  The
+    frontend archs get the CLI's frontend (seamless: 512 audio frames
+    through its encoder; vision: 1601 patches) on every side.  No kernel
+    launches.  gemma2: with a prompt past the 4096 window, the 13 local
+    layers' caches are rings and the global layers' are not; the others:
+    every cache leaf after the prefill has the reference's shape
+    (``SERVE_CACHE_SHAPES``; the cross caches as long as the memory), and
+    for the recurrent and cross kinds each layer's decode path is held to
+    its full path (``layerwise_gap``); llama-vision's gates, which start at
+    zero, are opened to ``CROSS_GATE_OPEN`` for that check, and its
+    end-to-end gap with them open is printed."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import build
+    from repro_torch.models.transformer import CROSS_KINDS
     from repro_torch.serve import Engine, ServeConfig
 
     arch = SERVE_ARCH[label]
@@ -1738,7 +1783,8 @@ def serve_phase(dev, counted, label: str) -> None:
     result = serve_cli.main(["--arch", arch, "--batch", str(batch), "--prompt-len",
                              str(prompt), "--new-tokens", str(new)])
     wall = time.perf_counter() - t0
-    model, cfg, tokens, prompts = (result[k] for k in ("model", "config", "tokens", "prompts"))
+    model, cfg, tokens, prompts, frontend = (result[k] for k in ("model", "config", "tokens",
+                                                                   "prompts", "frontend"))
     tm = result["timings"]
     del result
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1752,13 +1798,17 @@ def serve_phase(dev, counted, label: str) -> None:
     max_seq = serve_max_seq(label)
     warm = {}  # the second run's times: the first's include the card's first launches
     again = Engine(model, ServeConfig(max_seq=max_seq, batch=batch)).generate(
-        prompts, new, timings=warm)
+        prompts, new, timings=warm, frontend=frontend)
     if not torch.equal(again, tokens):
         raise AssertionError(f"{label}: a second run gave other tokens")
     if tuple(tokens.shape) != (batch, prompt + new) or not torch.equal(tokens[:, :prompt],
                                                                       prompts):
         raise AssertionError(f"{label}: tokens of shape {tuple(tokens.shape)}")
-    _, caches = model.prefill(tokens[:, :prompt], max_seq=max_seq, last_only=True)
+    with torch.no_grad():
+        memory = model.frontend_memory(frontend)
+    _, caches = model.prefill(tokens[:, :prompt], memory=memory, max_seq=max_seq,
+                              last_only=True)
+    del memory
     if arch == "gemma2_2b":
         got = {key: (c.ring, c.k.shape[2]) for key, c in caches.items()}
         want = {key: (("local" in key) and max_seq > cfg.sliding_window,
@@ -1771,15 +1821,28 @@ def serve_phase(dev, counted, label: str) -> None:
     del caches
     if got != want:
         raise AssertionError(f"{label}: {what} {got}, expected {want}")
-    gap = decode_vs_forward(model, tokens, prompt, max_seq)
+    gap = decode_vs_forward(model, tokens, prompt, max_seq, frontend)
     checks = ""
-    if any(kind in ("hybrid", "mlstm", "slstm") for kind in model.pattern):
-        worst = layerwise_gap(model, tokens, prompt, max_seq)
+    gates = [p for name, p in model.named_parameters() if name.endswith("cross_gate")]
+    if gates:
+        # the gates start at zero: open them, so the cross layers' decode
+        # path (queries against the cached memory K/V) moves the logits
+        with torch.no_grad():
+            for p in gates:
+                p.fill_(CROSS_GATE_OPEN)
+        opened = decode_vs_forward(model, tokens, prompt, max_seq, frontend)
+        checks += (f"; with cross_gate at {CROSS_GATE_OPEN}: decode vs forward "
+                   f"{opened['rel']:.3e} relative L2 (printed), max abs "
+                   f"{opened['max_abs']:.3e}, argmax agreement {opened['agree']:.4f}")
+    if any(kind in ("hybrid", "mlstm", "slstm") or kind in CROSS_KINDS
+           for kind in model.pattern):
+        worst = layerwise_gap(model, tokens, prompt, max_seq, frontend)
         if not math.isfinite(worst) or worst > SERVE_LOGITS_REL:
             raise AssertionError(f"{label}: a layer's decode path is {worst:.3e} (relative L2) "
                                  f"from its full-sequence path, limit {SERVE_LOGITS_REL}")
         checks += (f"; each layer's decode path against its full-sequence path on the same "
-                   f"inputs: at most {worst:.3e} (limit {SERVE_LOGITS_REL})")
+                   f"inputs{' (gates open)' if gates else ''}: at most {worst:.3e} (limit "
+                   f"{SERVE_LOGITS_REL})")
     held = gap
     if arch == "xlstm_1_3b":
         del model
@@ -2145,9 +2208,13 @@ def lab_phase(kernels) -> None:
 
 
 # the zoo's compressed training phases: the train phase's flags at another
-# arch and depth, full width (hymba_1_5b: 8 of its 32 layers, 0.277 B
-# parameters; xlstm_1_3b: one group, 7 mLSTM + 1 sLSTM, 0.903 B)
-ZOO_TRAIN = {"train-hymba": ("hymba_1_5b", 8), "train-xlstm": ("xlstm_1_3b", 8)}
+# arch and depth, full width, under each config's remat="full" (hymba_1_5b:
+# all 32 layers, 0.800 B parameters; xlstm_1_3b: one group, 7 mLSTM + 1
+# sLSTM, 0.903 B; seamless_m4t_large_v2: SEAMLESS_LAYERS decoder and as
+# many encoder layers over 512 audio frames a row)
+SEAMLESS_LAYERS = 24
+ZOO_TRAIN = {"train-hymba": ("hymba_1_5b", 32), "train-xlstm": ("xlstm_1_3b", 8),
+             "train-seamless": ("seamless_m4t_large_v2", SEAMLESS_LAYERS)}
 ZOO_TRAIN_STEPS = 3
 # the compressed path's drop of step 0's loss over the dense path's, at
 # least: the sketch keeps theta = 0.7 of each bucket's spectrum and error
@@ -2160,6 +2227,13 @@ ZOO_DROP_RATIO = 0.5
 # and AdamW moments); compression would add ~55 GB, more than the card has
 MOE_TRAIN_ARGS = ["--arch", "mixtral_8x22b", "--n-layers", "1", "--mode", "pjit",
                   "--batch", "2", "--seq", "256", "--steps", "2"]
+# llama3_2_vision_11b at one group (4 self-attention layers and the cross
+# layer, 2.14 B parameters) on the dense baseline, batch 2 x 256 tokens over
+# 1601 patches a row (~34 GB of weights, grads and AdamW moments;
+# compression would not fit, as for train-moe), 2 steps
+VISION_LAYERS = 5
+VISION_SHAPE = (2, 256)
+VISION_STEPS = 2
 # the zoo's serving phase: one group of each arch the other phases do not
 # run, built on the card, batch x prompt + new tokens
 ZOO_ARCHS = ("internlm2_20b", "phi3_medium_14b", "qwen1_5_110b", "mixtral_8x22b",
@@ -2173,62 +2247,124 @@ ZOO_SHAPE = (2, 256, 8)
 FLIP_MARGIN = 1e-4
 
 
-def zoo_train_phases(kernels, fused) -> None:
-    """``train-hymba`` and ``train-xlstm``: 3 compressed_dp EF steps each
+def zoo_train_phase(kernels, fused, label: str, arch: str, layers: int) -> None:
+    """``label``: 3 compressed_dp EF steps of ``arch`` at ``layers`` layers
     (sequenced, 64 MB buckets, backend and selector auto), B4, B2 and B3
     launched 2, 2 and 1 times a step as in ``train``, the losses finite;
     then the same 3 steps on the dense baseline (``--mode pjit``, the exact
-    gradient, no kernel).  Each step draws a fresh batch of a 32k-50k token
-    Markov stream, so the step losses need not fall in 3 steps; what is
-    held is the loss of step 0's batch: lower under the trained weights
+    gradient, no kernel).  Each step draws a fresh batch of a 32k-256k
+    token Markov stream, so the step losses need not fall in 3 steps; what
+    is held is the loss of step 0's batch: lower under the trained weights
     than at step 0 on both paths, and the compressed path's drop at least
-    ``ZOO_DROP_RATIO`` of the dense path's.  Then ``train-moe``: 2 dense
-    steps of mixtral at one layer, a finite loss and aux, no kernel
-    launched."""
-    from repro_torch.data import SyntheticConfig, SyntheticStream
+    ``ZOO_DROP_RATIO`` of the dense path's."""
+    from repro_torch.data import SyntheticStream
+    from repro_torch.launch import train as train_cli
+
+    model_args = ["--arch", arch, "--n-layers", str(layers), "--batch", str(BATCH),
+                  "--seq", str(SEQ), "--steps", str(ZOO_TRAIN_STEPS)]
+    seen = []
+
+    def run(args):
+        def go():
+            result = train_cli.main(args)
+            model = result["state"]["model"]
+            first = SyntheticStream(train_cli.stream_config(model.cfg, SEQ, BATCH, 0),
+                                    device=model.embed["table"].device).batch_at(0)
+            with torch.no_grad():
+                seen.append(float(model.loss(first)[0]))
+            return result
+        return go
+
+    counts, history = train_phase(run(model_args + TRAIN_ARGS[8:] + SEQUENCED), kernels,
+                                  label, fused)
+    if {k: counts[k] for k in LAUNCHES_PER_STEP} != {
+            k: ZOO_TRAIN_STEPS * v for k, v in LAUNCHES_PER_STEP.items()}:
+        raise AssertionError(f"{label} launched {counts} in {ZOO_TRAIN_STEPS} steps, not "
+                             f"{ZOO_TRAIN_STEPS} x {LAUNCHES_PER_STEP}")
+    _, dense = train_phase(run(model_args), kernels, f"{label}-dense", (),
+                           must_not_launch=True)
+    (before, dense_before), (after, dense_after) = ((history[0]["loss"], dense[0]["loss"]),
+                                                    seen)
+    drop, dense_drop = before - after, dense_before - dense_after
+    log(f"[{label}] step 0's batch: loss {before:.4f} at step 0, {after:.4f} after "
+        f"{ZOO_TRAIN_STEPS} compressed steps (drop {drop:.4f}); dense: {dense_before:.4f} "
+        f"-> {dense_after:.4f} (drop {dense_drop:.4f}); compressed over dense "
+        f"{drop / dense_drop:.3f} (at least {ZOO_DROP_RATIO})")
+    if not (0 < dense_drop and ZOO_DROP_RATIO * dense_drop <= drop):
+        raise AssertionError(f"{label}: step 0's loss fell by {drop} compressed and "
+                             f"{dense_drop} dense")
+
+
+def zoo_train_phases(kernels, fused) -> None:
+    """Each of ``ZOO_TRAIN`` (``zoo_train_phase``), then ``train-moe``: 2
+    dense steps of mixtral at one layer, a finite loss and aux, no kernel
+    launched; then ``train-vision``."""
     from repro_torch.launch import train as train_cli
 
     for label, (arch, layers) in ZOO_TRAIN.items():
-        model_args = ["--arch", arch, "--n-layers", str(layers), "--batch", str(BATCH),
-                      "--seq", str(SEQ), "--steps", str(ZOO_TRAIN_STEPS)]
-        seen = []
-
-        def run(args):
-            def go():
-                result = train_cli.main(args)
-                model = result["state"]["model"]
-                first = SyntheticStream(SyntheticConfig(
-                    vocab_size=model.cfg.vocab_size, seq_len=SEQ, global_batch=BATCH, seed=0),
-                    device=model.embed["table"].device).batch_at(0)
-                with torch.no_grad():
-                    seen.append(float(model.loss(first)[0]))
-                return result
-            return go
-
-        counts, history = train_phase(run(model_args + TRAIN_ARGS[8:] + SEQUENCED), kernels,
-                                      label, fused)
-        if {k: counts[k] for k in LAUNCHES_PER_STEP} != {
-                k: ZOO_TRAIN_STEPS * v for k, v in LAUNCHES_PER_STEP.items()}:
-            raise AssertionError(f"{label} launched {counts} in {ZOO_TRAIN_STEPS} steps, not "
-                                 f"{ZOO_TRAIN_STEPS} x {LAUNCHES_PER_STEP}")
-        _, dense = train_phase(run(model_args), kernels, f"{label}-dense", (),
-                               must_not_launch=True)
-        (before, dense_before), (after, dense_after) = ((history[0]["loss"], dense[0]["loss"]),
-                                                        seen)
-        drop, dense_drop = before - after, dense_before - dense_after
-        log(f"[{label}] step 0's batch: loss {before:.4f} at step 0, {after:.4f} after "
-            f"{ZOO_TRAIN_STEPS} compressed steps (drop {drop:.4f}); dense: {dense_before:.4f} "
-            f"-> {dense_after:.4f} (drop {dense_drop:.4f}); compressed over dense "
-            f"{drop / dense_drop:.3f} (at least {ZOO_DROP_RATIO})")
-        if not (0 < dense_drop and ZOO_DROP_RATIO * dense_drop <= drop):
-            raise AssertionError(f"{label}: step 0's loss fell by {drop} compressed and "
-                                 f"{dense_drop} dense")
+        zoo_train_phase(kernels, fused, label, arch, layers)
+        torch.cuda.empty_cache()
     _, history = train_phase(lambda: train_cli.main(MOE_TRAIN_ARGS), kernels, "train-moe", (),
                              must_not_launch=True)
     aux = [row["aux"] for row in history]
     if not all(math.isfinite(a) and a > 0 for a in aux):
         raise AssertionError(f"train-moe: aux {aux}")
     log(f"[train-moe] aux (the MoE layer's Switch loss, 1 at uniform routing) {aux}")
+    torch.cuda.empty_cache()
+    vision_train_phase(kernels)
+
+
+def vision_train_phase(kernels) -> None:
+    """``train-vision``: llama3_2_vision_11b at ``VISION_LAYERS`` layers,
+    ``VISION_STEPS`` dense steps through the loop's API as the CLI builds it
+    (``--mode pjit``, its stream with 1601 patch embeddings a row).  Its
+    ``cross_gate`` starts at zero, so ``tanh(0)`` takes the cross path out of
+    the loss: at step 0 every ``cross.*`` gradient is exactly zero and the
+    gate's is not; the step moves the gate, and at step 1 every ``cross.*``
+    gradient is non-zero.  Read off AdamW's first moment after each step (a
+    leaf's is zero exactly while its gradients have been).  No kernel."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticStream
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build, registry
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, init_state, train_loop
+    from repro_torch.train.step import StepConfig
+
+    dev = torch.device("cuda", 0)
+    batch, seq = VISION_SHAPE
+    cfg = registry.with_depth(configs.get_config("llama3_2_vision_11b"), VISION_LAYERS)
+    seen = []
+
+    def hook(step, metrics, state):
+        mu = state["opt"]["mu"]
+        seen.append({name: float(m.abs().max()) for name, m in mu.items()
+                     if ".cross." in name or name.endswith("cross_gate")})
+
+    def run():
+        model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        opt = OptConfig(kind="adamw", lr=3e-4)
+        state = init_state(model, opt)
+        stream = SyntheticStream(train_cli.stream_config(cfg, seq, batch, 0), device=dev)
+        return train_loop(model, opt, StepConfig(mode="pjit"), state, stream,
+                          TrainLoopConfig(total_steps=VISION_STEPS, log_every=1,
+                                          metrics_hook=hook))
+
+    train_phase(run, kernels, "train-vision", (), must_not_launch=True)
+    gate = [k for k in seen[0] if k.endswith("cross_gate")]
+    cross = [k for k in seen[0] if ".cross." in k]
+    log(f"[train-vision] {cfg.n_layers} layers ({cfg.param_count()} parameters), "
+        f"batch {batch} x {seq} tokens over {cfg.n_frontend_tokens} patches; AdamW's first "
+        f"moment, max |mu| after each step: "
+        + "; ".join(f"step {i}: cross_gate {row[gate[0]]:.3e}, cross.* "
+                    f"{min(row[k] for k in cross):.3e}..{max(row[k] for k in cross):.3e}"
+                    for i, row in enumerate(seen)))
+    if len(seen) != VISION_STEPS or len(cross) != 4 or len(gate) != 1:
+        raise AssertionError(f"train-vision: {len(seen)} steps, leaves {gate + cross}")
+    if not (seen[0][gate[0]] > 0 and all(seen[0][k] == 0.0 for k in cross)):
+        raise AssertionError(f"train-vision: step 0's gradients: {seen[0]}")
+    if not all(seen[1][k] > 0 for k in cross):
+        raise AssertionError(f"train-vision: a cross.* gradient is zero at step 1: {seen[1]}")
 
 
 def zoo_serve_phase(dev, counted) -> None:
@@ -2326,7 +2462,7 @@ def zoo_phases(dev, kernels, fused) -> None:
     and ``zoo``."""
     zoo_train_phases(kernels, fused)
     torch.cuda.empty_cache()
-    for label in ("serve-hymba", "serve-xlstm"):
+    for label in ("serve-hymba", "serve-xlstm", "serve-seamless", "serve-vision"):
         serve_phase(dev, kernels, label)
     zoo_serve_phase(dev, kernels)
 

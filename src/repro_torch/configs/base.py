@@ -4,17 +4,20 @@ One :class:`ArchConfig` describes any of the ten architectures;
 ``layer_pattern()`` is the repeating group of layer kinds the stack walks
 ``n_groups()`` times, and ``reduced()`` the tiny same-family config the CPU
 tests use.  Every field of the reference is here, so ``dataclasses.asdict``
-of a config equals the reference's; the port reads the MoE, SSM and xLSTM
-fields, and keeps the encoder, cross-attention, frontend, ``remat``,
-``scan_layers`` and flash-tile fields for that parity alone (the kinds that
-need them raise in ``models/transformer.py``; see ROADMAP.md).
+of a config equals the reference's; the port reads every field but
+``scan_layers`` and the flash-tile sizes, which it keeps for that parity
+alone (the port walks the groups in a Python loop and materializes one
+layer's scores at once).  ``remat`` checkpoints each group of the stack as
+the reference does (``models/transformer.py``).
 
 :class:`ShapeConfig` and ``SHAPES`` are the four assigned input shapes.
 
 ``param_count()`` sums the port's own parameter shapes, which are the
 reference spec's.  The reference's analytic ``ArchConfig.param_count`` is not
 ported: it disagrees with its own spec for hymba (it counts an MLP that a
-``hybrid`` layer does not build) and for xlstm (ROADMAP.md §3).
+``hybrid`` layer does not build), for xlstm, and for seamless and
+llama-vision (it counts a self attention that a ``cross_attn_*`` layer does
+not build; ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -62,17 +65,17 @@ class ArchConfig:
     slstm_every: int = 0  # every k-th layer is sLSTM (0 = none)
     xlstm_proj_factor: float = 2.0
 
-    # enc-dec / cross-attn (not ported yet)
+    # enc-dec / cross-attn
     n_encoder_layers: int = 0
     cross_attn_period: int = 0  # llama-vision: every 5th decoder layer
 
-    # modality frontend stub: precomputed embeddings (not ported yet)
+    # modality frontend stub: precomputed embeddings
     frontend: str = "none"  # none | audio_frames | vision_patches
     n_frontend_tokens: int = 0
 
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
-    remat: str = "full"  # full | dots | none (the port does not rematerialize)
+    remat: str = "full"  # full | dots | none: checkpoint each group of the stack
     scan_layers: bool = True  # the reference's lax.scan over groups
     ce_chunk: int = 512  # chunked cross-entropy: seq positions per unembed
     attn_q_chunk: int = 512  # the reference's flash tile sizes

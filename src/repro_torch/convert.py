@@ -11,9 +11,13 @@ what ``train/checkpoint.py`` writes, so a checkpoint of either package
 restores in the other.  The step and the optimizer's count are int32
 scalars there; the residual is one row per worker, ``(workers, n)``.
 
-Serving caches map the same way: the reference's ``{"l{i}_{kind}": cache}``
-(a ``KVCache(k, v, pos, ring)``, a ``(KVCache, SSMState)`` pair for a
-hybrid layer, an ``MLSTMState`` or an ``SLSTMState``), each leaf with its
+The encoder (``encoder.*``, ``encoder_norm``), the cross blocks
+(``cross.*``) and a cross layer's ``cross_gate`` are leaves of the same
+tree.  Serving caches map the same way: the reference's
+``{"l{i}_{kind}": cache}`` (a ``KVCache(k, v, pos, ring)``, a cross
+block's as long as the memory; a ``(KVCache, SSMState)`` pair for a hybrid
+layer, a ``(self, cross)`` pair of KVCaches for ``dec_cross_mlp``, an
+``MLSTMState`` or an ``SLSTMState``), each leaf with its
 leading ``(n_groups,)`` axis, is the port's structure, so
 :func:`caches_from_jax` is a rename by class name and field (bf16 arrays
 travel as their bit patterns).

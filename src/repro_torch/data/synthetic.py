@@ -6,7 +6,10 @@ learnable structure whose loss falls toward log(branching).  The successor
 table comes from numpy's generator seeded as in the reference (the same
 table); the walks come from a ``torch.Generator`` seeded from (seed, step),
 so batch ``i`` is a pure function of (seed, i) but not the reference's
-batch ``i`` -- parity tests hand both packages the same tokens.
+batch ``i`` -- parity tests hand both packages the same tokens.  With
+``frontend_dim`` a batch also carries ``frontend`` (rows, frontend_len,
+frontend_dim) f32 embeddings, N(0, 1) x 0.02 drawn from the same generator
+after the walk (the stub modality of an audio or vision arch).
 
 ``ImageStream`` (the convnet's data, paper Fig. 11/12 trained CNNs) draws
 its class prototypes with numpy's generator at 4x4, upsamples them
@@ -36,11 +39,13 @@ class SyntheticConfig:
     global_batch: int
     seed: int = 1234
     branching: int = 4  # markov: candidate successors per token
+    frontend_dim: int = 0  # >0: also emit frontend embeddings (stub modality)
+    frontend_len: int = 0
 
 
 class SyntheticStream:
-    """Stateless stream: ``batch_at(step) -> {tokens, targets}`` (int64, on
-    ``device``)."""
+    """Stateless stream: ``batch_at(step) -> {tokens, targets[, frontend]}``
+    (int64, f32; on ``device``)."""
 
     def __init__(self, config: SyntheticConfig, device=None):
         self.config = config
@@ -61,7 +66,11 @@ class SyntheticStream:
         for t in range(cfg.seq_len):
             seq.append(self._succ[seq[-1], choices[t]])
         toks = torch.stack(seq, dim=1)
-        return {"tokens": toks[:, :-1].to(self.device), "targets": toks[:, 1:].to(self.device)}
+        batch = {"tokens": toks[:, :-1].to(self.device), "targets": toks[:, 1:].to(self.device)}
+        if cfg.frontend_dim:
+            batch["frontend"] = (torch.randn((rows, cfg.frontend_len, cfg.frontend_dim),
+                                             generator=gen) * 0.02).to(self.device)
+        return batch
 
     def entropy_floor(self) -> float:
         """Markov chain cross-entropy floor (nats): successors may collide, so

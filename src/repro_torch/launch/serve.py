@@ -14,15 +14,20 @@ stream; arch, ``reduced`` and ``n_layers`` come from the ring's manifest:
     PYTHONPATH=src python -m repro_torch.launch.serve --follow /path/to/ring
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-GPU.  ``--arch`` takes the arch names of ``launch.train`` and refuses the
-same ones.  Prompts are drawn from ``--seed``; greedy unless ``--temperature``.
-Prints the tokens and one ``[serve]`` line of prefill and decode times.
+GPU.  ``--arch`` takes the arch names of ``launch.train``, and
+``--n-layers`` follows its rules (an enc-dec arch's encoder gets as many
+layers).  Prompts are drawn from ``--seed``; greedy unless
+``--temperature``.  An arch with a frontend gets its embeddings
+(``registry.frontend_len`` positions: the prompt's length of audio frames,
+or a vision arch's patches), N(0, 1) x 0.02 drawn after the prompts from
+the same generator, as ``registry.make_batch`` draws them; the reference
+CLI passes none, and its engine raises ``KeyError: 'frontend'``.  Prints
+the tokens and one ``[serve]`` line of prefill and decode times.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import torch
@@ -37,7 +42,7 @@ def _config(arch: str, reduced: bool, n_layers):
     if reduced:
         cfg = cfg.reduced()
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=int(n_layers))
+        cfg = registry.with_depth(cfg, n_layers)
     return cfg
 
 
@@ -91,9 +96,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Returns ``{"tokens", "prompts", "model", "config", "timings",
-    "subscriber"}`` (the subscriber None when standalone; ``timings`` as
-    ``Engine.generate`` fills them, plus ``follow_s`` with ``--follow``)."""
+    """Returns ``{"tokens", "prompts", "frontend", "model", "config",
+    "timings", "subscriber"}`` (the frontend None for an arch without one,
+    the subscriber None when standalone; ``timings`` as ``Engine.generate``
+    fills them, plus ``follow_s`` with ``--follow``)."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.follow is None:
@@ -111,15 +117,19 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
                             device=dev)
-    out = engine.generate(prompts, args.new_tokens, generator=gen, timings=timings)
+    fl = registry.frontend_len(cfg, args.prompt_len)
+    frontend = (torch.randn((args.batch, fl, cfg.d_model), generator=gen, device=dev) * 0.02
+                if fl else None)
+    out = engine.generate(prompts, args.new_tokens, generator=gen, timings=timings,
+                          frontend=frontend)
     print(out)
     steps = timings["decode_steps"]
     print(f"[serve] prefill {timings['prefill_s'] * 1e3:.1f} ms ({args.batch} x "
           f"{args.prompt_len}); decode {timings['decode_s'] * 1e3 / max(steps, 1):.2f} ms a "
           f"step over {steps} steps; {args.batch * steps / max(timings['decode_s'], 1e-9):.1f} "
           "decoded tokens/s")
-    return {"tokens": out, "prompts": prompts, "model": model, "config": cfg,
-            "timings": timings, "subscriber": sub}
+    return {"tokens": out, "prompts": prompts, "frontend": frontend, "model": model,
+            "config": cfg, "timings": timings, "subscriber": sub}
 
 
 if __name__ == "__main__":

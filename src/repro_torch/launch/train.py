@@ -30,10 +30,13 @@ compressed weight delta to the ring at D every ``--publish-every`` steps
       --backend auto --selector auto
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-GPU.  ``--arch`` takes the registry's ten names; the two whose layer kinds
-are not ported (``seamless_m4t_large_v2``, ``llama3_2_vision_11b``) fail at
-parsing.  ``--n-layers`` cuts the depth at full width (a port-only flag, a
-multiple of the arch's layer pattern: 2 for gemma2_2b, 8 for xlstm).  Flags
+GPU.  ``--arch`` takes the registry's ten names; an arch with a frontend
+(``seamless_m4t_large_v2``'s audio frames, as long as the sequence;
+``llama3_2_vision_11b``'s patches) trains on the stream's ``frontend``
+embeddings, as the reference CLI builds them.  ``--n-layers`` cuts the
+depth at full width (a port-only flag, a multiple of the arch's layer
+pattern: 2 for gemma2_2b, 5 for llama3_2_vision_11b, 8 for xlstm; on an
+enc-dec arch it sets the encoder's depth too).  Flags
 and values the port does not run (``--mode hierarchical``, ``--mesh
 production|multi_pod``) raise with a pointer to ROADMAP.md.  One difference
 from the reference CLI: the publisher's delta codec runs on ``--backend``
@@ -128,6 +131,17 @@ def _check_ported(ap, args) -> None:
         ap.error("--transport hierarchical needs a two-level mesh: give --nodes")
 
 
+def stream_config(cfg, seq: int, batch: int, seed: int) -> SyntheticConfig:
+    """The CLI's synthetic stream for ``cfg``: ``batch`` rows of ``seq``
+    tokens, and for an arch with a frontend its ``d_model``-wide embeddings
+    at ``registry.frontend_len`` positions (audio frames as long as the
+    sequence, a vision arch's patches), as the reference CLI builds it."""
+    length = registry.frontend_len(cfg, seq)
+    return SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                           seed=seed, frontend_dim=cfg.d_model if length else 0,
+                           frontend_len=length)
+
+
 def _theta_schedule(args):
     """The theta schedule of ``--theta-schedule``, as the reference builds
     it; None in ``--mode pjit``, which compresses nothing."""
@@ -162,7 +176,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     if args.n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+        cfg = registry.with_depth(cfg, args.n_layers)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = build(cfg, device=dev, generator=gen)
 
@@ -177,9 +191,7 @@ def main(argv=None):
     step_cfg = StepConfig(mode=args.mode, reducer=reducer,
                           calibration_path=args.calibration_path)
     opt_cfg = OptConfig(kind="adamw", lr=args.lr)
-    stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                                             global_batch=args.batch, seed=args.seed),
-                             device=dev)
+    stream = SyntheticStream(stream_config(cfg, args.seq, args.batch, args.seed), device=dev)
     state = init_state(model, opt_cfg,
                        error_feedback=reducer is not None and reducer.error_feedback)
     calibration = None

@@ -1,8 +1,9 @@
 """Attention (port of ``repro.models.attention``): GQA projections with the
-optional QKV bias and RoPE, causal and sliding-window masks, the
-attention-logit softcap, the output projection, and the KV caches of
-serving (flat, or a ring buffer of ``window`` slots for a sliding-window
-layer).
+optional QKV bias and RoPE, causal and sliding-window masks, cross
+attention (queries from one sequence, keys and values from another, no
+causal mask and no rope), the attention-logit softcap, the output
+projection, and the KV caches of serving (flat, or a ring buffer of
+``window`` slots for a sliding-window layer).
 
 Plain PyTorch math: the scores of one layer are materialized as
 ``(B, Kh, G, Sq, Skv)`` f32, which at the port's training shapes (S <= 512)
@@ -14,6 +15,7 @@ sum, one P·V product).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -25,36 +27,44 @@ __all__ = ["project_qkv", "attention", "attend", "KVCache", "init_kv_cache",
 _NEG_INF = -1e30
 
 
-def project_qkv(p, x: torch.Tensor, positions: torch.Tensor, rope_theta: float = 1e4):
-    """x (B,S,D) -> q (B,S,Kh,G,Dh), k/v (B,S,Kh,Dh), rope applied; with
-    ``qkv_bias`` the biases ``bq``/``bk``/``bv`` are added before rope."""
-    dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+def project_qkv(p, x_q: torch.Tensor, x_kv: torch.Tensor,
+                q_positions: Optional[torch.Tensor] = None,
+                kv_positions: Optional[torch.Tensor] = None, rope_theta: float = 1e4):
+    """x_q (B,Sq,D), x_kv (B,Skv,D) -> q (B,Sq,Kh,G,Dh), k/v (B,Skv,Kh,Dh);
+    with ``qkv_bias`` the biases ``bq``/``bk``/``bv`` are added, then rope
+    where positions are given (a cross block passes none)."""
+    dt = x_q.dtype
+    q = torch.einsum("bsd,dhk->bshk", x_q, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x_kv, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x_kv, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
+    if q_positions is not None:
+        q = rope(q, q_positions, rope_theta)
+    if kv_positions is not None:
+        k = rope(k, kv_positions, rope_theta)
     b, s, h, dh = q.shape
     kh = k.shape[2]
     return q.reshape(b, s, kh, h // kh, dh), k, v
 
 
 def attention(q, k, v, q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
-              window: int = 0, attn_softcap: float = 0.0) -> torch.Tensor:
-    """Causal (optionally windowed) softmax attention -> (B,Sq,Kh,G,Dh).
+              causal: bool = True, window: int = 0, attn_softcap: float = 0.0) -> torch.Tensor:
+    """Softmax attention, causal (optionally windowed) unless ``causal`` is
+    False -> (B,Sq,Kh,G,Dh).
 
     ``q_positions`` (Sq,) and ``kv_positions`` (Skv,) are absolute
     positions; a key at position -1 is an empty cache slot and is masked,
-    as the reference masks it."""
+    as the reference masks it (the one mask a cross block keeps)."""
     dh = q.shape[-1]
     scale = 1.0 / (dh ** 0.5)
     s = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
     s = softcap(s, attn_softcap)
-    valid = (kv_positions[None, :] >= 0) & (q_positions[:, None] >= kv_positions[None, :])
+    valid = (kv_positions[None, :] >= 0).expand(q_positions.shape[0], -1)
+    if causal:
+        valid = valid & (q_positions[:, None] >= kv_positions[None, :])
     if window:
         valid = valid & (q_positions[:, None] - kv_positions[None, :] < window)
     s = torch.where(valid, s, _NEG_INF)

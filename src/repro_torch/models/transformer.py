@@ -1,14 +1,28 @@
 """The language model (port of ``repro.models.transformer.LM``, every
-decoder-only layer kind: ``forward``, ``loss`` and ``_chunked_ce`` for
-training, and ``init_caches``, ``prefill`` and ``decode_step`` for serving).
+layer kind: ``forward``, ``loss`` and ``_chunked_ce`` for training,
+``encode`` for an enc-dec arch, and ``init_caches``, ``prefill`` and
+``decode_step`` for serving).
 
 Layer kinds: ``attn_mlp`` and ``attn_local_mlp`` (dense; the local ones
 windowed), ``attn_moe`` and ``attn_local_moe`` (mixture of experts, whose
 aux losses are summed over the stack and divided by ``n_layers``),
 ``hybrid`` (hymba: attention and an SSM mixer side by side, each output
-normed, averaged), ``mlstm`` and ``slstm`` (xlstm's cells); attention with
-or without the QKV bias.  The cross-attention kinds (``cross_attn_*``,
-``dec_cross_mlp``) and the encoder raise ``NotImplementedError`` (ROADMAP.md).
+normed, averaged), ``mlstm`` and ``slstm`` (xlstm's cells),
+``cross_attn_mlp`` and ``cross_attn_moe`` (llama-vision's image layers: a
+cross block over the memory scaled by ``tanh(cross_gate)``, which starts at
+zero, and no self attention) and ``dec_cross_mlp`` (an enc-dec decoder
+layer: self attention, then cross attention over the encoder's output);
+attention with or without the QKV bias (never on a cross block).  The
+memory is the frontend's embeddings cast to bf16, or for an enc-dec arch
+the encoder's output over them (``frontend_memory``): a stack of
+bidirectional self-attention layers with rope, ``encoder.*``, and
+``encoder_norm``.
+
+``cfg.remat`` is honoured as the reference's ``jax.checkpoint``: under
+``"full"`` and ``"dots"`` each group of the stack (and each encoder layer)
+runs under ``torch.utils.checkpoint`` when autograd records, ``"dots"``
+keeping the weight products; backward recomputes the rest.  It changes no
+number: loss and gradients are bitwise ``remat="none"``'s.
 
 The parameter layout is the reference's tree, one ``nn.Parameter`` per leaf:
 ``embed.table`` (and, with ``tie_embeddings=False``, the output head
@@ -25,20 +39,25 @@ and 0.02/sqrt(d) for a router), the bits from the caller's
 ``torch.Generator``.
 
 The caches keep the reference's structure too: per layer kind
-``l{i}_{kind}`` a :class:`KVCache`, a ``(KVCache, SSMState)`` pair for
-``hybrid``, an :class:`MLSTMState` or an :class:`SLSTMState`, every leaf
-with a leading ``(n_groups,)`` axis, so ``convert.caches_from_jax`` is a
-rename.  ``prefill`` and ``decode_step`` run without autograd and write the
-caches in place.
+``l{i}_{kind}`` a :class:`KVCache` (a cross block's holds the memory's K/V,
+as long as the memory), a ``(KVCache, SSMState)`` pair for ``hybrid``, a
+``(self, cross)`` pair of them for ``dec_cross_mlp``, an
+:class:`MLSTMState` or an :class:`SLSTMState`, every leaf with a leading
+``(n_groups,)`` axis, so ``convert.caches_from_jax`` is a rename.
+``prefill`` and ``decode_step`` run without autograd and write the caches
+in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
@@ -47,25 +66,21 @@ from repro_torch.models import xlstm as X
 from repro_torch.models.layers import (COMPUTE_DTYPE, embed, mlp, padded_vocab, rmsnorm,
                                        softcap, unembed)
 
-__all__ = ["LM", "param_shapes", "unported_reason"]
+__all__ = ["LM", "param_shapes", "CROSS_KINDS"]
 
 Caches = Dict[str, object]
 
-
-def unported_reason(cfg) -> Optional[str]:
-    """Why the port cannot build ``cfg`` yet, or None."""
-    kinds = [k for k in cfg.layer_pattern() if k.startswith("cross_attn") or k == "dec_cross_mlp"]
-    if kinds or cfg.n_encoder_layers or cfg.frontend != "none":
-        return (f"{cfg.name}: the layer kinds {kinds}, the encoder and the frontend memory "
-                "are not ported yet; see ROADMAP.md")
-    return None
+# the kinds whose layers attend to the memory (a frontend's or the encoder's)
+CROSS_KINDS = ("cross_attn_mlp", "cross_attn_moe", "dec_cross_mlp")
 
 
-def _attn_shapes(cfg):
+def _attn_shapes(cfg, cross: bool = False):
+    """A self (or, with ``cross``, a cross) attention block's leaves; a
+    cross block has no QKV bias (the reference's ``attention_spec``)."""
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     spec = {"wq": ((d, h, dh), 0.02), "wk": ((d, kh, dh), 0.02), "wv": ((d, kh, dh), 0.02),
             "wo": ((h, dh, d), 0.02)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         spec.update(bq=((h, dh), "zeros"), bk=((kh, dh), "zeros"), bv=((kh, dh), "zeros"))
     return spec
 
@@ -81,15 +96,22 @@ def _mlp_shapes(cfg):
 def _layer_shapes(cfg, kind: str) -> Dict[str, Tuple[Tuple[int, ...], object]]:
     """Leaf -> (shape, init) of one layer of ``kind`` (the reference's
     ``_layer_spec``); init is "zeros", "ones" or a normal's scale."""
-    if kind not in ("mlstm", "slstm", "hybrid") and not (
-            kind.startswith("attn") and kind.endswith(("mlp", "moe"))):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet; see ROADMAP.md")
+    if kind not in ("mlstm", "slstm", "hybrid", "dec_cross_mlp") and not (
+            kind.startswith(("attn", "cross_attn")) and kind.endswith(("mlp", "moe"))):
+        raise ValueError(f"unknown layer kind {kind!r}")
     d = cfg.d_model
     parts = [("norm1", {"scale": ((d,), "ones")})]
     if kind in ("mlstm", "slstm"):
         parts.append(("cell", X.mlstm_shapes(cfg) if kind == "mlstm" else X.slstm_shapes(cfg)))
-    elif kind.startswith("attn") or kind == "hybrid":
-        parts.append(("attn", _attn_shapes(cfg)))
+    else:
+        if kind.startswith("attn") or kind in ("hybrid", "dec_cross_mlp"):
+            parts.append(("attn", _attn_shapes(cfg)))
+        if kind in CROSS_KINDS:
+            parts.append(("cross", _attn_shapes(cfg, cross=True)))
+        if kind.startswith("cross_attn"):
+            parts.append(("cross_gate", ((1,), "zeros")))
+        if kind == "dec_cross_mlp":
+            parts.append(("norm_cross", {"scale": ((d,), "ones")}))
         if kind == "hybrid":
             parts += [("ssm", S.ssm_shapes(cfg)), ("norm_attn_out", {"scale": ((d,), "ones")}),
                       ("norm_ssm_out", {"scale": ((d,), "ones")})]
@@ -97,6 +119,20 @@ def _layer_shapes(cfg, kind: str) -> Dict[str, Tuple[Tuple[int, ...], object]]:
             parts += [("norm2", {"scale": ((d,), "ones")}), ("moe", M.moe_shapes(cfg))]
         elif kind.endswith("mlp"):
             parts += [("norm2", {"scale": ((d,), "ones")}), ("mlp", _mlp_shapes(cfg))]
+    out = {}
+    for part, leaves in parts:
+        if isinstance(leaves, dict):
+            out.update({f"{part}.{leaf}": v for leaf, v in leaves.items()})
+        else:
+            out[part] = leaves
+    return out
+
+
+def _encoder_shapes(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
+    """One encoder layer's leaves: pre-norm self attention and MLP."""
+    d = cfg.d_model
+    parts = [("norm1", {"scale": ((d,), "ones")}), ("attn", _attn_shapes(cfg)),
+             ("norm2", {"scale": ((d,), "ones")}), ("mlp", _mlp_shapes(cfg))]
     return {f"{part}.{leaf}": v for part, leaves in parts for leaf, v in leaves.items()}
 
 
@@ -106,9 +142,6 @@ def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
 
 
 def _param_spec(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
-    reason = unported_reason(cfg)
-    if reason:
-        raise NotImplementedError(reason)
     spec = {"embed.table": ((padded_vocab(cfg.vocab_size), cfg.d_model), 0.02)}
     if not cfg.tie_embeddings:
         spec["embed.head"] = ((cfg.d_model, padded_vocab(cfg.vocab_size)), 0.02)
@@ -117,6 +150,10 @@ def _param_spec(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
     for i, kind in enumerate(cfg.layer_pattern()):
         for name, (shape, init) in _layer_shapes(cfg, kind).items():
             spec[f"layers.l{i}_{kind}.{name}"] = ((n,) + shape, init)
+    if cfg.n_encoder_layers:
+        for name, (shape, init) in _encoder_shapes(cfg).items():
+            spec[f"encoder.{name}"] = ((cfg.n_encoder_layers,) + shape, init)
+        spec["encoder_norm.scale"] = ((cfg.d_model,), "ones")
     return spec
 
 
@@ -124,17 +161,33 @@ def _attn_window(cfg, kind: str) -> int:
     return cfg.sliding_window if "local" in kind else 0
 
 
-def _init_layer_cache(kind: str, cfg, batch: int, max_seq: int, dtype, device):
-    """One layer's empty cache (the reference's ``_init_layer_cache``)."""
+def _cross_cache(cfg, batch: int, length: int, dtype, device) -> A.KVCache:
+    """A cross block's cache: the memory's K/V at every slot, position i
+    at slot i."""
+    kv = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return A.KVCache(k=torch.zeros(kv, dtype=dtype, device=device),
+                     v=torch.zeros(kv, dtype=dtype, device=device),
+                     pos=torch.arange(length, dtype=torch.int32, device=device), ring=False)
+
+
+def _init_layer_cache(kind: str, cfg, batch: int, max_seq: int, dtype, device,
+                      memory_len: Optional[int] = None):
+    """One layer's empty cache (the reference's ``_init_layer_cache``); a
+    cross block's is ``memory_len`` long, by default ``n_frontend_tokens``
+    or ``max_seq`` as the reference's."""
     if kind == "mlstm":
         return X.init_mlstm_state(batch, cfg, dtype, device)
     if kind == "slstm":
         return X.init_slstm_state(batch, cfg, dtype, device)
-    if not (kind.startswith("attn") or kind == "hybrid"):
-        raise NotImplementedError(f"the cache of layer kind {kind!r} is not ported yet; "
-                                  "see ROADMAP.md")
+    if kind in CROSS_KINDS:
+        cross = _cross_cache(cfg, batch, memory_len or cfg.n_frontend_tokens or max_seq, dtype,
+                             device)
+        if kind != "dec_cross_mlp":
+            return cross
     kv = A.init_kv_cache(batch, max_seq, cfg.n_kv_heads, cfg.head_dim,
                          window=_attn_window(cfg, kind), dtype=dtype, device=device)
+    if kind == "dec_cross_mlp":
+        return kv, cross
     return (kv, S.init_ssm_state(batch, cfg, dtype, device)) if kind == "hybrid" else kv
 
 
@@ -159,18 +212,67 @@ def _write_state(view, new) -> None:
         getattr(view, f.name).copy_(getattr(new, f.name))
 
 
+class _Node(nn.ModuleDict):
+    """A ModuleDict that also holds parameter leaves (a cross layer's
+    ``cross_gate`` beside its blocks), read by ``node[name]`` alike."""
+
+    def __getitem__(self, key):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._parameters or super().__contains__(key)
+
+
 def _container(leaves):
     """Nested ModuleDict / ParameterDict mirroring the tree of ``leaves``."""
     children = {}
     for parts, param in leaves:
         children.setdefault(parts[0], []).append((parts[1:], param))
-    if all(len(p) == 1 and not p[0][0] for p in children.values()):
+    is_leaf = {k: len(v) == 1 and not v[0][0] for k, v in children.items()}
+    if all(is_leaf.values()):
         return nn.ParameterDict({k: v[0][1] for k, v in children.items()})
-    return nn.ModuleDict({k: _container(v) for k, v in children.items()})
+    if not any(is_leaf.values()):
+        return nn.ModuleDict({k: _container(v) for k, v in children.items()})
+    node = _Node()
+    for k, v in children.items():
+        if is_leaf[k]:
+            node.register_parameter(k, v[0][1])
+        else:
+            node[k] = _container(v)
+    return node
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy (the reference's
+    ``dots_with_no_batch_dims_saveable``): keep the products of an
+    activation with a weight, recompute everything else.  ``x @ W`` reaches
+    ATen as ``mm`` and an einsum against a weight as a ``bmm`` of one batch;
+    attention's and the experts' products are ``bmm``s over batch, head or
+    expert, and are recomputed (a batch of one head and one row would count
+    as a weight product: memory only, no value changes)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, *args, policy: str = "full"):
+    """``fn(*args)`` under activation checkpointing: ``"full"`` keeps only
+    its inputs, ``"dots"`` also the weight products; backward recomputes the
+    rest, the same ops on the same inputs, so no value changes."""
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_weight_products))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class LM(nn.Module):
-    """Decoder-only LM over a repeating group of layer kinds."""
+    """An LM over a repeating group of layer kinds: decoder-only, or with a
+    frontend's memory (a vision arch's patches) or an encoder's (enc-dec)
+    that the cross kinds attend to."""
 
     def __init__(self, cfg, *, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -195,6 +297,11 @@ class LM(nn.Module):
         """Leaf path -> parameter, as a flat mapping."""
         return dict(self.named_parameters())
 
+    def _remat(self) -> bool:
+        """Whether a pass checkpoints its groups: ``cfg.remat`` is not
+        ``"none"`` and autograd records (never in prefill or decode)."""
+        return self.cfg.remat != "none" and torch.is_grad_enabled()
+
     def _attention(self, pa, h, kind: str, positions: torch.Tensor,
                    cache: Optional[A.KVCache], decode_pos: Optional[int]) -> torch.Tensor:
         """Self attention.  Full sequence: over its own keys and, given a
@@ -203,7 +310,7 @@ class LM(nn.Module):
         position, written into the cache, attending over the whole cache
         (``_self_attention_decode``)."""
         cfg = self.cfg
-        q, k, v = A.project_qkv(pa, h, positions, cfg.rope_theta)
+        q, k, v = A.project_qkv(pa, h, h, positions, positions, cfg.rope_theta)
         kv_positions = positions
         if cache is not None:
             A.update_kv_cache(cache, k, v, 0 if decode_pos is None else decode_pos)
@@ -213,8 +320,33 @@ class LM(nn.Module):
                           attn_softcap=cfg.attn_softcap)
         return A.attend(pa, out)
 
+    def _cross_attention(self, pa, h, memory: Optional[torch.Tensor],
+                         cache: Optional[A.KVCache], decode_pos: Optional[int]) -> torch.Tensor:
+        """Cross attention over the memory (B,Sm,D): no mask but the empty
+        slots', no rope, no softcap (the reference's ``_cross_attention``).
+        A prefill writes the memory's K/V into ``cache``; a decode step
+        reads them from it and projects its queries alone."""
+        if decode_pos is not None:
+            q = torch.einsum("bsd,dhk->bshk", h, pa["wq"].to(h.dtype))
+            b, s, nh, dh = q.shape
+            q = q.reshape(b, s, cache.k.shape[2], nh // cache.k.shape[2], dh)
+            k, v, kv_positions = cache.k, cache.v, cache.pos
+        else:
+            if memory is None:
+                raise ValueError(f"{self.cfg.name}: a cross-attention layer needs the memory "
+                                 "(the batch's frontend)")
+            q, k, v = A.project_qkv(pa, h, memory)
+            kv_positions = torch.arange(k.shape[1], device=k.device)
+            if cache is not None:
+                cache.k.copy_(k)
+                cache.v.copy_(v)
+        out = A.attention(q, k, v, torch.zeros(q.shape[1], dtype=torch.long, device=q.device),
+                          kv_positions, causal=False)
+        return A.attend(pa, out)
+
     def _layer(self, i: int, kind: str, g: int, x: torch.Tensor, positions: torch.Tensor,
-               cache=None, decode_pos: Optional[int] = None):
+               cache=None, decode_pos: Optional[int] = None,
+               memory: Optional[torch.Tensor] = None):
         """Layer ``l{i}_{kind}`` of group ``g`` -> (x, MoE aux or None); a
         recurrent state in ``cache`` is overwritten with the final one."""
         cfg = self.cfg
@@ -242,7 +374,17 @@ class LM(nn.Module):
             x = x + 0.5 * (rmsnorm(p["norm_attn_out"]["scale"][g], attn_out, cfg.norm_eps)
                            + rmsnorm(p["norm_ssm_out"]["scale"][g], ssm_out, cfg.norm_eps))
             return x, None
-        x = x + self._attention(group("attn"), h, kind, positions, cache, decode_pos)
+        if kind == "dec_cross_mlp":
+            self_cache, cross_cache = (None, None) if cache is None else cache
+            x = x + self._attention(group("attn"), h, kind, positions, self_cache, decode_pos)
+            hc = rmsnorm(p["norm_cross"]["scale"][g], x, cfg.norm_eps)
+            x = x + self._cross_attention(group("cross"), hc, memory, cross_cache, decode_pos)
+        elif kind.startswith("cross_attn"):
+            gate = torch.tanh(p["cross_gate"][g].float())[0]
+            x = x + gate.to(x.dtype) * self._cross_attention(group("cross"), h, memory, cache,
+                                                              decode_pos)
+        else:
+            x = x + self._attention(group("attn"), h, kind, positions, cache, decode_pos)
         h2 = rmsnorm(p["norm2"]["scale"][g], x, cfg.norm_eps)
         if "moe" in p:
             out, aux = M.moe_apply(group("moe"), h2, cfg)
@@ -259,64 +401,127 @@ class LM(nn.Module):
                          head=self._head())[..., : self.cfg.vocab_size]
         return softcap(logits, self.cfg.final_softcap)
 
-    def _stack(self, x: torch.Tensor, positions: torch.Tensor, caches: Optional[Caches] = None,
+    def _group(self, g: int, x: torch.Tensor, aux: torch.Tensor, positions: torch.Tensor,
+               memory: Optional[torch.Tensor], caches: Optional[Caches] = None,
                decode_pos: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Group ``g``'s layers -> (x, aux plus their MoE aux)."""
+        for i, kind in enumerate(self.pattern):
+            cache = None if caches is None else _group_cache(caches[f"l{i}_{kind}"], g)
+            x, a = self._layer(i, kind, g, x, positions, cache, decode_pos, memory)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def _stack(self, x: torch.Tensor, positions: torch.Tensor, caches: Optional[Caches] = None,
+               decode_pos: Optional[int] = None,
+               memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every layer of every group, then the final norm -> (x, the MoE
-        layers' aux summed and divided by ``n_layers``)."""
+        layers' aux summed and divided by ``n_layers``).  Under ``remat``
+        each group is checkpointed (the reference's ``jax.checkpoint`` of
+        its scan body)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = caches is None and self._remat()
         for g in range(self.n_groups):
-            for i, kind in enumerate(self.pattern):
-                cache = None if caches is None else _group_cache(caches[f"l{i}_{kind}"], g)
-                x, a = self._layer(i, kind, g, x, positions, cache, decode_pos)
-                if a is not None:
-                    aux = aux + a
+            if remat:
+                x, aux = _checkpointed(self._group, g, x, aux, positions, memory,
+                                       policy=self.cfg.remat)
+            else:
+                x, aux = self._group(g, x, aux, positions, memory, caches, decode_pos)
         x = rmsnorm(self.final_norm["scale"], x, self.cfg.norm_eps)
         return x, aux / max(self.cfg.n_layers, 1)
 
-    def forward(self, tokens: torch.Tensor, *, return_hidden: bool = False):
+    def _encoder_layer(self, l: int, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Encoder layer ``l``: bidirectional self attention with rope, then
+        the MLP, each pre-normed and residual."""
+        cfg = self.cfg
+        p = {part: {k: v[l] for k, v in self.encoder[part].items()}
+             for part in ("norm1", "attn", "norm2", "mlp")}
+        h = rmsnorm(p["norm1"]["scale"], x, cfg.norm_eps)
+        q, k, v = A.project_qkv(p["attn"], h, h, positions, positions, cfg.rope_theta)
+        x = x + A.attend(p["attn"], A.attention(q, k, v, positions, positions, causal=False))
+        h2 = rmsnorm(p["norm2"]["scale"], x, cfg.norm_eps)
+        return x + mlp(p["mlp"], h2, cfg.mlp_activation)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, S_enc, D), the frontend's embeddings -> the memory
+        (B, S_enc, D) bf16.  Under ``remat`` each layer is checkpointed
+        whole, as the reference checkpoints its encoder under either mode."""
+        x = frames.to(COMPUTE_DTYPE)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for l in range(self.cfg.n_encoder_layers):
+            if self._remat():
+                x = _checkpointed(self._encoder_layer, l, x, positions)
+            else:
+                x = self._encoder_layer(l, x, positions)
+        return rmsnorm(self.encoder_norm["scale"], x, self.cfg.norm_eps)
+
+    def frontend_memory(self, frontend: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """What the cross kinds attend to, from a batch's ``frontend``: the
+        encoder's output for an enc-dec arch, the embeddings cast to bf16
+        for a frontend arch, None for an arch that takes none (the
+        reference's ``loss`` and ``build_prefill_step``)."""
+        if not self.cfg.n_encoder_layers and self.cfg.frontend == "none":
+            return None
+        if frontend is None:
+            raise ValueError(f"{self.cfg.name} takes a frontend ({self.cfg.frontend}): "
+                             "give the batch's 'frontend' embeddings")
+        if self.cfg.n_encoder_layers:
+            return self.encode(frontend)
+        return frontend.to(COMPUTE_DTYPE)
+
+    def forward(self, tokens: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
+                return_hidden: bool = False):
         """tokens (B,S) -> (logits (B,S,V) f32 | final hidden, aux)."""
         x, aux = self._stack(embed(self.embed["table"], tokens),
-                             torch.arange(tokens.shape[1], device=tokens.device))
+                             torch.arange(tokens.shape[1], device=tokens.device),
+                             memory=memory)
         if return_hidden:
             return x, aux
         return self._logits(x), aux
 
-    def init_caches(self, batch: int, max_seq: int, dtype=COMPUTE_DTYPE) -> Caches:
+    def init_caches(self, batch: int, max_seq: int, dtype=COMPUTE_DTYPE,
+                    memory_len: Optional[int] = None) -> Caches:
         """Empty caches for ``max_seq`` positions: ``l{i}_{kind}`` -> the
         kind's cache with a leading ``(n_groups,)`` axis on each leaf (a
         local layer's KV cache is a ring of ``sliding_window`` slots when
-        the window is the shorter)."""
+        the window is the shorter; a cross block's holds ``memory_len``
+        slots, by default the reference's ``n_frontend_tokens or max_seq``)."""
         device = self.embed["table"].device
         n = self.n_groups
         return {f"l{i}_{kind}": _map_cache(lambda t: t[None].expand((n,) + t.shape).clone(),
                                            _init_layer_cache(kind, self.cfg, batch, max_seq,
-                                                             dtype, device))
+                                                             dtype, device, memory_len))
                 for i, kind in enumerate(self.pattern)}
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
+    def prefill(self, tokens: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
+                max_seq: Optional[int] = None,
                 last_only: bool = False) -> Tuple[torch.Tensor, Caches]:
         """tokens (B,S) -> (logits, caches filled through S).  ``last_only``
-        unembeds the final position alone, (B,1,V)."""
+        unembeds the final position alone, (B,1,V).  The cross caches hold
+        the memory's K/V at its own length, as the reference's prefill
+        returns them."""
         b, s = tokens.shape
-        caches = self.init_caches(b, max_seq or s)
+        caches = self.init_caches(b, max_seq or s,
+                                  memory_len=None if memory is None else memory.shape[1])
         x, _ = self._stack(embed(self.embed["table"], tokens),
-                           torch.arange(s, device=tokens.device), caches)
+                           torch.arange(s, device=tokens.device), caches, memory=memory)
         return self._logits(x[:, -1:] if last_only else x), caches
 
     @torch.no_grad()
     def decode_step(self, caches: Caches, token: torch.Tensor,
                     pos: int) -> Tuple[torch.Tensor, Caches]:
         """token (B,1) at position ``pos`` -> (logits (B,1,V), caches), the
-        caches written in place."""
+        caches written in place (a cross block's memory K/V are read)."""
         pos = int(pos)
         positions = torch.full((1,), pos, dtype=torch.long, device=token.device)
         x, _ = self._stack(embed(self.embed["table"], token), positions, caches, pos)
         return self._logits(x), caches
 
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch {tokens, targets} -> (ce + 0.01 aux, {ce, aux})."""
-        hidden, aux = self.forward(batch["tokens"], return_hidden=True)
+        """batch {tokens, targets[, frontend]} -> (ce + 0.01 aux, {ce, aux})."""
+        memory = self.frontend_memory(batch.get("frontend"))
+        hidden, aux = self.forward(batch["tokens"], memory=memory, return_hidden=True)
         ce = _chunked_ce(self.embed["table"], hidden, batch["targets"], self.cfg,
                          head=self._head())
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}

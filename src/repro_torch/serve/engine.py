@@ -34,9 +34,13 @@ class ServeConfig:
 
 
 def build_prefill_step(model: LM, max_seq: Optional[int] = None):
-    """``prefill_step(batch) -> (last-position logits (B,1,V), caches)``."""
+    """``prefill_step(batch) -> (last-position logits (B,1,V), caches)``;
+    an arch with a frontend reads ``batch["frontend"]``, which an enc-dec
+    arch encodes first (the memory its cross blocks cache)."""
     def prefill_step(batch):
-        return model.prefill(batch["tokens"], max_seq=max_seq, last_only=True)
+        with torch.no_grad():
+            memory = model.frontend_memory(batch.get("frontend"))
+        return model.prefill(batch["tokens"], memory=memory, max_seq=max_seq, last_only=True)
 
     return prefill_step
 
@@ -67,12 +71,15 @@ class Engine:
 
     def generate(self, prompts: torch.Tensor, max_new_tokens: int,
                  generator: Optional[torch.Generator] = None,
-                 timings: Optional[dict] = None) -> torch.Tensor:
-        """prompts (B, S_prompt) -> (B, S_prompt + max_new_tokens) int64.
+                 timings: Optional[dict] = None,
+                 frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """prompts (B, S_prompt) -> (B, S_prompt + max_new_tokens) int64;
+        ``frontend`` (B, S_front, D): the frontend embeddings of an arch that
+        takes them.
 
-        ``timings``, when given, receives ``prefill_s`` and ``decode_s``
-        (the host clock around each part, synchronized on the card) and
-        ``decode_steps``."""
+        ``timings``, when given, receives ``prefill_s`` (the encoder's pass
+        included) and ``decode_s`` (the host clock around each part,
+        synchronized on the card) and ``decode_steps``."""
         if generator is None and self.config.temperature > 0.0:
             generator = torch.Generator(device=prompts.device).manual_seed(0)
         prompts = prompts.long()
@@ -81,7 +88,10 @@ class Engine:
                 else (lambda: None))
         sync()
         t0 = time.perf_counter()
-        logits, caches = self._prefill({"tokens": prompts})
+        batch = {"tokens": prompts}
+        if frontend is not None:
+            batch["frontend"] = frontend
+        logits, caches = self._prefill(batch)
         tok = self._sample(logits, generator)[:, None]
         sync()
         t1 = time.perf_counter()

@@ -27,7 +27,7 @@ from repro.models import registry
 from repro.serve import Engine as JEngine, ServeConfig as JServeConfig
 from repro_torch import configs, convert
 from repro_torch.launch import serve as serve_cli
-from repro_torch.models import LM, attention as tattn, transformer
+from repro_torch.models import LM, attention as tattn
 from repro_torch.serve import Engine, ServeConfig
 
 MAX_SEQ = 64
@@ -145,16 +145,6 @@ def test_update_kv_cache_exact(case):
     np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
     np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
     np.testing.assert_array_equal(tc.pos.numpy(), np.asarray(jc.pos))
-
-
-def test_only_attention_kinds_have_caches():
-    """The decoder-only kinds have caches (tests/test_torch_ssm.py and
-    tests/test_torch_xlstm.py hold them); the cross-attention kinds are not
-    ported yet."""
-    cfg = configs.get_config("gemma2_2b").reduced()
-    for kind in ("cross_attn_mlp", "dec_cross_mlp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer._init_layer_cache(kind, cfg, 1, 8, torch.bfloat16, "cpu")
 
 
 def test_generate_shapes_and_determinism(pair):

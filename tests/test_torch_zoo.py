@@ -1,6 +1,7 @@
 """Port parity of the model zoo: the ten configs, the registry, the
-parameter layout of every ported arch at full size, the MoE block, the QKV
-bias, and the CLIs on the new archs.
+parameter layout of all ten archs at full size, the MoE block, the QKV
+bias, and the CLIs on the new archs (the cross-attention archs' parity:
+``tests/test_torch_encdec.py``).
 
 Tolerances, each with its reason:
 
@@ -57,9 +58,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import LM, layers as TL, moe as TM, registry as treg
 from repro_torch.models.transformer import param_shapes
 
-PORTED = ("internlm2_20b", "qwen1_5_110b", "gemma2_2b", "phi3_medium_14b", "hymba_1_5b",
-          "xlstm_1_3b", "mixtral_8x22b", "qwen3_moe_235b_a22b")
-UNPORTED = ("seamless_m4t_large_v2", "llama3_2_vision_11b")
+PORTED = tuple(jreg.ARCH_NAMES)
 MOE_F32_REL = 1e-5
 MOE_BF16_REL = 2e-2
 SERVE_MAX_SEQ = 64
@@ -94,10 +93,13 @@ def _chip_smoke():
 
 
 def test_registry_names_and_ported_archs():
+    """The reference's names in its order, and the port builds every one of
+    them at full size (on the meta device: nothing is allocated)."""
     assert configs.ARCH_NAMES == tuple(jreg.ARCH_NAMES)
-    assert treg.ARCH_NAMES == configs.ARCH_NAMES
-    assert tuple(a for a in treg.ARCH_NAMES
-                 if treg.unported_reason(treg.get_config(a)) is None) == PORTED
+    assert treg.ARCH_NAMES == configs.ARCH_NAMES == PORTED
+    for arch in PORTED:
+        model = treg.build(arch, device="meta")
+        assert sum(p.numel() for p in model.parameters()) == model.cfg.param_count()
     assert treg.LONG_CONTEXT_OK == jreg.LONG_CONTEXT_OK
     assert set(tbase.SHAPES) == set(jbase.SHAPES)
     for name, shape in tbase.SHAPES.items():
@@ -131,13 +133,18 @@ def test_full_size_parameter_shapes_match_reference_spec(arch):
 
 def test_param_counts_follow_the_spec():
     """The port counts the parameters it builds; the reference's analytic
-    ``param_count`` counts an MLP a hybrid layer does not have (ROADMAP.md
-    §3), so hymba's and xlstm's differ from it."""
+    ``param_count`` counts an MLP a hybrid layer does not have, and a self
+    attention a ``cross_attn_*`` layer does not have (ROADMAP.md §3), so
+    hymba's, xlstm's, seamless's and llama-vision's differ from it."""
     counts = {a: configs.get_config(a).param_count() for a in PORTED}
     assert counts["hymba_1_5b"] == 800_001_600
     assert jreg.get_config("hymba_1_5b").param_count() == 1_641_528_000
     assert counts["xlstm_1_3b"] == 4_386_117_968
     assert jreg.get_config("xlstm_1_3b").param_count() == 3_679_692_800
+    assert counts["seamless_m4t_large_v2"] == 1_632_233_472
+    assert jreg.get_config("seamless_m4t_large_v2").param_count() == 1_632_130_048
+    assert counts["llama3_2_vision_11b"] == 9_775_157_256
+    assert jreg.get_config("llama3_2_vision_11b").param_count() == 10_110_734_336
     assert counts["gemma2_2b"] == jreg.get_config("gemma2_2b").param_count()
 
 
@@ -190,8 +197,9 @@ def test_cell_is_supported_matches(shape):
 
 
 def test_make_batch_contract():
-    """The reference's keys and shapes for every arch the port builds (the
-    frontend memory of the other two waits for them)."""
+    """The reference's keys and shapes for every arch: seamless's audio
+    frames as long as the sequence, llama-vision's patches; the frontend
+    N(0, 1) x 0.02 in f32, as the reference's."""
     gen = torch.Generator().manual_seed(0)
     for arch in PORTED:
         cfg = configs.get_config(arch).reduced()
@@ -201,19 +209,12 @@ def test_make_batch_contract():
         for key, value in batch.items():
             assert tuple(value.shape) == want[key].shape, (arch, key)
         assert int(batch["tokens"].max()) < cfg.vocab_size and int(batch["tokens"].min()) >= 0
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_cross_attention_archs_raise(arch, capsys):
-    cfg = configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LM(cfg.reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cfg.param_count()
-    for main in (train_cli.main, serve_cli.main):
-        with pytest.raises(SystemExit):
-            main(["--arch", arch, "--reduced", "--device", "cpu"])
-        assert "ROADMAP.md" in capsys.readouterr().err
+        if "frontend" in batch:
+            assert batch["frontend"].dtype == torch.float32
+            assert 0.015 < float(batch["frontend"].std()) < 0.025
+    assert {a for a in PORTED if "frontend" in treg.make_batch(
+        configs.get_config(a).reduced(), 1, 4)} == {"seamless_m4t_large_v2",
+                                                     "llama3_2_vision_11b"}
 
 
 def test_cli_refuses_n_layers_off_the_pattern(capsys):
@@ -428,7 +429,7 @@ def test_qkv_bias_enters_before_rope():
     want = JA.project_qkv({k: jnp.asarray(v) for k, v in p.items()}, x, x, q_positions=pos,
                           kv_positions=pos, rope_theta=1e6)
     got = TA.project_qkv({k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x),
-                         torch.from_numpy(pos), 1e6)
+                         torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(pos), 1e6)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
 
