@@ -1097,10 +1097,13 @@ def ops_phase(dev, counted) -> dict:
     return launches
 
 
-def api_train(dev, steps: int, n_layers: int = N_LAYERS, loop=None, **reducer_kwargs):
+def api_train(dev, steps: int, n_layers: int = N_LAYERS, loop=None, mode: str = "compressed_dp",
+              mesh=None, **reducer_kwargs):
     """Training through the port's Python API, built as the CLI builds it:
     ReducerConfig -> StepConfig -> train_loop (sequenced, 64 MB buckets,
-    EF, selector auto); ``loop`` holds more TrainLoopConfig fields."""
+    EF, selector auto); ``loop`` holds more TrainLoopConfig fields; ``mode``
+    and ``mesh`` the step's (a mesh with a ``pod`` axis sets
+    ``multi_pod``)."""
     import dataclasses
 
     from repro_torch.comms.reducers import ReducerConfig
@@ -1119,9 +1122,13 @@ def api_train(dev, steps: int, n_layers: int = N_LAYERS, loop=None, **reducer_kw
     opt = OptConfig(kind="adamw", lr=3e-4)
     stream = SyntheticStream(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
                                              global_batch=BATCH, seed=0), device=dev)
-    state = init_state(model, opt, error_feedback=reducer.error_feedback)
-    return train_loop(model, opt, StepConfig(mode="compressed_dp", reducer=reducer), state,
-                      stream, TrainLoopConfig(total_steps=steps, log_every=1, **(loop or {})))
+    step_cfg = StepConfig(mode=mode, reducer=reducer,
+                          multi_pod=mesh is not None and "pod" in mesh.shape)
+    state = init_state(model, opt, error_feedback=reducer.error_feedback, mesh=mesh,
+                       step_cfg=step_cfg)
+    return train_loop(model, opt, step_cfg, state, stream,
+                      TrainLoopConfig(total_steps=steps, log_every=1, **(loop or {})),
+                      group=mesh)
 
 
 def state_digests(state) -> dict:
@@ -1139,6 +1146,9 @@ def state_digests(state) -> dict:
 # each digest-keeping phase's (losses, state digests), for the phases held
 # bitwise against it
 DIGESTS = {}
+# every phase's losses and peak memory (GB)
+LOSSES = {}
+PEAK_GB = {}
 
 
 def train_phase(run, counted, label: str, must_launch, profile: bool = False,
@@ -1170,6 +1180,7 @@ def train_phase(run, counted, label: str, must_launch, profile: bool = False,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     history, health = result["history"], result["health"]
     losses = [row["loss"] for row in history]
+    LOSSES[label], PEAK_GB[label] = losses, peak_gb
     if digest:
         DIGESTS[label] = (losses, state_digests(result["state"]))
     del result
@@ -1230,6 +1241,89 @@ def dense_phases(kernels, fused, main_counts) -> None:
                 kernels, "train-timedomain", (), must_not_launch=True)
     train_phase(cli(*TRAIN_ARGS, "--reducer", "qsgd", *PSUM, "--steps", "3"), kernels,
                 "train-qsgd", (), must_not_launch=True)
+
+
+# train-fsdp against train-dense: the same model, batch and arithmetic on a
+# (1, 1) mesh, where every gather and reduce-scatter spans one rank; the
+# losses must be bitwise unless the card's backward is nondeterministic, and
+# then within this relative bound
+FSDP_LOSS_REL = 1e-4
+
+
+def sharding_phases(dev, kernels, fused) -> None:
+    """Phase 7b: ``--mode hierarchical`` and the sharded ``pjit`` state on
+    one card.  ``train-hier-mode``: ``api_train``'s run (EF, sequenced 64
+    MB, backend and selector ``auto``, 3 steps) in ``mode="hierarchical"``
+    with the ``hierarchical`` kind on a ``(1, 1, 1)`` ``("pod", "data",
+    "model")`` mesh: B4, B2 and B3 launch 2, 2 and 1 times a step, and with
+    one pod the pod exchange is the one-worker exchange, so its losses and
+    final parameters and residual are bitwise those of the same run in
+    ``compressed_dp`` (``train-api-auto``).  ``train-fsdp``: ``DENSE_ARGS``'s
+    model and batch in ``pjit`` with ``fsdp=True`` on a ``(1, 1)``
+    ``("data", "model")`` mesh over a one-rank NCCL group, through the API
+    (the CLI never sets ``fsdp``): DTensor leaves, the gather at use and the
+    redistributed gradients, no kernel; its losses held against
+    ``train-dense``'s, its step ms and peak memory printed beside them."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.comms import calibrate
+    from repro_torch.data import SyntheticStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import stream_config
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainLoopConfig, init_state, train_loop
+    from repro_torch.train.step import StepConfig
+
+    train_phase(lambda: api_train(dev, 3, backend="auto"), kernels, "train-api-auto", fused,
+                digest=True)
+    mesh = make_local_mesh((1, 1, 1), ("pod", "data", "model"))
+    counts, _ = train_phase(lambda: api_train(dev, 3, mode="hierarchical", mesh=mesh,
+                                              kind="hierarchical", backend="auto"),
+                            kernels, "train-hier-mode", fused, digest=True)
+    for name, per_step in LAUNCHES_PER_STEP.items():
+        if counts[name] != 3 * per_step:
+            raise AssertionError(f"train-hier-mode launched {name} {counts[name]} times in 3 "
+                                 f"steps, not {per_step} a step")
+    (losses, digests), (base_losses, base_digests) = (DIGESTS.pop("train-hier-mode"),
+                                                      DIGESTS.pop("train-api-auto"))
+    differ = sorted(k for k in base_digests if digests.get(k) != base_digests[k])
+    if losses != base_losses or differ or set(digests) != set(base_digests):
+        raise AssertionError(f"train-hier-mode losses {losses} vs {base_losses}; final state "
+                             f"differs from train-api-auto's in {differ[:5]}")
+    log(f"[train-hier-mode] losses and {len(digests)} final tensors bitwise train-api-auto's")
+
+    def fsdp_run():
+        cfg = dataclasses.replace(model_config(), n_layers=N_LAYERS)
+        model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        opt = OptConfig(kind="adamw", lr=3e-4)
+        stream = SyntheticStream(stream_config(cfg, SEQ, BATCH, 0), device=dev)
+        step_cfg = StepConfig(mode="pjit", fsdp=True)
+        with calibrate.process_group(dev):
+            fsdp_mesh = make_local_mesh((1, 1), ("data", "model"), device=dev)
+            state = init_state(model, opt, mesh=fsdp_mesh, step_cfg=step_cfg)
+            leaves = state["model"].leaves()
+            if not all(isinstance(v, DTensor) for v in leaves.values()):
+                raise AssertionError("train-fsdp: the state is not DTensor leaves")
+            sharded = sum(v.placements[0].is_shard() for v in leaves.values())
+            log(f"[train-fsdp] {len(leaves)} DTensor leaves, {sharded} sharded over 'data'")
+            result = train_loop(model, opt, step_cfg, state, stream,
+                                TrainLoopConfig(total_steps=3, log_every=1), group=fsdp_mesh)
+            result["state"] = None
+            return result
+
+    train_phase(fsdp_run, kernels, "train-fsdp", (), must_not_launch=True)
+    got, want = LOSSES["train-fsdp"], LOSSES["train-dense"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    log(f"[train-fsdp] losses {got} vs train-dense {want}: bitwise={got == want} "
+        f"max rel diff={rel:.3e} (bound {FSDP_LOSS_REL:g}, step 0 bitwise)")
+    log(f"[train-fsdp] steady step ms {PHASE_MS['train-fsdp']:.1f} vs train-dense "
+        f"{PHASE_MS['train-dense']:.1f}; peak memory {PEAK_GB['train-fsdp']:.2f} GB vs "
+        f"{PEAK_GB['train-dense']:.2f} GB")
+    if len(got) != len(want) or got[0] != want[0] or rel > FSDP_LOSS_REL:
+        raise AssertionError(f"train-fsdp losses {got} against train-dense's {want}")
 
 
 def two_level_phases(kernels, fused) -> None:
@@ -2551,6 +2645,7 @@ def main() -> int:
         train_phase(lambda: api_train(dev, 3, backend="cuda", chunk=2048), kernels,
                     "train-api-chunk2048", ("fused_compress", "range_quant_decode"))
         dense_phases(kernels, fused, main_counts)
+        sharding_phases(dev, kernels, fused)
         two_level_phases(kernels, fused)
         streamed_phases(kernels, fused, main_counts)
         auto_phase(kernels, fused)

@@ -7,7 +7,10 @@ SUM all_reduce divided by the world size, as ``pmean``), ``fft`` (the
 paper's compressed exchange), ``timedomain`` (top-k of the raw values,
 Fig. 12), ``terngrad`` and ``qsgd`` (Table I), and ``hierarchical`` (over a
 two-level mesh: the dense mean over the island's ``local`` group, then the
-fft exchange with ``config.transport`` over the ``node`` group).  The
+fft exchange with ``config.transport`` over the ``node`` group; over a mesh
+with a ``pod`` axis, the ``--mode hierarchical`` step's: the dense mean over
+the pod's ``data`` group, then the exchange over the ``pod`` group -- the
+reference's ``axis=None, pod_axis="pod"``).  The
 compressed kinds run with and without error feedback over the transports of
 ``comms/transport.py``.
 
@@ -42,7 +45,8 @@ The FaultPlan's worker coordinate is the reference's: the row-major index
 over the reducer's axes, ``(axis, pod_axis)``.  Over a two-level mesh that
 is the rank (``("node", "local")``, node-major), except for the
 ``hierarchical`` kind, whose ``axis`` is the island's ``local`` and
-``pod_axis`` the ``node``: ``local_index * nodes + node_index``.
+``pod_axis`` the ``node``: ``local_index * nodes + node_index`` (over a
+mesh with a ``pod`` axis, the pod's index).
 :func:`degrade_config` is one rung down the degradation ladder the train
 loop walks; on the card it has no ``backend`` rung, since the kernels are
 the only path there.
@@ -234,6 +238,8 @@ def fault_worker(config: ReducerConfig, group) -> int:
     over ``(axis, pod_axis)``; over a mesh the ``hierarchical`` kind's axes
     are ``(local, node)``, every other kind's the mesh's own."""
     if isinstance(group, Mesh) and config.kind == "hierarchical":
+        if "pod" in group.shape:
+            return group.index("pod")
         return collectives.axis_linear_index(group.axis_names[::-1], mesh=group)
     return collectives.axis_linear_index(group)
 
@@ -253,7 +259,9 @@ def make_reducer(config: ReducerConfig, group=None):
 
     ``group`` is the ``torch.distributed`` group the mean runs over (the
     default group when one is initialized, else one worker), or a
-    ``launch.mesh.Mesh`` (the ``hierarchical`` kind needs a two-level one).
+    ``launch.mesh.Mesh`` (the ``hierarchical`` kind needs a two-level one or
+    one with a ``pod`` axis; over a ``pod`` mesh a flat kind's mean runs over
+    the ``("pod", "data")`` group).
     ``config.schedule`` and ``config.transport`` must be resolved: ``auto``
     is priced once, by ``scheduler.resolve_schedule`` and
     ``scheduler.resolve_transport`` (the train step calls them)."""
@@ -263,7 +271,9 @@ def make_reducer(config: ReducerConfig, group=None):
     if config.transport == "auto":
         raise ValueError("make_reducer needs a resolved transport; resolve transport='auto' "
                          "with scheduler.resolve_transport first (build_train_step does)")
-    flat_group = group.flat if isinstance(group, Mesh) else group
+    flat_group = group
+    if isinstance(group, Mesh):
+        flat_group = group.group(("pod", "data")) if "pod" in group.shape else group.flat
     if config.kind == "dense":
         if config.error_feedback:
             raise ValueError("error feedback is meaningless for dense reduction")
@@ -271,10 +281,14 @@ def make_reducer(config: ReducerConfig, group=None):
     island = None  # the hierarchical kind's dense-mean group
     exchange_group = group
     if config.kind == "hierarchical":
-        if not (isinstance(group, Mesh) and group.topology is not None):
+        if isinstance(group, Mesh) and "pod" in group.shape:
+            island, exchange_group = group.group("data"), group.group("pod")
+        elif isinstance(group, Mesh) and group.topology is not None:
+            island, exchange_group = group.local, group.node
+        else:
             raise ValueError("the hierarchical reducer kind needs a two-level mesh "
-                             "(launch.mesh.make_two_level_mesh) as its group")
-        island, exchange_group = group.local, group.node
+                             "(launch.mesh.make_two_level_mesh) or one with a 'pod' axis "
+                             "as its group")
     comp = _make_compressor(config)
     transport = get_transport(config.transport)
     resilient = config.resilient

@@ -9,7 +9,11 @@ The train state maps onto the reference's state tree ``{"params", "opt":
 keys ``jax.tree_util.keystr`` spells (``['params']['embed']['table']``):
 what ``train/checkpoint.py`` writes, so a checkpoint of either package
 restores in the other.  The step and the optimizer's count are int32
-scalars there; the residual is one row per worker, ``(workers, n)``.
+scalars there; the residual is one row per worker, ``(workers, n)``.  A
+sharded state's leaves are ``DTensor`` blocks: :func:`params_to_jax` and
+the checkpoint gather them whole (a collective every rank makes), and
+:func:`load_state_leaves` copies each rank's block of a full array into
+them, whatever mesh they live on.
 
 The encoder (``encoder.*``, ``encoder_norm``), the cross blocks
 (``cross.*``) and a cross layer's ``cross_gate`` are leaves of the same
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_jax", "params_to_jax", "caches_from_jax", "keystr", "state_leaves",
-           "load_state_leaves"]
+           "load_state_leaves", "full_tensor"]
 
 
 def params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -56,8 +60,15 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         *parents, leaf = path.split(".")
         for part in parents:
             node = node.setdefault(part, {})
-        node[leaf] = tensor.detach().cpu().numpy()
+        node[leaf] = full_tensor(tensor).detach().cpu().numpy()
     return out
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """``t`` whole: a DTensor's blocks gathered (collective), else ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -118,7 +129,12 @@ def state_leaves(state) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
 def load_state_leaves(state, arrays: Mapping[str, np.ndarray], *, row: int = 0) -> None:
     """Copy the reference's state leaves (numpy, by key) into ``state`` in
     place: every leaf of :func:`state_leaves` must be there, others are
-    ignored.  The residual takes row ``row`` of a ``(workers, n)`` array."""
+    ignored.  The residual takes row ``row`` of a ``(workers, n)`` array; a
+    DTensor leaf takes this rank's block of the full array."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import block_of
+
     missing = sorted(set(state_leaves(state)) - set(arrays))
     if missing:
         raise ValueError(f"checkpoint missing leaves: {missing[:5]}...")
@@ -128,6 +144,9 @@ def load_state_leaves(state, arrays: Mapping[str, np.ndarray], *, row: int = 0) 
                 arr = arrays[key]
                 state["residual"].copy_(torch.from_numpy(np.asarray(arr[row] if arr.ndim == 2
                                                                     else arr)))
+            elif isinstance(like, DTensor):
+                full = torch.from_numpy(np.asarray(arrays[key]))
+                like.to_local().copy_(block_of(full, like).to(like.dtype))
             elif isinstance(like, torch.Tensor):
                 like.copy_(torch.from_numpy(np.asarray(arrays[key])).to(like.dtype))
     state["opt"]["count"] = int(arrays[keystr("opt", "count")])

@@ -36,13 +36,20 @@ GPU.  ``--arch`` takes the registry's ten names; an arch with a frontend
 embeddings, as the reference CLI builds them.  ``--n-layers`` cuts the
 depth at full width (a port-only flag, a multiple of the arch's layer
 pattern: 2 for gemma2_2b, 5 for llama3_2_vision_11b, 8 for xlstm; on an
-enc-dec arch it sets the encoder's depth too).  Flags
-and values the port does not run (``--mode hierarchical``, ``--mesh
-production|multi_pod``) raise with a pointer to ROADMAP.md.  One difference
+enc-dec arch it sets the encoder's depth too).  ``--mesh production`` builds
+the ``(16, 16)`` ``("data", "model")`` mesh and ``--mesh multi_pod`` the
+``(2, 16, 16)`` ``("pod", "data", "model")`` one (``launch/mesh.py``; 256
+and 512 workers): ``--mode pjit`` on them keeps the state sharded (tensor
+parallelism over ``model``), and ``--mode hierarchical`` needs the ``pod``
+axis of ``multi_pod`` (elsewhere it is refused by name).  Two differences
 from the reference CLI: the publisher's delta codec runs on ``--backend``
 and ``--selector`` (defaults ``auto``), so on the card each publish launches
-the sampled threshold and fused compress kernels; the reference CLI leaves
-``PublishConfig``'s plain ``reference`` backend and ``sort`` selector.
+the sampled threshold and fused compress kernels, where the reference CLI
+leaves ``PublishConfig``'s plain ``reference`` backend and ``sort``
+selector; and ``--mode hierarchical`` gives the reducer the dry-run's
+spelling, ``axis=None, pod_axis="pod"`` (the dense mean inside the pod, the
+exchange over ``pod``), where the reference CLI's ``axis="data"`` cannot
+run (ROADMAP §3).
 Under ``torchrun`` (or any launcher that sets the ``torch.distributed``
 environment) each process trains one worker of the
 data-parallel group; ``--calibrate`` with ``--nodes`` also fits each axis's
@@ -66,15 +73,11 @@ from repro_torch import configs, device as device_mod
 from repro_torch.comms.reducers import ReducerConfig
 from repro_torch.core import schedules as theta_schedules
 from repro_torch.data import SyntheticConfig, SyntheticStream
-from repro_torch.launch.mesh import make_two_level_mesh
+from repro_torch.launch.mesh import make_production_mesh, make_two_level_mesh
 from repro_torch.models import build, registry
 from repro_torch.optim import OptConfig, lr_schedules
 from repro_torch.train import TrainLoopConfig, init_state, train_loop
-from repro_torch.train.step import StepConfig
-
-
-def _not_ported(ap, what: str):
-    ap.error(f"{what} is not ported to the PyTorch package yet; see ROADMAP.md")
+from repro_torch.train.step import StepConfig, sharded_state
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -123,10 +126,12 @@ def _parser() -> argparse.ArgumentParser:
 
 def _check_ported(ap, args) -> None:
     registry.check_arch(ap, args.arch, args.n_layers)
-    if args.mode == "hierarchical":
-        _not_ported(ap, f"--mode {args.mode}")
-    if args.mesh != "local":
-        _not_ported(ap, f"--mesh {args.mesh}")
+    if args.nodes is not None and args.mesh != "local":
+        ap.error("--nodes builds a two-level local mesh; drop --mesh")
+    if args.mode == "hierarchical" and args.mesh != "multi_pod":
+        ap.error("--mode hierarchical exchanges over a 'pod' axis, which only --mesh multi_pod "
+                 f"has (the {'two-level' if args.nodes is not None else args.mesh} mesh has "
+                 "none)")
     if args.transport == "hierarchical" and args.nodes is None:
         ap.error("--transport hierarchical needs a two-level mesh: give --nodes")
 
@@ -166,11 +171,14 @@ def main(argv=None):
     if dist.is_initialized() and dev.type == "cuda":
         dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    if args.nodes is not None:
-        try:
+    try:
+        if args.nodes is not None:
             group = make_two_level_mesh(args.nodes)
-        except ValueError as e:
-            ap.error(f"--nodes {args.nodes}: {e}")
+        elif args.mesh != "local":
+            group = make_production_mesh(multi_pod=args.mesh == "multi_pod", device=dev)
+    except ValueError as e:
+        ap.error(f"--{'nodes' if args.nodes is not None else 'mesh'} "
+                 f"{args.nodes if args.nodes is not None else args.mesh}: {e}")
 
     cfg = configs.get_config(args.arch)
     if args.reduced:
@@ -183,17 +191,22 @@ def main(argv=None):
     reducer = None
     if args.mode != "pjit":
         reducer = ReducerConfig(
-            kind=args.reducer, theta=args.theta, error_feedback=args.error_feedback,
+            kind=args.reducer if args.mode == "compressed_dp" else "hierarchical",
+            theta=args.theta, error_feedback=args.error_feedback,
             bucket_bytes=int(args.bucket_mb * (1 << 20)) if args.bucket_mb else None,
             transport=args.transport, backend=args.backend, stacked=not args.no_stacked,
             schedule=args.schedule, stream_groups=args.stream_groups,
             selector=args.selector, sample_rate=args.sample_rate)
-    step_cfg = StepConfig(mode=args.mode, reducer=reducer,
+    step_cfg = StepConfig(mode=args.mode, multi_pod=args.mesh == "multi_pod", reducer=reducer,
                           calibration_path=args.calibration_path)
+    if args.publish_dir is not None and sharded_state(step_cfg, group):
+        ap.error("--publish-dir publishes a replicated model; the sharded --mode pjit state of "
+                 f"--mesh {args.mesh} is not published")
     opt_cfg = OptConfig(kind="adamw", lr=args.lr)
     stream = SyntheticStream(stream_config(cfg, args.seq, args.batch, args.seed), device=dev)
     state = init_state(model, opt_cfg,
-                       error_feedback=reducer is not None and reducer.error_feedback)
+                       error_feedback=reducer is not None and reducer.error_feedback,
+                       mesh=group, step_cfg=step_cfg)
     calibration = None
     if args.calibrate and args.mode != "pjit":
         step_cfg, calibration = _calibrate(args, step_cfg, model, stream, dev, group)

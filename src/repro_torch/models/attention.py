@@ -29,23 +29,39 @@ _NEG_INF = -1e30
 
 def project_qkv(p, x_q: torch.Tensor, x_kv: torch.Tensor,
                 q_positions: Optional[torch.Tensor] = None,
-                kv_positions: Optional[torch.Tensor] = None, rope_theta: float = 1e4):
+                kv_positions: Optional[torch.Tensor] = None, rope_theta: float = 1e4,
+                tp=None):
     """x_q (B,Sq,D), x_kv (B,Skv,D) -> q (B,Sq,Kh,G,Dh), k/v (B,Skv,Kh,Dh);
     with ``qkv_bias`` the biases ``bq``/``bk``/``bv`` are added, then rope
-    where positions are given (a cross block passes none)."""
+    where positions are given (a cross block passes none).
+
+    Under tensor parallelism over heads (``tp.heads``, self attention) the
+    leaves are this rank's heads: q holds them, and k/v this rank's kv
+    heads, or, when the model axis does not divide the kv heads, the kv
+    head of each local query head, (B,Skv,H_local,Dh) with G = 1."""
     dt = x_q.dtype
+    split = tp is not None and tp.heads
+    if split:
+        x_q = x_kv = tp.copy(x_q)
+    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    if split and not tp.kv_heads:
+        kv = {n: tp.copy(w) for n, w in kv.items()}
     q = torch.einsum("bsd,dhk->bshk", x_q, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x_kv, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x_kv, p["wv"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x_kv, kv["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x_kv, kv["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        k = k + kv["bk"].to(dt)
+        v = v + kv["bv"].to(dt)
     if q_positions is not None:
         q = rope(q, q_positions, rope_theta)
     if kv_positions is not None:
         k = rope(k, kv_positions, rope_theta)
     b, s, h, dh = q.shape
+    if split and not tp.kv_heads:
+        group = h * tp.size // k.shape[2]
+        idx = (tp.rank * h + torch.arange(h, device=k.device)) // group
+        k, v = k[:, :, idx], v[:, :, idx]
     kh = k.shape[2]
     return q.reshape(b, s, kh, h // kh, dh), k, v
 
@@ -76,11 +92,13 @@ def attention(q, k, v, q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
-def attend(p, out: torch.Tensor) -> torch.Tensor:
-    """(B,S,Kh,G,Dh) -> output projection -> (B,S,D)."""
+def attend(p, out: torch.Tensor, tp=None) -> torch.Tensor:
+    """(B,S,Kh,G,Dh) -> output projection -> (B,S,D); under tensor
+    parallelism over heads the local heads' partial sums are reduced."""
     b, s, kh, g, dh = out.shape
     merged = out.reshape(b, s, kh * g, dh)
-    return torch.einsum("bshk,hkd->bsd", merged, p["wo"].to(out.dtype))
+    y = torch.einsum("bshk,hkd->bsd", merged, p["wo"].to(out.dtype))
+    return tp.reduce(y) if tp is not None and tp.heads else y
 
 
 @dataclasses.dataclass

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.sharding import ParamSpec
+
 __all__ = ["ConvConfig", "ConvNet"]
 
 
@@ -59,10 +61,11 @@ def _norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mu) * torch.rsqrt(var + eps)
 
 
-def _param_specs(cfg: ConvConfig) -> Dict[str, Tuple[Tuple[int, ...], float]]:
-    """Leaf name -> (shape, init stddev), in the reference's spec order."""
+def _param_specs(cfg: ConvConfig) -> Dict[str, ParamSpec]:
+    """Leaf name -> ParamSpec, in the reference's spec order."""
     def conv(cin, cout, k=3):
-        return (k, k, cin, cout), (2.0 / (k * k * cin)) ** 0.5
+        return ParamSpec((k, k, cin, cout), (None, None, None, "ff"),
+                         scale=(2.0 / (k * k * cin)) ** 0.5)
 
     spec = {"stem": conv(3, cfg.widths[0])}
     cin = cfg.widths[0]
@@ -73,7 +76,7 @@ def _param_specs(cfg: ConvConfig) -> Dict[str, Tuple[Tuple[int, ...], float]]:
             if b == 0 and cin != w:
                 spec[f"s{s}b{b}_proj"] = conv(cin, w, k=1)
         cin = w
-    spec["head"] = ((cfg.widths[-1], cfg.n_classes), 0.02)
+    spec["head"] = ParamSpec((cfg.widths[-1], cfg.n_classes), ("embed", None))
     return spec
 
 
@@ -86,10 +89,14 @@ class ConvNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        for name, (shape, std) in _param_specs(cfg).items():
-            t = torch.empty(shape, dtype=torch.float32, device=device)
-            t.normal_(0.0, std, generator=generator)
+        for name, spec in _param_specs(cfg).items():
+            t = torch.empty(spec.shape, dtype=torch.float32, device=device)
+            t.normal_(0.0, 0.02 if spec.scale is None else spec.scale, generator=generator)
             self.register_parameter(name, nn.Parameter(t))
+
+    def spec(self) -> Dict[str, ParamSpec]:
+        """Leaf name -> ParamSpec (shape, logical axes, init)."""
+        return _param_specs(self.cfg)
 
     def leaves(self) -> Dict[str, torch.Tensor]:
         """Leaf path -> parameter, as a flat mapping."""

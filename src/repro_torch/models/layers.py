@@ -39,8 +39,14 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (normed * scale.float()).to(x.dtype)
 
 
-def mlp(p, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
+def mlp(p, x: torch.Tensor, activation: str = "swiglu", tp=None) -> torch.Tensor:
+    """The gated (or plain) MLP; under tensor parallelism over ff
+    (``tp.ff``) up/gate are this rank's columns and down its rows, and the
+    partial sums are reduced."""
     dt = x.dtype
+    split = tp is not None and tp.ff
+    if split:
+        x = tp.copy(x)
     up = x @ p["up"].to(dt)
     if activation == "swiglu":
         h = F.silu(x @ p["gate"].to(dt)) * up
@@ -50,11 +56,21 @@ def mlp(p, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
         h = F.relu(up)
     else:
         raise ValueError(f"unknown activation {activation!r}")
-    return h @ p["down"].to(dt)
+    y = h @ p["down"].to(dt)
+    return tp.reduce(y) if split else y
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor, dtype=COMPUTE_DTYPE) -> torch.Tensor:
-    return F.embedding(tokens, table).to(dtype)
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype=COMPUTE_DTYPE,
+          tp=None) -> torch.Tensor:
+    """The rows of ``tokens``; under tensor parallelism over the vocab the
+    table is this rank's rows, looked up where the token falls in them and
+    summed over the ranks (one rank holds each row: exact)."""
+    if tp is None or not tp.vocab:
+        return F.embedding(tokens, table).to(dtype)
+    lo = tp.rank * table.shape[0]
+    mine = (tokens >= lo) & (tokens < lo + table.shape[0])
+    rows = F.embedding(torch.where(mine, tokens - lo, 0), table) * mine[..., None]
+    return tp.reduce(rows).to(dtype)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor, vocab: int = 0,

@@ -22,20 +22,22 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding import ParamSpec
+
 __all__ = ["moe_shapes", "capacity", "top_k", "Routing", "route", "moe_apply"]
 
 
-def moe_shapes(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
-    """Leaf -> (shape, init) of one MoE block (the reference's ``moe_spec``:
+def moe_shapes(cfg) -> Dict[str, ParamSpec]:
+    """Leaf -> ParamSpec of one MoE block (the reference's ``moe_spec``:
     the router drawn at 0.02 / sqrt(d))."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     spec = {
-        "router": ((d, e), 0.02 / math.sqrt(d)),
-        "up": ((e, d, f), 0.02),
-        "down": ((e, f, d), 0.02),
+        "router": ParamSpec((d, e), ("embed", "experts"), scale=0.02 / math.sqrt(d)),
+        "up": ParamSpec((e, d, f), ("experts", "embed", "ff")),
+        "down": ParamSpec((e, f, d), ("experts", "ff", "embed")),
     }
     if cfg.mlp_activation in ("swiglu", "geglu"):
-        spec["gate"] = ((e, d, f), 0.02)
+        spec["gate"] = ParamSpec((e, d, f), ("experts", "embed", "ff"))
     return spec
 
 

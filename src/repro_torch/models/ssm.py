@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import COMPUTE_DTYPE, associative_scan
+from repro_torch.models.sharding import ParamSpec
 
 __all__ = ["ssm_shapes", "SSMState", "init_ssm_state", "ssm_apply", "ssm_decode_step",
            "softplus", "causal_conv"]
@@ -31,19 +32,19 @@ _DT_RANK = 16
 _SEQ_CHUNK = 64
 
 
-def ssm_shapes(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
-    """Leaf -> (shape, init) of one SSM mixer (the reference's ``ssm_spec``)."""
+def ssm_shapes(cfg) -> Dict[str, ParamSpec]:
+    """Leaf -> ParamSpec of one SSM mixer (the reference's ``ssm_spec``)."""
     d, di, st = cfg.d_model, cfg.ssm_expand * cfg.d_model, cfg.ssm_state
     return {
-        "in_proj": ((d, 2 * di), 0.02),
-        "conv_w": ((cfg.ssm_conv_width, di), 0.02),
-        "conv_b": ((di,), "zeros"),
-        "x_proj": ((di, _DT_RANK + 2 * st), 0.02),
-        "dt_proj": ((_DT_RANK, di), 0.02),
-        "dt_bias": ((di,), "zeros"),
-        "a_log": ((di, st), "zeros"),
-        "d_skip": ((di,), "ones"),
-        "out_proj": ((di, d), 0.02),
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "ssm_inner")),
+        "conv_w": ParamSpec((cfg.ssm_conv_width, di), ("conv", "ssm_inner")),
+        "conv_b": ParamSpec((di,), ("ssm_inner",), init="zeros"),
+        "x_proj": ParamSpec((di, _DT_RANK + 2 * st), ("ssm_inner", None)),
+        "dt_proj": ParamSpec((_DT_RANK, di), (None, "ssm_inner")),
+        "dt_bias": ParamSpec((di,), ("ssm_inner",), init="zeros"),
+        "a_log": ParamSpec((di, st), ("ssm_inner", "state"), init="zeros"),
+        "d_skip": ParamSpec((di,), ("ssm_inner",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("ssm_inner", "embed")),
     }
 
 

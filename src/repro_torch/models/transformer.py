@@ -65,8 +65,9 @@ from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
 from repro_torch.models.layers import (COMPUTE_DTYPE, embed, mlp, padded_vocab, rmsnorm,
                                        softcap, unembed)
+from repro_torch.models.sharding import ParamSpec
 
-__all__ = ["LM", "param_shapes", "CROSS_KINDS"]
+__all__ = ["LM", "param_shapes", "param_specs", "CROSS_KINDS"]
 
 Caches = Dict[str, object]
 
@@ -74,33 +75,41 @@ Caches = Dict[str, object]
 CROSS_KINDS = ("cross_attn_mlp", "cross_attn_moe", "dec_cross_mlp")
 
 
-def _attn_shapes(cfg, cross: bool = False):
+def _norm_spec(d: int) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
+
+
+def _attn_shapes(cfg, cross: bool = False) -> Dict[str, ParamSpec]:
     """A self (or, with ``cross``, a cross) attention block's leaves; a
     cross block has no QKV bias (the reference's ``attention_spec``)."""
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    spec = {"wq": ((d, h, dh), 0.02), "wk": ((d, kh, dh), 0.02), "wv": ((d, kh, dh), 0.02),
-            "wo": ((h, dh, d), 0.02)}
+    spec = {"wq": ParamSpec((d, h, dh), ("embed", "heads", "head_dim")),
+            "wk": ParamSpec((d, kh, dh), ("embed", "kv_heads", "head_dim")),
+            "wv": ParamSpec((d, kh, dh), ("embed", "kv_heads", "head_dim")),
+            "wo": ParamSpec((h, dh, d), ("heads", "head_dim", "embed"))}
     if cfg.qkv_bias and not cross:
-        spec.update(bq=((h, dh), "zeros"), bk=((kh, dh), "zeros"), bv=((kh, dh), "zeros"))
+        spec.update(bq=ParamSpec((h, dh), ("heads", "head_dim"), init="zeros"),
+                    bk=ParamSpec((kh, dh), ("kv_heads", "head_dim"), init="zeros"),
+                    bv=ParamSpec((kh, dh), ("kv_heads", "head_dim"), init="zeros"))
     return spec
 
 
-def _mlp_shapes(cfg):
+def _mlp_shapes(cfg) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
-    spec = {"up": ((d, f), 0.02), "down": ((f, d), 0.02)}
+    spec = {"up": ParamSpec((d, f), ("embed", "ff")), "down": ParamSpec((f, d), ("ff", "embed"))}
     if cfg.mlp_activation in ("swiglu", "geglu"):
-        spec["gate"] = ((d, f), 0.02)
+        spec["gate"] = ParamSpec((d, f), ("embed", "ff"))
     return spec
 
 
-def _layer_shapes(cfg, kind: str) -> Dict[str, Tuple[Tuple[int, ...], object]]:
-    """Leaf -> (shape, init) of one layer of ``kind`` (the reference's
-    ``_layer_spec``); init is "zeros", "ones" or a normal's scale."""
+def _layer_shapes(cfg, kind: str) -> Dict[str, ParamSpec]:
+    """Leaf -> ParamSpec of one layer of ``kind`` (the reference's
+    ``_layer_spec``)."""
     if kind not in ("mlstm", "slstm", "hybrid", "dec_cross_mlp") and not (
             kind.startswith(("attn", "cross_attn")) and kind.endswith(("mlp", "moe"))):
         raise ValueError(f"unknown layer kind {kind!r}")
     d = cfg.d_model
-    parts = [("norm1", {"scale": ((d,), "ones")})]
+    parts = [("norm1", _norm_spec(d))]
     if kind in ("mlstm", "slstm"):
         parts.append(("cell", X.mlstm_shapes(cfg) if kind == "mlstm" else X.slstm_shapes(cfg)))
     else:
@@ -109,16 +118,16 @@ def _layer_shapes(cfg, kind: str) -> Dict[str, Tuple[Tuple[int, ...], object]]:
         if kind in CROSS_KINDS:
             parts.append(("cross", _attn_shapes(cfg, cross=True)))
         if kind.startswith("cross_attn"):
-            parts.append(("cross_gate", ((1,), "zeros")))
+            parts.append(("cross_gate", ParamSpec((1,), (None,), init="zeros")))
         if kind == "dec_cross_mlp":
-            parts.append(("norm_cross", {"scale": ((d,), "ones")}))
+            parts.append(("norm_cross", _norm_spec(d)))
         if kind == "hybrid":
-            parts += [("ssm", S.ssm_shapes(cfg)), ("norm_attn_out", {"scale": ((d,), "ones")}),
-                      ("norm_ssm_out", {"scale": ((d,), "ones")})]
+            parts += [("ssm", S.ssm_shapes(cfg)), ("norm_attn_out", _norm_spec(d)),
+                      ("norm_ssm_out", _norm_spec(d))]
         elif kind.endswith("moe"):
-            parts += [("norm2", {"scale": ((d,), "ones")}), ("moe", M.moe_shapes(cfg))]
+            parts += [("norm2", _norm_spec(d)), ("moe", M.moe_shapes(cfg))]
         elif kind.endswith("mlp"):
-            parts += [("norm2", {"scale": ((d,), "ones")}), ("mlp", _mlp_shapes(cfg))]
+            parts += [("norm2", _norm_spec(d)), ("mlp", _mlp_shapes(cfg))]
     out = {}
     for part, leaves in parts:
         if isinstance(leaves, dict):
@@ -128,32 +137,41 @@ def _layer_shapes(cfg, kind: str) -> Dict[str, Tuple[Tuple[int, ...], object]]:
     return out
 
 
-def _encoder_shapes(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
+def _encoder_shapes(cfg) -> Dict[str, ParamSpec]:
     """One encoder layer's leaves: pre-norm self attention and MLP."""
     d = cfg.d_model
-    parts = [("norm1", {"scale": ((d,), "ones")}), ("attn", _attn_shapes(cfg)),
-             ("norm2", {"scale": ((d,), "ones")}), ("mlp", _mlp_shapes(cfg))]
+    parts = [("norm1", _norm_spec(d)), ("attn", _attn_shapes(cfg)),
+             ("norm2", _norm_spec(d)), ("mlp", _mlp_shapes(cfg))]
     return {f"{part}.{leaf}": v for part, leaves in parts for leaf, v in leaves.items()}
 
 
 def param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
     """Leaf path -> shape, for the whole model."""
-    return {k: s for k, (s, _) in _param_spec(cfg).items()}
+    return {k: s.shape for k, s in param_specs(cfg).items()}
 
 
-def _param_spec(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
-    spec = {"embed.table": ((padded_vocab(cfg.vocab_size), cfg.d_model), 0.02)}
+def _stacked(spec: ParamSpec, n: int) -> ParamSpec:
+    """``spec`` with a leading stacked ``"layers"`` axis of ``n``."""
+    return ParamSpec((n,) + spec.shape, ("layers",) + spec.logical_axes, spec.init, spec.scale)
+
+
+def param_specs(cfg) -> Dict[str, ParamSpec]:
+    """Leaf path -> ParamSpec for the whole model, from the shape tables
+    alone (no allocation): the reference's ``LM.spec()`` flattened to the
+    port's dotted leaf paths."""
+    vp = padded_vocab(cfg.vocab_size)
+    spec = {"embed.table": ParamSpec((vp, cfg.d_model), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        spec["embed.head"] = ((cfg.d_model, padded_vocab(cfg.vocab_size)), 0.02)
-    spec["final_norm.scale"] = ((cfg.d_model,), "ones")
+        spec["embed.head"] = ParamSpec((cfg.d_model, vp), ("embed", "vocab"))
+    spec["final_norm.scale"] = _norm_spec(cfg.d_model)["scale"]
     n = cfg.n_groups()
     for i, kind in enumerate(cfg.layer_pattern()):
-        for name, (shape, init) in _layer_shapes(cfg, kind).items():
-            spec[f"layers.l{i}_{kind}.{name}"] = ((n,) + shape, init)
+        for name, leaf in _layer_shapes(cfg, kind).items():
+            spec[f"layers.l{i}_{kind}.{name}"] = _stacked(leaf, n)
     if cfg.n_encoder_layers:
-        for name, (shape, init) in _encoder_shapes(cfg).items():
-            spec[f"encoder.{name}"] = ((cfg.n_encoder_layers,) + shape, init)
-        spec["encoder_norm.scale"] = ((cfg.d_model,), "ones")
+        for name, leaf in _encoder_shapes(cfg).items():
+            spec[f"encoder.{name}"] = _stacked(leaf, cfg.n_encoder_layers)
+        spec["encoder_norm.scale"] = _norm_spec(cfg.d_model)["scale"]
     return spec
 
 
@@ -280,18 +298,25 @@ class LM(nn.Module):
         self.pattern = cfg.layer_pattern()
         self.n_groups = cfg.n_groups()
         leaves = []
-        for path, (shape, init) in _param_spec(cfg).items():
-            if init == "zeros":
-                t = torch.zeros(shape, dtype=torch.float32, device=device)
-            elif init == "ones":
-                t = torch.ones(shape, dtype=torch.float32, device=device)
+        for path, spec in param_specs(cfg).items():
+            if spec.init == "zeros":
+                t = torch.zeros(spec.shape, dtype=torch.float32, device=device)
+            elif spec.init == "ones":
+                t = torch.ones(spec.shape, dtype=torch.float32, device=device)
             else:
-                t = torch.empty(shape, dtype=torch.float32, device=device)
-                t.normal_(0.0, init, generator=generator)
+                t = torch.empty(spec.shape, dtype=torch.float32, device=device)
+                t.normal_(0.0, 0.02 if spec.scale is None else spec.scale, generator=generator)
             leaves.append((tuple(path.split(".")), nn.Parameter(t)))
         root = _container(leaves)
         for name, child in root.items():
             self.add_module(name, child)
+        # tensor parallelism over the model axis (models/tensor_parallel.py):
+        # set by the sharded train step around its loss, None otherwise
+        self._tp = None
+
+    def spec(self) -> Dict[str, ParamSpec]:
+        """Leaf path -> ParamSpec (shape, logical axes, init)."""
+        return param_specs(self.cfg)
 
     def leaves(self) -> Dict[str, torch.Tensor]:
         """Leaf path -> parameter, as a flat mapping."""
@@ -310,7 +335,7 @@ class LM(nn.Module):
         position, written into the cache, attending over the whole cache
         (``_self_attention_decode``)."""
         cfg = self.cfg
-        q, k, v = A.project_qkv(pa, h, h, positions, positions, cfg.rope_theta)
+        q, k, v = A.project_qkv(pa, h, h, positions, positions, cfg.rope_theta, tp=self._tp)
         kv_positions = positions
         if cache is not None:
             A.update_kv_cache(cache, k, v, 0 if decode_pos is None else decode_pos)
@@ -318,7 +343,7 @@ class LM(nn.Module):
                 k, v, kv_positions = cache.k, cache.v, cache.pos
         out = A.attention(q, k, v, positions, kv_positions, window=_attn_window(cfg, kind),
                           attn_softcap=cfg.attn_softcap)
-        return A.attend(pa, out)
+        return A.attend(pa, out, tp=self._tp)
 
     def _cross_attention(self, pa, h, memory: Optional[torch.Tensor],
                          cache: Optional[A.KVCache], decode_pos: Optional[int]) -> torch.Tensor:
@@ -389,7 +414,7 @@ class LM(nn.Module):
         if "moe" in p:
             out, aux = M.moe_apply(group("moe"), h2, cfg)
             return x + out, aux
-        return x + mlp(group("mlp"), h2, cfg.mlp_activation), None
+        return x + mlp(group("mlp"), h2, cfg.mlp_activation, tp=self._tp), None
 
     def _head(self) -> Optional[torch.Tensor]:
         """The untied output head, or None when the table is tied."""
@@ -472,7 +497,7 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
                 return_hidden: bool = False):
         """tokens (B,S) -> (logits (B,S,V) f32 | final hidden, aux)."""
-        x, aux = self._stack(embed(self.embed["table"], tokens),
+        x, aux = self._stack(embed(self.embed["table"], tokens, tp=self._tp),
                              torch.arange(tokens.shape[1], device=tokens.device),
                              memory=memory)
         if return_hidden:
@@ -523,23 +548,49 @@ class LM(nn.Module):
         memory = self.frontend_memory(batch.get("frontend"))
         hidden, aux = self.forward(batch["tokens"], memory=memory, return_hidden=True)
         ce = _chunked_ce(self.embed["table"], hidden, batch["targets"], self.cfg,
-                         head=self._head())
+                         head=self._head(), tp=self._tp)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
-def _chunked_ce(table, hidden, targets, cfg, head=None) -> torch.Tensor:
+def _chunked_ce(table, hidden, targets, cfg, head=None, tp=None) -> torch.Tensor:
     """Mean cross-entropy over ``ce_chunk``-position slices of the sequence,
-    so the (B, S, V) f32 logits never exist at once."""
+    so the (B, S, V) f32 logits never exist at once; under tensor
+    parallelism over the vocab, each rank's logits are its columns
+    (:func:`_vocab_parallel_ce`)."""
     s = hidden.shape[1]
     chunk = min(cfg.ce_chunk, s)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, s, chunk):
         h_c, t_c = hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk]
-        logits = softcap(unembed(table, h_c, cfg.vocab_size, head=head), cfg.final_softcap)
-        logp = torch.log_softmax(logits.float(), dim=-1)
         valid = t_c >= 0
-        ce = -torch.gather(logp, -1, torch.clamp_min(t_c, 0)[..., None].long())[..., 0]
+        if tp is not None and tp.vocab:
+            ce = _vocab_parallel_ce(table, tp.copy(h_c), torch.clamp_min(t_c, 0).long(), cfg,
+                                    head, tp)
+        else:
+            logits = softcap(unembed(table, h_c, cfg.vocab_size, head=head),
+                             cfg.final_softcap)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            ce = -torch.gather(logp, -1, torch.clamp_min(t_c, 0)[..., None].long())[..., 0]
         total = total + torch.where(valid, ce, 0.0).sum()
         count = count + valid.sum()
     return total / torch.clamp_min(count, 1.0)
+
+
+def _vocab_parallel_ce(table, h, targets, cfg, head, tp) -> torch.Tensor:
+    """Per-position cross-entropy from this rank's vocab columns: the
+    logits' global max (MAX over the ranks, outside autograd: the value
+    does not depend on it), the sum of exp and the target's logit summed
+    over the ranks (one rank holds each target)."""
+    w = table.T if head is None else head
+    cols = w.shape[1]
+    lo = tp.rank * cols
+    logits = (h @ w.to(h.dtype)).float()
+    col = lo + torch.arange(cols, device=logits.device)
+    logits = softcap(torch.where(col < cfg.vocab_size, logits, -1e30), cfg.final_softcap)
+    m = tp.max(torch.amax(logits, dim=-1))
+    total = tp.reduce(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    mine = (targets >= lo) & (targets < lo + cols)
+    picked = torch.gather(logits, -1, torch.where(mine, targets - lo, 0)[..., None])[..., 0]
+    target_logit = tp.reduce(torch.where(mine, picked, 0.0))
+    return m + torch.log(total) - target_logit

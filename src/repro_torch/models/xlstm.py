@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import COMPUTE_DTYPE, rmsnorm
+from repro_torch.models.sharding import ParamSpec
 from repro_torch.models.ssm import causal_conv
 
 __all__ = ["mlstm_shapes", "MLSTMState", "init_mlstm_state", "mlstm_apply",
@@ -52,25 +53,25 @@ def _di(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 
-def mlstm_shapes(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
-    """Leaf -> (shape, init) of one mLSTM cell (the reference's
-    ``mlstm_spec``; ``b_f`` is ones: the reference's ``ones`` init ignores
-    its scale of 3)."""
+def mlstm_shapes(cfg) -> Dict[str, ParamSpec]:
+    """Leaf -> ParamSpec of one mLSTM cell (the reference's ``mlstm_spec``;
+    ``b_f`` is ones: the ``ones`` init ignores its scale of 3)."""
     d, h, di = cfg.d_model, cfg.n_heads, _di(cfg)
+    inner = ("xlstm_inner", None)
     return {
-        "in_proj": ((d, 2 * di), 0.02),
-        "conv_w": ((cfg.ssm_conv_width, di), 0.02),
-        "conv_b": ((di,), "zeros"),
-        "wq": ((di, di), 0.02),
-        "wk": ((di, di), 0.02),
-        "wv": ((di, di), 0.02),
-        "w_i": ((di, h), 0.02),
-        "b_i": ((h,), "zeros"),
-        "w_f": ((di, h), 0.02),
-        "b_f": ((h,), "ones"),
-        "w_o": ((di, di), 0.02),
-        "norm": ((di,), "ones"),
-        "down": ((di, d), 0.02),
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "xlstm_inner")),
+        "conv_w": ParamSpec((cfg.ssm_conv_width, di), ("conv", "xlstm_inner")),
+        "conv_b": ParamSpec((di,), ("xlstm_inner",), init="zeros"),
+        "wq": ParamSpec((di, di), inner),
+        "wk": ParamSpec((di, di), inner),
+        "wv": ParamSpec((di, di), inner),
+        "w_i": ParamSpec((di, h), ("xlstm_inner", "heads")),
+        "b_i": ParamSpec((h,), ("heads",), init="zeros"),
+        "w_f": ParamSpec((di, h), ("xlstm_inner", "heads")),
+        "b_f": ParamSpec((h,), ("heads",), init="ones", scale=3.0),
+        "w_o": ParamSpec((di, di), inner),
+        "norm": ParamSpec((di,), ("embed",), init="ones"),
+        "down": ParamSpec((di, d), ("xlstm_inner", "embed")),
     }
 
 
@@ -187,19 +188,19 @@ def mlstm_decode_step(p, x: torch.Tensor, cfg, state: MLSTMState):
 # ---------------------------------------------------------------------------
 
 
-def slstm_shapes(cfg) -> Dict[str, Tuple[Tuple[int, ...], object]]:
-    """Leaf -> (shape, init) of one sLSTM cell and its post-FFN (the
+def slstm_shapes(cfg) -> Dict[str, ParamSpec]:
+    """Leaf -> ParamSpec of one sLSTM cell and its post-FFN (the
     reference's ``slstm_spec``)."""
     d = cfg.d_model
     f = max(1, int(d * 4 // 3))
     return {
-        "w": ((d, 4 * d), 0.02),
-        "r": ((d, 4 * d), 0.02),
-        "b": ((4 * d,), "zeros"),
-        "ffn_gate": ((d, f), 0.02),
-        "ffn_up": ((d, f), 0.02),
-        "ffn_down": ((f, d), 0.02),
-        "ffn_norm": ((d,), "ones"),
+        "w": ParamSpec((d, 4 * d), ("embed", None)),
+        "r": ParamSpec((d, 4 * d), ("embed", None)),
+        "b": ParamSpec((4 * d,), (None,), init="zeros"),
+        "ffn_gate": ParamSpec((d, f), ("embed", "ff")),
+        "ffn_up": ParamSpec((d, f), ("embed", "ff")),
+        "ffn_down": ParamSpec((f, d), ("ff", "embed")),
+        "ffn_norm": ParamSpec((d,), ("embed",), init="ones"),
     }
 
 

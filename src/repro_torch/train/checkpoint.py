@@ -8,8 +8,13 @@ Leaf keys are the reference's (``['params']['embed']['table']``,
 ``['opt']['mu'][...]``, ``['opt']['count']``, ``['step']``,
 ``['residual']``; ``convert.state_leaves``), so a checkpoint written by
 either package restores in the other.  The residual is saved as one row per
-worker, ``(workers, n)``: in a process group every rank's row is gathered
-and rank 0 writes; every rank restores its own row.
+worker, ``(workers, n)``: in a process group the rows are gathered over
+``row_group`` (the ranks of the residual's workers -- on a mesh, the group
+of ``step.residual_axes``; by default every rank) and rank 0 writes; every
+rank restores its own row (``row``, by default its rank).  A sharded
+state's ``DTensor`` leaves are written whole (every rank joins the gather)
+and restored as each rank's block of the full array, on whatever mesh the
+state to restore into lives: the reference's elastic remesh.
 
 * atomic: written to ``step_<N>.tmp`` and renamed; a ``.tmp`` left by a
   dead writer is invisible to :func:`latest_step` and :func:`restore`;
@@ -80,7 +85,8 @@ def _gather_rows(row: torch.Tensor, world: int, group) -> torch.Tensor:
     return out
 
 
-def save(directory: str, step: int, state, *, block: bool = True, group=None) -> str:
+def save(directory: str, step: int, state, *, block: bool = True, group=None,
+         row_group=None) -> str:
     """Write ``state`` atomically; returns the final checkpoint path (with
     ``block=False`` it exists once the next save, restore or :func:`wait`
     has joined the writer)."""
@@ -88,9 +94,12 @@ def save(directory: str, step: int, state, *, block: bool = True, group=None) ->
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     rank, world = rank_and_world(group)
-    leaves = convert.state_leaves(state)
-    if world > 1 and _RESIDUAL in leaves:
-        leaves[_RESIDUAL] = _gather_rows(leaves[_RESIDUAL], world, group)
+    leaves = {k: convert.full_tensor(v) if isinstance(v, torch.Tensor) else v
+              for k, v in convert.state_leaves(state).items()}
+    row_group = group if row_group is None else row_group
+    rows = rank_and_world(row_group)[1]
+    if rows > 1 and _RESIDUAL in leaves:
+        leaves[_RESIDUAL] = _gather_rows(leaves[_RESIDUAL], rows, row_group)
     if rank != 0:
         return final
     os.makedirs(directory, exist_ok=True)
@@ -160,8 +169,10 @@ def _load_verified(directory: str, step: int):
     return arrays
 
 
-def restore(directory: str, state, *, step: Optional[int] = None, group=None):
-    """Restore into ``state`` in place -> ``(state, step)``.
+def restore(directory: str, state, *, step: Optional[int] = None, group=None,
+            row: Optional[int] = None):
+    """Restore into ``state`` in place -> ``(state, step)``; the residual
+    takes row ``row`` (default: this rank's).
 
     Every array is verified against its digest; without an explicit
     ``step``, a newest checkpoint that fails is skipped with a warning for
@@ -187,7 +198,7 @@ def restore(directory: str, state, *, step: Optional[int] = None, group=None):
             warnings.warn(f"checkpoint step {s} failed verification ({e}); "
                           f"falling back to the previous step")
             continue
-        convert.load_state_leaves(state, arrays, row=rank)
+        convert.load_state_leaves(state, arrays, row=rank if row is None else row)
         return state, s
     raise CheckpointError(f"no verifiable checkpoint under {directory}") from last_err
 
@@ -196,17 +207,19 @@ class CheckpointManager:
     """Saves every ``every`` steps and keeps the last ``keep``."""
 
     def __init__(self, directory: str, every: int = 100, keep: int = 3,
-                 async_save: bool = False, group=None):
+                 async_save: bool = False, group=None, row_group=None):
         self.directory = directory
         self.every = every
         self.keep = keep
         self.async_save = async_save
         self.group = group
+        self.row_group = row_group
 
     def maybe_save(self, step: int, state) -> Optional[str]:
         if step % self.every != 0:
             return None
-        path = save(self.directory, step, state, block=not self.async_save, group=self.group)
+        path = save(self.directory, step, state, block=not self.async_save, group=self.group,
+                    row_group=self.row_group)
         self._gc()
         return path
 

@@ -30,8 +30,11 @@ ladder.
 Each step takes the stream's batch (this worker's rows of it when a process
 group is initialized).  ``group=`` is a group or a ``launch.mesh.Mesh``: the
 step and its rebuilds after a rung get the mesh (a rung down to ``psum``
-exchanges over its ``flat`` group); the batch shards, checkpoints and
-restores use the ``flat`` group.  With ``theta_schedule`` each step's theta is
+exchanges over its ``flat`` group); over a mesh a rank takes the rows of its
+coordinate over the step's batch axes (``step.mesh_batch_axes``: ranks that
+differ only in ``model`` take the same rows), checkpoints and restores use
+the ``flat`` group, and the EF residual's rows are its
+``step.residual_axes`` workers'.  With ``theta_schedule`` each step's theta is
 snapped through ``core.schedules.quantize_theta``, with one step function
 per quantized theta.  ``lr_schedule`` is accepted and ignored: the
 reference loop computes it but its step takes no LR multiplier, so the
@@ -54,7 +57,8 @@ from repro_torch.dist_util import rank_and_world
 from repro_torch.kernels.build import KernelError
 from repro_torch.launch.mesh import Mesh
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.step import StepConfig, build_train_step
+from repro_torch.train.step import (StepConfig, build_train_step, mesh_batch_axes,
+                                    residual_axes)
 
 __all__ = ["TrainLoopConfig", "train_loop", "RECOVERABLE", "FATAL"]
 
@@ -112,17 +116,23 @@ def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
     it ran, None in ``pjit`` mode).  Every history row carries the step's
     theta and its wall time ``dt`` (synchronized on the card)."""
     mesh = group
+    rank, world = rank_and_world(group.flat if isinstance(group, Mesh) else group)
+    host, hosts, row_group, row = rank, world, None, None
     if isinstance(group, Mesh):
+        batch_axes = mesh_batch_axes(step_cfg, mesh)
+        host, hosts = mesh.linear_index(batch_axes), mesh.size_of(batch_axes)
+        rows = residual_axes(step_cfg, mesh)
+        if rows:
+            row_group, row = mesh.group(rows), mesh.linear_index(rows)
         group = group.flat
     manager = (ckpt.CheckpointManager(loop_cfg.ckpt_dir, loop_cfg.ckpt_every,
-                                      loop_cfg.ckpt_keep, group=group)
+                                      loop_cfg.ckpt_keep, group=group, row_group=row_group)
                if loop_cfg.ckpt_dir else None)
     health = faults_mod.ReducerHealth()
     if manager is not None and ckpt.latest_step(loop_cfg.ckpt_dir) is not None:
-        state, start = ckpt.restore(loop_cfg.ckpt_dir, state, group=group)
+        state, start = ckpt.restore(loop_cfg.ckpt_dir, state, group=group, row=row)
         print(f"[loop] resumed from step {start}")
 
-    rank, world = rank_and_world(group)
     device = next(model.parameters()).device
     batch_tokens = _batch_tokens(stream.batch_at(0))
     live_cfg = step_cfg
@@ -181,7 +191,7 @@ def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
                     health.record_delay(step)
                     time.sleep(delay)
             step_fn = get_step_fn(theta)
-            batch = stream.batch_at(step, host_index=rank, num_hosts=world)
+            batch = stream.batch_at(step, host_index=host, num_hosts=hosts)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
@@ -222,7 +232,7 @@ def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
                 retries = 0
             if manager is not None and ckpt.latest_step(loop_cfg.ckpt_dir) is not None:
                 print(f"[loop] step {step} failed ({e}); rolling back to last checkpoint")
-                state, step = ckpt.restore(loop_cfg.ckpt_dir, state, group=group)
+                state, step = ckpt.restore(loop_cfg.ckpt_dir, state, group=group, row=row)
             else:
                 print(f"[loop] step {step} failed ({e}); no checkpoint yet -- retrying in place")
     if manager is not None:

@@ -148,3 +148,121 @@ def test_cli_checkpoints_and_resumes(tmp_path, capsys):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert tck.latest_step(str(tmp_path)) == 3
+
+
+_REMESH_WORKER = r"""
+import sys
+import numpy as np, torch, torch.distributed as dist
+torch.set_num_threads(1)
+from torch.distributed.tensor import DTensor
+from repro_torch import configs, convert
+from repro_torch.comms.reducers import ReducerConfig
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import LM
+from repro_torch.models.sharding import block_of
+from repro_torch.optim import OptConfig
+from repro_torch.train import StepConfig, build_train_step, checkpoint as tck, init_state
+rank, port, d = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                        world_size=4)
+cfg = configs.get_config("gemma2_2b").reduced()
+opt = OptConfig(kind="adamw")
+toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 17))).long()
+
+
+def sharded(seed, shape, axes, sc):
+    model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    mesh = make_local_mesh(shape, axes, device="cpu")
+    return mesh, model, init_state(model, opt, mesh=mesh, step_cfg=sc,
+                                   error_feedback=sc.reducer is not None)
+
+
+def dump(name, state):
+    leaves = convert.state_leaves(state)
+    full = {k: convert.full_tensor(v).detach().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in leaves.items()}
+    ok = all(torch.equal(v.to_local(), block_of(torch.from_numpy(full[k]), v))
+             for k, v in leaves.items() if isinstance(v, DTensor))
+    if rank == 0:
+        np.savez(f"{d}/{name}.npz", ok=np.array(ok), **full)
+
+
+sc = StepConfig(mode="pjit", fsdp=True)
+mesh, model, state = sharded(0, (2, 2), ("data", "model"), sc)
+i = mesh.index("data")
+build_train_step(model, opt, sc, group=mesh)(
+    state, {"tokens": toks[2 * i:2 * i + 2, :-1], "targets": toks[2 * i:2 * i + 2, 1:]})
+tck.save(f"{d}/ckpt", 1, state)
+dump("saved", state)
+for name, shape, axes in (("flat4", (4,), ("data",)), ("transposed", (2, 2), ("model", "data"))):
+    _, _, target = sharded(1, shape, axes, sc)
+    tck.restore(f"{d}/ckpt", target)
+    dump(name, target)
+_, _, target = sharded(2, (2, 2), ("data", "model"), sc)
+tck.restore(f"{d}/ref", target)
+dump("from_ref", target)
+# hierarchical: the residual saved as one row per pod, restored by pod
+hier = StepConfig(mode="hierarchical", multi_pod=True,
+                  reducer=ReducerConfig(kind="hierarchical", error_feedback=True))
+mesh, model, state = sharded(3, (2, 2, 1), ("pod", "data", "model"), hier)
+j = mesh.linear_index(("pod", "data"))
+build_train_step(model, opt, hier, group=mesh)(
+    state, {"tokens": toks[j:j + 1, :-1], "targets": toks[j:j + 1, 1:]})
+tck.save(f"{d}/hier", 1, state, row_group=mesh.group("pod"))
+_, _, target = sharded(4, (2, 2, 1), ("pod", "data", "model"), hier)
+tck.restore(f"{d}/hier", target, row=mesh.index("pod"))
+np.savez(f"{d}/hier.{rank}.npz", pod=mesh.index("pod"), saved=state["residual"].numpy(),
+         restored=target["residual"].numpy())
+dist.barrier()  # rank 0 hosts the store: no rank tears down before all are done
+dist.destroy_process_group()
+"""
+
+
+def test_sharded_checkpoints_remesh(tmp_path):
+    """A sharded (2, 2) ``("data", "model")`` FSDP state saved whole and
+    restored onto a (4,) mesh and onto the transposed ``("model", "data")``
+    one, every rank's block the slice of the saved arrays; the reference's
+    checkpoint restored onto the (2, 2) state; a ``hierarchical`` state's
+    residual saved as one row per pod and restored by pod.  4 gloo workers,
+    bitwise throughout."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from helpers import REPO
+
+    d = str(tmp_path)
+    jstate = _reference_state()
+    jck.save(d + "/ref", 12, jstate)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", _REMESH_WORKER, str(rank), str(port), d],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for rank in range(4)]
+    for p in procs:
+        log, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, log
+    saved = dict(np.load(d + "/saved.npz"))
+    assert saved.pop("ok")
+    with open(os.path.join(d, "ckpt", "step_00000001", "manifest.json")) as f:
+        assert set(json.load(f)["leaves"]) == set(saved)
+    _assert_same(saved, dict(np.load(os.path.join(d, "ckpt", "step_00000001", "arrays.npz"))))
+    for name in ("flat4", "transposed"):
+        got = dict(np.load(f"{d}/{name}.npz"))
+        assert got.pop("ok"), name
+        _assert_same(got, saved)
+    got = dict(np.load(d + "/from_ref.npz"))
+    assert got.pop("ok")
+    want = {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(jstate)[0]}
+    _assert_same(got, {k: want[k] for k in got})
+    rows = np.load(os.path.join(d, "hier", "step_00000001", "arrays.npz"))["['residual']"]
+    assert rows.shape[0] == 2
+    for rank in range(4):
+        h = np.load(f"{d}/hier.{rank}.npz")
+        np.testing.assert_array_equal(rows[int(h["pod"])], h["saved"])
+        np.testing.assert_array_equal(h["restored"], h["saved"])
+    assert not np.array_equal(rows[0], rows[1])

@@ -247,7 +247,7 @@ def test_nan_grad_and_corrupt_payload_steps_skip_like_reference():
         mesh, {"tokens": jnp.asarray(toks[0][:, :-1]), "targets": jnp.asarray(toks[0][:, 1:])},
         donate=False)
     tstate = t_init_state(tmodel, TOpt(kind="adamw"), error_feedback=True)
-    tstep = t_build(tmodel, TOpt(kind="adamw"), TStep(reducer=TRC(
+    tstep = t_build(tmodel, TOpt(kind="adamw"), TStep(mode="compressed_dp", reducer=TRC(
         backend="auto", faults=tf.FaultPlan.from_dicts(plan_events), **red)))
     jskips, tskips = [], []
     for t in toks:
@@ -269,7 +269,7 @@ def test_nan_grad_and_corrupt_payload_steps_skip_like_reference():
 def test_step_that_raises_leaves_the_state_untouched(monkeypatch):
     tmodel = LM(configs.get_config("gemma2_2b").reduced(), device="cpu")
     state = t_init_state(tmodel, TOpt(kind="adamw"), error_feedback=True)
-    step = t_build(tmodel, TOpt(kind="adamw"), TStep(reducer=TRC(
+    step = t_build(tmodel, TOpt(kind="adamw"), TStep(mode="compressed_dp", reducer=TRC(
         kind="fft", error_feedback=True, bucket_bytes=BUCKET, transport="sequenced")))
     batch = {"tokens": torch.zeros((2, 16), dtype=torch.long),
              "targets": torch.ones((2, 16), dtype=torch.long)}

@@ -88,7 +88,7 @@ def _port(events, loop_kw, calls=1):
     state = t_init_state(tmodel, TOpt(**OPT), error_feedback=True)
     plan = tf.FaultPlan.from_dicts(events)
     cfg = TLoop(log_every=1, faults=plan, **loop_kw)
-    step_cfg = TStep(reducer=TRC(faults=plan, **RED))
+    step_cfg = TStep(mode="compressed_dp", reducer=TRC(faults=plan, **RED))
     out = None
     for _ in range(calls):
         try:
@@ -190,7 +190,7 @@ def test_kernel_failure_ends_the_run_without_retry_or_rung(monkeypatch, capsys):
     monkeypatch.setattr(t_loop_mod, "build_train_step", broken_build)
     assert not issubclass(KernelError, RuntimeError)
     with pytest.raises(KernelError, match="launch failed"):
-        t_loop(tmodel, TOpt(**OPT), TStep(reducer=TRC(**RED)), state,
+        t_loop(tmodel, TOpt(**OPT), TStep(mode="compressed_dp", reducer=TRC(**RED)), state,
                _Tokens(_BATCHES, lambda t: torch.from_numpy(t).long()),
                TLoop(total_steps=4, log_every=1))
     assert calls == [0, 1]

@@ -116,7 +116,7 @@ def test_loop_theta_step_schedule_records_reference_curve():
     state = init_state(model, opt, error_feedback=True)
     rng = np.random.default_rng(2)
     stream = _Tokens([rng.integers(0, 256, (2, 17)).astype(np.int32) for _ in range(steps)])
-    out = train_loop(model, opt, StepConfig(reducer=red), state, stream,
+    out = train_loop(model, opt, StepConfig(mode="compressed_dp", reducer=red), state, stream,
                      TrainLoopConfig(total_steps=steps, log_every=1, theta_schedule=sched))
     rows = out["history"]
     assert tuple(row["theta"] for row in rows) == want

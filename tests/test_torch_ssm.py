@@ -71,7 +71,7 @@ def _combine(e1, e2):
 
 def _ssm_params(cfg, rng):
     """Random mixer parameters, the decays and biases off their init values."""
-    shapes = {k: s for k, (s, _) in TS.ssm_shapes(cfg).items()}
+    shapes = {k: s.shape for k, s in TS.ssm_shapes(cfg).items()}
     p = {k: (rng.normal(size=s) * 0.2).astype(np.float32) for k, s in shapes.items()}
     p["a_log"] = rng.uniform(-1.0, 1.0, shapes["a_log"]).astype(np.float32)
     p["d_skip"] = np.ones(shapes["d_skip"], np.float32)

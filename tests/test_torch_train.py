@@ -75,7 +75,8 @@ def test_two_compressed_dp_ef_steps_match_reference():
     tmodel = LM(configs.get_config("gemma2_2b").reduced(), device="cpu")
     tmodel.load_state_dict(convert.params_from_jax(params0))
     tstate = t_init_state(tmodel, TOpt(**opt), error_feedback=True)
-    tstep = t_build(tmodel, TOpt(**opt), TStep(reducer=TRC(backend="auto", **red)))
+    tstep = t_build(tmodel, TOpt(**opt),
+                    TStep(mode="compressed_dp", reducer=TRC(backend="auto", **red)))
 
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, 256, (2, 33)).astype(np.int32) for _ in range(2)]
@@ -202,13 +203,18 @@ def test_reducer_config_refuses_unported_paths(capsys):
         make_reducer(dataclasses.replace(TRC(kind="fft"), transport="auto"))
     with pytest.raises(ValueError, match="two-level mesh"):
         make_reducer(TRC(kind="hierarchical"))
-    # what stays unported: --mode hierarchical (FSDP inside a pod)
+    # --mode hierarchical builds on a mesh with a pod axis, and the CLI
+    # refuses it on a mesh without one
+    from repro_torch.launch.mesh import make_local_mesh
+
     tmodel = LM(configs.get_config("gemma2_2b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(tmodel, TOpt(), TStep(mode="hierarchical", reducer=TRC(kind="fft")))
+    step = t_build(tmodel, TOpt(), TStep(mode="hierarchical", multi_pod=True,
+                                         reducer=TRC(kind="hierarchical")),
+                   group=make_local_mesh((1, 1, 1), ("pod", "data", "model")))
+    assert step.reducer_config.kind == "hierarchical"
     with pytest.raises(SystemExit):
         train.main(["--reduced", "--device", "cpu", "--mode", "hierarchical"])
-    assert "ROADMAP" in capsys.readouterr().err
+    assert "'pod' axis" in capsys.readouterr().err
 
 
 def test_cli_trains_two_gloo_workers_in_lockstep(tmp_path):
@@ -280,7 +286,8 @@ def test_train_loop_trains_at_base_lr_like_reference():
     tmodel = LM(configs.get_config("gemma2_2b").reduced(), device="cpu")
     tmodel.load_state_dict(convert.params_from_jax(params0))
     tout = t_train_loop(
-        tmodel, TOpt(**opt), TStep(reducer=TRC(**red)), t_init_state(tmodel, TOpt(**opt)),
+        tmodel, TOpt(**opt), TStep(mode="compressed_dp", reducer=TRC(**red)),
+        t_init_state(tmodel, TOpt(**opt)),
         _Tokens(batches, lambda t: torch.from_numpy(t).long()),
         TLoop(total_steps=steps, log_every=1, lr_schedule=t_sched.warmup_cosine(3, steps)))
     assert [row["step"] for row in tout["history"]] == list(range(steps))

@@ -79,10 +79,10 @@ def _np(tree):
 
 
 def _params(shapes, rng):
-    p = {k: (rng.normal(size=s) * 0.2).astype(np.float32) for k, (s, _) in shapes.items()}
-    for k, (s, init) in shapes.items():
-        if init == "ones":
-            p[k] = (1.0 + 0.1 * rng.normal(size=s)).astype(np.float32)
+    p = {k: (rng.normal(size=s.shape) * 0.2).astype(np.float32) for k, s in shapes.items()}
+    for k, s in shapes.items():
+        if s.init == "ones":
+            p[k] = (1.0 + 0.1 * rng.normal(size=s.shape)).astype(np.float32)
     return p
 
 
