@@ -152,7 +152,16 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    at one that drops nothing, on the positions whose experts agree on both
    sides, at least half of those not dropped; the flipped and dropped ones
    counted, a flip only at a near-tie of the router: ``FLIP_MARGIN``),
-   with its parameters, prefill and decode ms and peak.
+   with its parameters, prefill and decode ms and peak;
+20. ``train-tp-kinds`` (``TP_CASES``): tensor parallelism for the layer
+   kinds beyond the dense ones, over two processes on the one card in a gloo group
+   (NCCL refuses two ranks on one device) forming a ``(1, 2)`` ``("data",
+   "model")`` mesh: one full-width layer or group each of qwen3-moe
+   (expert-parallel), mixtral (ff-parallel), hymba, xlstm, seamless (with
+   an encoder layer) and llama-vision (its cross layer), each rank holding
+   its model-local blocks, the loss and every gradient block held against
+   the unsplit model on rank 0 (xlstm also in f32), their times and peaks
+   printed; the split times are gloo's host round trips, not NCCL's.
 
 Phase 10 also runs ``train-psum-noderound``: ``train-psum`` with its
 exchange fed the island mean's irfft(rfft(g)), as ``train-hierarchical``
@@ -166,8 +175,9 @@ Then each training phase's mean steady step (``train-dense`` beside
 ``train``) and the ops phase's time, one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package.  ``--rows`` and ``--skip-train`` (which skips phases 4 to 6)
-shorten a run while a kernel is being brought up; ``--only theory,lab,zoo``
-runs only the named phases after the kernel phases (``zoo``: phases 17-19); ``--profile`` traces the
+shorten a run while a kernel is being brought up; ``--only theory,lab,zoo,tp``
+runs only the named phases after the kernel phases (``zoo``: phases 17-19;
+``tp``: phase 20); ``--profile`` traces the
 first training phase with ``torch.profiler`` and prints device time by
 kernel, by op and per step.
 """
@@ -175,6 +185,7 @@ kernel, by op and per step.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -2551,6 +2562,358 @@ def zoo_serve_phase(dev, counted) -> None:
                                      f"(relative L2) from forward's, limit {SERVE_LOGITS_REL}")
 
 
+# train-tp-kinds: one layer or group of each layer kind whose tensor
+# parallelism over "model" the sharded pjit step runs, at full
+# width, split over two processes on the one card -- a (1, 2) ("data",
+# "model") mesh in a gloo group, since NCCL refuses two ranks on one device --
+# against the unsplit layer on rank 0.  Each case: the config's changes
+# (depth cut), and rules that differ from DEFAULT_RULES: at model 2 the
+# rules would put mixtral's 8 experts over model, so its case unbinds
+# "experts", which is where the rules leave it at model 16 (8 experts do not
+# divide 16), and its MoE splits over ff; "split": the blocks the plan must
+# split, block suffix -> TensorParallel flag
+TP_CASES = {
+    "qwen3-moe": {"arch": "qwen3_moe_235b_a22b", "changes": {"n_layers": 1},
+                  "split": {"l0_attn_moe.attn": "heads", "l0_attn_moe.moe": "experts",
+                            "embed": "vocab"}},
+    "mixtral-moe": {"arch": "mixtral_8x22b", "changes": {"n_layers": 1},
+                    "rules": {"experts": None},
+                    "split": {"l0_attn_local_moe.attn": "heads", "l0_attn_local_moe.moe": "ff"}},
+    "hymba": {"arch": "hymba_1_5b", "changes": {"n_layers": 1},
+              "split": {"l0_hybrid.ssm": "inner"}},
+    "xlstm": {"arch": "xlstm_1_3b", "changes": {"n_layers": 8}, "f32": True,
+              "split": {"l0_mlstm.cell": "inner", "l7_slstm.cell": "ff"}},
+    "seamless": {"arch": "seamless_m4t_large_v2",
+                 "changes": {"n_layers": 1, "n_encoder_layers": 1},
+                 "split": {"l0_dec_cross_mlp.attn": "heads", "l0_dec_cross_mlp.cross": "heads",
+                           "l0_dec_cross_mlp.mlp": "ff", "encoder.attn": "heads",
+                           "encoder.mlp": "ff"}},
+    "vision": {"arch": "llama3_2_vision_11b",
+               "changes": {"n_layers": 1, "cross_attn_period": 1},
+               "split": {"l0_cross_attn_mlp.cross": "heads", "l0_cross_attn_mlp.mlp": "ff"}},
+}
+TP_SHAPE = (2, 256)
+# the MoE routers start at 50x their init scale (0.02 / sqrt(d)): at init a
+# router is near uniform, and the split sums' bf16 rounding flips its
+# near-tied top-k choices (ROADMAP §3 fault 14; qwen3-moe's 128 experts at
+# init: 98.9% of the gradient's signs equal, measured on one H100), which moves
+# the gradient of the experts those tokens leave and join
+TP_ROUTER_SCALE = 50.0
+# the CPU tests' tolerances against the port's own unsplit step
+# (tests/test_torch_tp_kinds.py): the loss within 1e-3 relative, the
+# gradient's norm within 2e-3; and the whole gradient within relative L2 0.1
+# with 99% of its signs equal.  A leaf the ranks both hold must have the
+# same gradient on both, bit for bit (the stream between blocks is
+# replicated bitwise)
+TP_LOSS_REL = 1e-3
+TP_NORM_REL = 2e-3
+TP_GRAD_REL = 0.1
+TP_SIGNS = 0.99
+# a case marked "f32" (xlstm: one full-width group amplifies rounding,
+# ROADMAP §3 fault 11 -- its bf16 gradient is 0.36 relative L2 from its f32
+# one, measured on one H100 -- so two bf16 roundings of it part by more than
+# the above) also runs in f32: there the split's loss is held to f32
+# rounding and its gradient to within a tenth of the distance bf16 rounding
+# puts between the unsplit model's gradients (the f32 sums' order alone
+# moves it 1.7%); and its bf16 split gradient is held as close to the f32
+# unsplit one as the bf16 unsplit gradient is, within a factor of 2 (the
+# split rounds each product it reduces twice, its partial sums and then
+# their sum, where the unsplit model rounds it once)
+TP_F32_LOSS_REL = 1e-5
+TP_F32_GRAD_SHARE = 0.1
+TP_ACCURACY_RATIO = 2.0
+
+
+def tp_case_config(case: dict):
+    """A ``TP_CASES`` entry's config (``reduced`` first when it says so)."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(case["arch"])
+    if case.get("reduced"):
+        cfg = cfg.reduced()
+    return dataclasses.replace(cfg, **case["changes"])
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """The LM computing in ``dtype`` in place of bf16: the stream's dtype is
+    the embedding's output's, and the encoder casts its frames to
+    ``transformer.COMPUTE_DTYPE``."""
+    from repro_torch.models import layers, transformer
+
+    embed_defaults, compute = layers.embed.__defaults__, transformer.COMPUTE_DTYPE
+    layers.embed.__defaults__ = (dtype,) + embed_defaults[1:]
+    transformer.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        layers.embed.__defaults__, transformer.COMPUTE_DTYPE = embed_defaults, compute
+
+
+def tp_kinds_worker(rank: int, port: int, spec: dict) -> int:
+    """One rank of ``train-tp-kinds`` (``spec``: device, shape, cases): for
+    each case rank 0 runs the unsplit model's loss and backward, then both
+    ranks build it, keep their model-local blocks (``sharding.local_slice``
+    under the case's rules for ``{data: 1, model: 2}``) and run the loss and
+    backward under ``step._swapped`` with their plan; rank 1 sends its
+    gradients' blocks to rank 0 (host tensors: the check's traffic, not the
+    port's), which holds them and the loss to the unsplit run's.  A case
+    marked ``f32`` also runs both ways computing in f32, where the split is
+    held to f32 rounding, and its bf16 split is held to be as close to the
+    f32 gradient as the bf16 unsplit one is (``TP_ACCURACY_RATIO``).
+    Prints one JSON line a case on rank 0; raises on a failed check."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import all_kernels
+    from repro_torch.models import LM, registry
+    from repro_torch.models.sharding import DEFAULT_RULES, local_slice, spec_tree_to_pspecs
+    from repro_torch.models.tensor_parallel import plan
+    from repro_torch.train.step import _swapped
+
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    kernels = all_kernels()
+    for kern in kernels:
+        kern.launches = 0
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    mesh = {"data": 1, "model": 2}
+    failed = []
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else float("nan")
+
+    def reset_peak():
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def block(t, pspec, r):
+        return t[local_slice(pspec, t.shape, mesh, {"data": 0, "model": r})]
+
+    def stats(pairs):
+        """Sums over (got, want) pairs, leaf by leaf on the device in f64:
+        the relative L2 of the difference, of the norms, the signs equal
+        where ``want`` is non-zero, and the worst leaf."""
+        sq_diff = sq_got = sq_want = agree = nonzero = 0.0
+        worst = (0.0, "")
+        for k, g, w in pairs:
+            g, w = g.to(dev).double(), w.to(dev).double()
+            d, ww = float(torch.sum(torch.square(g - w))), float(torch.sum(torch.square(w)))
+            sq_diff, sq_want = sq_diff + d, sq_want + ww
+            sq_got += float(torch.sum(torch.square(g)))
+            mask = w != 0
+            nonzero += float(mask.sum())
+            agree += float((torch.sign(g[mask]) == torch.sign(w[mask])).sum())
+            worst = max(worst, ((d / max(ww, 1e-60)) ** 0.5, k))
+        return {"grad_rel_l2": (sq_diff / sq_want) ** 0.5,
+                "grad_norm_rel": abs((sq_got / sq_want) ** 0.5 - 1.0),
+                "signs": agree / nonzero, "worst_leaf": worst[1], "worst_leaf_rel": worst[0]}
+
+    for name, case in spec["cases"].items():
+        cfg = tp_case_config(case)
+        batch = registry.make_batch(cfg, *spec["shape"],
+                                    generator=torch.Generator(device=dev).manual_seed(1),
+                                    device=dev)
+        dtypes = ("bf16", "f32") if case.get("f32") else ("bf16",)
+
+        def build():
+            model = LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+            with torch.no_grad():
+                for k, p in model.leaves().items():
+                    if k.endswith("cross_gate"):  # zero at init: the cross path off
+                        p.fill_(CROSS_GATE_OPEN)
+                    elif k.endswith(".router"):
+                        p.mul_(TP_ROUTER_SCALE)
+            return model
+
+        def run(model, tp, dtype):
+            """(loss, gradients, ms of the loss and backward: in bf16 the
+            second of two, in f32 the one)."""
+            leaves = model.leaves()
+            with compute_dtype(torch.float32 if dtype == "f32" else torch.bfloat16):
+                for _ in range(2 if dtype == "bf16" else 1):
+                    for p in leaves.values():
+                        p.grad = None
+                    sync()
+                    t0 = time.perf_counter()
+                    with _swapped(model, leaves, tp):
+                        loss, _ = model.loss(batch)
+                        loss.backward()
+                    sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+            return float(loss.detach()), {k: p.grad.detach() for k, p in leaves.items()}, ms
+
+        full = {}
+        if rank == 0:
+            reset_peak()
+            model = build()
+            for dt in dtypes:
+                loss, grads, ms = run(model, None, dt)
+                full[dt] = (loss, {k: g.cpu() for k, g in grads.items()}, ms)
+                del grads
+                gb_full = peak_gb() if dt == "bf16" else gb_full
+            del model
+        dist.barrier()
+        model = build()
+        specs = model.spec()
+        pspecs = spec_tree_to_pspecs(specs, mesh, {**DEFAULT_RULES, **case.get("rules", {})})
+        with torch.no_grad():
+            for k, p in model.leaves().items():
+                p.data = block(p.data, pspecs[k], rank).clone()
+        reset_peak()
+        tp = plan(pspecs, specs, None, 2, rank)
+        unsplit = sorted(k for k, s in pspecs.items() if "model" in s and not tp.splits(k))
+        flags = {b: f for b, f in case.get("split", {}).items()
+                 if not any(blk.endswith(b) and getattr(t, f) for blk, t in tp.blocks.items())}
+        if unsplit or flags:
+            raise AssertionError(f"train-tp-kinds {name}: leaves sharded over model in a block "
+                                 f"that computes whole {unsplit[:4]}; blocks not split as "
+                                 f"expected {flags}")
+        split = {}
+        for dt in dtypes:
+            split[dt] = run(model, tp, dt)
+            gb = peak_gb() if dt == "bf16" else gb
+        del model
+        names = sorted(split["bf16"][1])
+        if rank == 1:
+            for dt in dtypes:
+                loss, grads, ms = split[dt]
+                for k in names:
+                    dist.send(grads[k].cpu().contiguous(), 0)
+                dist.send(torch.tensor([loss, ms, gb], dtype=torch.float64), 0)
+            continue
+        row = {"case": name, "arch": case["arch"], "params": cfg.param_count(),
+               "split_blocks": sorted(b for b, t in tp.blocks.items() if t.split),
+               "gb_split": [gb], "gb_unsplit": gb_full}
+
+        def pairs_against(mine, theirs, want):
+            """(leaf, got, want) for each block of both ranks; a leaf both
+            hold whole once."""
+            out = []
+            for k in names:
+                if "model" in pspecs[k]:
+                    out += [(k, mine[k], block(want[k], pspecs[k], 0)),
+                            (k, theirs[k], block(want[k], pspecs[k], 1))]
+                else:
+                    out.append((k, mine[k], want[k]))
+            return out
+
+        diverged, received = [], {}
+        for dt in dtypes:
+            loss, mine, ms = split[dt]
+            theirs = {}
+            for k in names:
+                theirs[k] = torch.empty(mine[k].shape, dtype=mine[k].dtype)
+                dist.recv(theirs[k], 1)
+            buf = torch.empty(3, dtype=torch.float64)
+            dist.recv(buf, 1)
+            loss1, ms1, gb1 = buf.tolist()
+            received[dt] = theirs
+            diverged += [f"{k} ({dt})" for k in names if "model" not in pspecs[k]
+                         and not torch.equal(mine[k].cpu(), theirs[k])]
+            got = stats(pairs_against(mine, theirs, full[dt][1]))
+            got.update(loss=loss, loss_unsplit=full[dt][0], loss_rank1=loss1,
+                       loss_rel=abs(loss - full[dt][0]) / abs(full[dt][0]),
+                       ms_split=[ms, ms1], ms_unsplit=full[dt][2])
+            if dt == "bf16":
+                row.update(got)
+                row["gb_split"].append(gb1)
+                continue
+            # the bf16 gradients against the f32 unsplit one: the split's
+            # distance over the unsplit's own
+            truth = full["f32"][1]
+            got["bf16_vs_f32_split"] = stats(pairs_against(
+                split["bf16"][1], received["bf16"], truth))["grad_rel_l2"]
+            got["bf16_vs_f32_unsplit"] = stats(
+                [(k, full["bf16"][1][k], truth[k]) for k in names])["grad_rel_l2"]
+            row["f32"] = got
+        print("TP_CASE " + json.dumps(row), flush=True)
+        if "f32" in row:
+            f = row["f32"]
+            ok = (f["loss_rel"] <= TP_F32_LOSS_REL and row["loss_rel"] <= TP_LOSS_REL
+                  and f["grad_rel_l2"] <= TP_F32_GRAD_SHARE * f["bf16_vs_f32_unsplit"]
+                  and f["bf16_vs_f32_split"] <= TP_ACCURACY_RATIO * f["bf16_vs_f32_unsplit"])
+        else:
+            ok = (row["loss_rel"] <= TP_LOSS_REL and row["grad_norm_rel"] <= TP_NORM_REL
+                  and row["grad_rel_l2"] <= TP_GRAD_REL and row["signs"] >= TP_SIGNS)
+        if not ok or diverged or row["loss_rank1"] != row["loss"]:
+            failed.append(f"{name}: {row}; replicated leaves that differ across ranks "
+                          f"{diverged[:4]}")
+        del full, split
+    launched = {k.name: k.launches for k in kernels if k.launches}
+    dist.barrier()
+    dist.destroy_process_group()
+    if launched or failed:
+        raise AssertionError(f"train-tp-kinds: kernels launched {launched}; cases out of "
+                             f"tolerance: {failed}")
+    return 0
+
+
+def tp_kinds_phase(device: str = "cuda:0", cases=None, shape=TP_SHAPE) -> list:
+    """``train-tp-kinds``: two ``tp_kinds_worker`` processes on ``device``
+    (a gloo group on a free localhost port); fails unless both exit with 0.
+    Returns rank 0's rows.  The split times include gloo's staging of every
+    collective's CUDA tensors through the host: they are not NCCL's."""
+    import socket
+
+    spec = {"device": device, "shape": list(shape), "cases": cases or TP_CASES}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker",
+                               str(rank), str(port), json.dumps(spec)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("train-tp-kinds: a worker failed:\n" + "\n".join(
+            f"--- rank {r} (rc {p.returncode}) ---\n{log[-6000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    rows = [json.loads(line[len("TP_CASE "):]) for line in logs[0].splitlines()
+            if line.startswith("TP_CASE ")]
+    for row in rows:
+        log(f"[train-tp-kinds] {row['case']} ({row['arch']}, {row['params']} parameters; "
+            f"split: {', '.join(row['split_blocks'])}): loss {row['loss']:.6f} split vs "
+            f"{row['loss_unsplit']:.6f} unsplit (rel {row['loss_rel']:.2e}); gradient norm rel "
+            f"{row['grad_norm_rel']:.2e}, relative L2 {row['grad_rel_l2']:.3e}, signs "
+            f"{row['signs']:.4f}, worst leaf {row['worst_leaf']} {row['worst_leaf_rel']:.3e}; "
+            f"loss+backward ms split {row['ms_split'][0]:.1f}/{row['ms_split'][1]:.1f} (gloo "
+            f"via the host) vs unsplit {row['ms_unsplit']:.1f}; peak GB split "
+            f"{row['gb_split'][0]:.2f}/{row['gb_split'][1]:.2f} vs unsplit "
+            f"{row['gb_unsplit']:.2f}")
+        if "f32" in row:
+            f = row["f32"]
+            log(f"[train-tp-kinds] {row['case']} in f32: loss rel {f['loss_rel']:.2e}, gradient "
+                f"relative L2 {f['grad_rel_l2']:.3e}, norm rel {f['grad_norm_rel']:.2e}; bf16 "
+                f"gradients from the f32 unsplit one: split {f['bf16_vs_f32_split']:.3e}, "
+                f"unsplit {f['bf16_vs_f32_unsplit']:.3e}; ms split "
+                f"{f['ms_split'][0]:.1f}/{f['ms_split'][1]:.1f} vs unsplit {f['ms_unsplit']:.1f}")
+    if len(rows) != len(spec["cases"]):
+        raise AssertionError(f"train-tp-kinds: {len(rows)} cases reported of "
+                             f"{len(spec['cases'])}")
+    log(f"[train-tp-kinds] {len(rows)} cases in {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
 def zoo_phases(dev, kernels, fused) -> None:
     """Phases 17-19: the zoo's training, its two full-depth serve phases
     and ``zoo``."""
@@ -2571,11 +2934,17 @@ def main() -> int:
                     help="trace the first training phase with torch.profiler")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel phases "
-                         "(theory, lab, zoo); default every phase")
+                         "(theory, lab, zoo, tp); default every phase")
+    ap.add_argument("--tp-worker", nargs=3, default=None, metavar=("RANK", "PORT", "SPEC"),
+                    help="run one rank of train-tp-kinds (its phase starts two)")
     args = ap.parse_args()
+    if args.tp_worker:
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+        rank, port, spec = args.tp_worker
+        return tp_kinds_worker(int(rank), int(port), json.loads(spec))
     only = set(args.only.split(",")) if args.only else None
-    if only is not None and not only <= {"theory", "lab", "zoo"}:
-        ap.error(f"--only takes theory, lab and zoo, got {sorted(only)}")
+    if only is not None and not only <= {"theory", "lab", "zoo", "tp"}:
+        ap.error(f"--only takes theory, lab, zoo and tp, got {sorted(only)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2664,6 +3033,9 @@ def main() -> int:
             lab_phase(kernels)
         if only is None or "zoo" in only:
             zoo_phases(dev, kernels, tuple(LAUNCHES_PER_STEP))
+        if only is None or "tp" in only:
+            torch.cuda.empty_cache()
+            tp_kinds_phase()
 
     if PHASE_MS:
         order = [k for k in ("train", "train-dense") if k in PHASE_MS]

@@ -40,7 +40,7 @@ enc-dec arch it sets the encoder's depth too).  ``--mesh production`` builds
 the ``(16, 16)`` ``("data", "model")`` mesh and ``--mesh multi_pod`` the
 ``(2, 16, 16)`` ``("pod", "data", "model")`` one (``launch/mesh.py``; 256
 and 512 workers): ``--mode pjit`` on them keeps the state sharded (tensor
-parallelism over ``model``), and ``--mode hierarchical`` needs the ``pod``
+parallelism over ``model`` for every layer kind), and ``--mode hierarchical`` needs the ``pod``
 axis of ``multi_pod`` (elsewhere it is refused by name).  Two differences
 from the reference CLI: the publisher's delta codec runs on ``--backend``
 and ``--selector`` (defaults ``auto``), so on the card each publish launches

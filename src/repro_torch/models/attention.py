@@ -35,14 +35,17 @@ def project_qkv(p, x_q: torch.Tensor, x_kv: torch.Tensor,
     with ``qkv_bias`` the biases ``bq``/``bk``/``bv`` are added, then rope
     where positions are given (a cross block passes none).
 
-    Under tensor parallelism over heads (``tp.heads``, self attention) the
-    leaves are this rank's heads: q holds them, and k/v this rank's kv
-    heads, or, when the model axis does not divide the kv heads, the kv
-    head of each local query head, (B,Skv,H_local,Dh) with G = 1."""
+    Under tensor parallelism over heads (``tp.heads``) the leaves are this
+    rank's heads: q holds them, and k/v this rank's kv heads, or, when the
+    model axis does not divide the kv heads, the kv head of each local query
+    head, (B,Skv,H_local,Dh) with G = 1.  Both inputs enter through ``copy``
+    (a cross block's memory too, so its gradient sums over the ranks)."""
     dt = x_q.dtype
     split = tp is not None and tp.heads
     if split:
-        x_q = x_kv = tp.copy(x_q)
+        same = x_kv is x_q
+        x_q = tp.copy(x_q)
+        x_kv = x_q if same else tp.copy(x_kv)
     kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
     if split and not tp.kv_heads:
         kv = {n: tp.copy(w) for n, w in kv.items()}

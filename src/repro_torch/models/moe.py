@@ -10,8 +10,17 @@ runs in f32 and its top-k is a stable descending sort, so ties go to the
 lower expert index as ``lax.top_k`` sends them.  Returns the Switch
 load-balancing aux loss beside the output.
 
-The reference's sharding constraints (expert parallelism over a mesh) are
-not ported: the experts stay replicated.
+Under tensor parallelism (``tp``, ``models/tensor_parallel.py``) the
+routing runs whole on every rank of the ``model`` group, whose stream is
+replicated, and the experts split: over experts (``tp.experts``: each rank
+dispatches to its own experts' slots, runs them and combines over them --
+the reference's ``P("model", batch)`` constraints on the dispatched slots
+and the expert outputs, with the all-to-all turned into local work) or
+over ``ff`` inside every expert (``tp.ff``); either way the partial sums
+are reduced once.  The groups and the combine weights enter the experts
+through ``copy``, so their gradients sum over the ranks before they reach
+the router; the einsums carry every expert, an empty one too, so every
+rank reaches every collective whatever the routing.
 """
 
 from __future__ import annotations
@@ -88,8 +97,9 @@ def route(groups: torch.Tensor, router: torch.Tensor, cfg) -> Routing:
     return Routing(probs, top_p, top_e, slot, onehot_e, capacity(cfg, sg))
 
 
-def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (out (B, S, D), aux loss f32 scalar)."""
+def moe_apply(p, x: torch.Tensor, cfg, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (out (B, S, D), aux loss f32 scalar); under ``tp``
+    the experts' leaves are this rank's blocks (the router whole)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     sg = min(cfg.moe_group_size, b * s)
@@ -104,9 +114,14 @@ def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = e * torch.sum(f_e * torch.mean(r.probs, dim=(0, 1)))
 
     onehot_c = _one_hot(r.slot.long(), r.cap) * (r.slot < r.cap)[..., None].float()
-    dispatch = torch.einsum("gske,gskc->gsec", r.onehot_e, onehot_c).to(dt)
-    combine = torch.einsum("gske,gskc->gsec", r.onehot_e * r.top_p[..., None],
-                           onehot_c).to(dt)
+    onehot_e, top_p = r.onehot_e, r.top_p
+    split = tp is not None and (tp.experts or tp.ff)
+    if split:
+        groups, top_p = tp.copy(groups), tp.copy(top_p)
+    if split and tp.experts:
+        onehot_e = onehot_e[..., tp.part(e)]
+    dispatch = torch.einsum("gske,gskc->gsec", onehot_e, onehot_c).to(dt)
+    combine = torch.einsum("gske,gskc->gsec", onehot_e * top_p[..., None], onehot_c).to(dt)
 
     xe = torch.einsum("gsec,gsd->egcd", dispatch, groups.to(dt))
     up = torch.einsum("egcd,edf->egcf", xe, p["up"].to(dt))
@@ -118,4 +133,6 @@ def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
         h = F.relu(up)
     ye = torch.einsum("egcf,efd->egcd", h, p["down"].to(dt))
     y = torch.einsum("gsec,egcd->gsd", combine, ye)
+    if split:
+        y = tp.reduce(y)
     return y.reshape(-1, d)[: b * s].reshape(b, s, d), aux.float()

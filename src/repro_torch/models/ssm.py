@@ -12,6 +12,13 @@ within a chunk it is a first-order linear scan solved by
 recurrence, the conv's ``width - 1`` last inputs and ``h`` carried in an
 :class:`SSMState` (the conv tail kept bf16 whatever the compute dtype, as
 the reference keeps it).
+
+Under tensor parallelism over ``d_inner`` (``tp.inner``,
+``models/tensor_parallel.py``) a rank holds its channels' leaves: the
+``in_proj`` product is re-laid to its channels' ``xs`` and ``z``
+(``tp.halves``), the conv and the scan run on its channels, ``x_proj``'s
+partial sums are reduced (and ``copy``'d back in, for the other ranks'
+channels' share of their gradient), and ``out_proj`` is row-parallel.
 """
 
 from __future__ import annotations
@@ -94,11 +101,13 @@ def _chunk(h, xck, dk, bk, ck, a):
     return torch.sum(hs * ck[:, :, None, :], dim=-1), hs[:, -1]
 
 
-def _ssm_inner(p, xc, h0, cfg):
+def _ssm_inner(p, xc, h0, cfg, tp=None):
     """The selective scan on the conv'd activations ``xc`` (B, S, di) ->
     (y (B, S, di) in xc's dtype, final state (B, di, state) f32)."""
     st = cfg.ssm_state
     proj = xc @ p["x_proj"].to(xc.dtype)
+    if tp is not None and tp.inner:
+        proj = tp.copy(tp.reduce(proj))
     dt_in, b_t, c_t = torch.split(proj, [_DT_RANK, st, st], dim=-1)
     delta = softplus(dt_in.float() @ p["dt_proj"].float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())
@@ -116,12 +125,17 @@ def _ssm_inner(p, xc, h0, cfg):
     return y.to(xc.dtype), h
 
 
-def ssm_apply(p, x: torch.Tensor, cfg,
-              state: Optional[SSMState] = None) -> Tuple[torch.Tensor, SSMState]:
+def ssm_apply(p, x: torch.Tensor, cfg, state: Optional[SSMState] = None,
+              tp=None) -> Tuple[torch.Tensor, SSMState]:
     """Full-sequence mixer: x (B, S, D) -> (y (B, S, D), final state); from
-    ``state`` when given (its conv tail prefixes the sequence)."""
+    ``state`` when given (its conv tail prefixes the sequence).  Under
+    ``tp`` the state and the tail are this rank's channels'."""
     dt = x.dtype
-    xs, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
+    split = tp is not None and tp.inner
+    if split:
+        xs, z = torch.chunk(tp.halves(tp.copy(x) @ p["in_proj"].to(dt)), 2, dim=-1)
+    else:
+        xs, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
     width = cfg.ssm_conv_width
     if state is None:
         hist = xs
@@ -132,8 +146,10 @@ def ssm_apply(p, x: torch.Tensor, cfg,
         hist = xp = torch.cat([state.conv.to(dt), xs], dim=1)
         h0 = state.h
     xc = F.silu(causal_conv(p["conv_w"], p["conv_b"], xp))
-    y, h_final = _ssm_inner(p, xc, h0, cfg)
+    y, h_final = _ssm_inner(p, xc, h0, cfg, tp)
     out = (y * F.silu(z)) @ p["out_proj"].to(dt)
+    if split:
+        out = tp.reduce(out)
     # the last (width - 1) of [prefix ++ xs]
     tail = hist[:, hist.shape[1] - (width - 1):].to(torch.bfloat16)
     return out, SSMState(conv=tail, h=h_final)

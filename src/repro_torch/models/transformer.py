@@ -18,6 +18,13 @@ the encoder's output over them (``frontend_memory``): a stack of
 bidirectional self-attention layers with rope, ``encoder.*``, and
 ``encoder_norm``.
 
+Under the sharded ``pjit`` step the LM runs with a tensor-parallel plan
+(``models/tensor_parallel.py``): each block -- a layer's ``attn``,
+``cross``, ``mlp``, ``moe``, ``ssm`` or ``cell``, the encoder's ``attn``
+and ``mlp``, ``embed`` -- computes split over the ``model`` axis or whole,
+as the rules place its leaves, and the leaves it uses whole but holds a
+block of are gathered at use.
+
 ``cfg.remat`` is honoured as the reference's ``jax.checkpoint``: under
 ``"full"`` and ``"dots"`` each group of the stack (and each encoder layer)
 runs under ``torch.utils.checkpoint`` when autograd records, ``"dots"``
@@ -310,8 +317,8 @@ class LM(nn.Module):
         root = _container(leaves)
         for name, child in root.items():
             self.add_module(name, child)
-        # tensor parallelism over the model axis (models/tensor_parallel.py):
-        # set by the sharded train step around its loss, None otherwise
+        # tensor parallelism over the model axis (a models/tensor_parallel.py
+        # Plan): set by the sharded train step around its loss, None otherwise
         self._tp = None
 
     def spec(self) -> Dict[str, ParamSpec]:
@@ -322,20 +329,32 @@ class LM(nn.Module):
         """Leaf path -> parameter, as a flat mapping."""
         return dict(self.named_parameters())
 
+    def _split(self, block: str):
+        """Block ``block``'s TensorParallel under the plan, or None."""
+        return None if self._tp is None else self._tp(block)
+
+    def _leaves(self, block: str, node, index: int) -> Dict[str, torch.Tensor]:
+        """Block ``block``'s leaves (``node``) at stack index ``index``, the
+        ones its plan uses whole gathered."""
+        leaves = {k: v[index] for k, v in node.items()}
+        tp = self._split(block)
+        return leaves if tp is None else tp.use(leaves)
+
     def _remat(self) -> bool:
         """Whether a pass checkpoints its groups: ``cfg.remat`` is not
         ``"none"`` and autograd records (never in prefill or decode)."""
         return self.cfg.remat != "none" and torch.is_grad_enabled()
 
     def _attention(self, pa, h, kind: str, positions: torch.Tensor,
-                   cache: Optional[A.KVCache], decode_pos: Optional[int]) -> torch.Tensor:
+                   cache: Optional[A.KVCache], decode_pos: Optional[int],
+                   tp=None) -> torch.Tensor:
         """Self attention.  Full sequence: over its own keys and, given a
         cache, writes them at position 0 (the reference's
         ``_self_attention_full``); with ``decode_pos``: one token at that
         position, written into the cache, attending over the whole cache
         (``_self_attention_decode``)."""
         cfg = self.cfg
-        q, k, v = A.project_qkv(pa, h, h, positions, positions, cfg.rope_theta, tp=self._tp)
+        q, k, v = A.project_qkv(pa, h, h, positions, positions, cfg.rope_theta, tp=tp)
         kv_positions = positions
         if cache is not None:
             A.update_kv_cache(cache, k, v, 0 if decode_pos is None else decode_pos)
@@ -343,10 +362,11 @@ class LM(nn.Module):
                 k, v, kv_positions = cache.k, cache.v, cache.pos
         out = A.attention(q, k, v, positions, kv_positions, window=_attn_window(cfg, kind),
                           attn_softcap=cfg.attn_softcap)
-        return A.attend(pa, out, tp=self._tp)
+        return A.attend(pa, out, tp=tp)
 
     def _cross_attention(self, pa, h, memory: Optional[torch.Tensor],
-                         cache: Optional[A.KVCache], decode_pos: Optional[int]) -> torch.Tensor:
+                         cache: Optional[A.KVCache], decode_pos: Optional[int],
+                         tp=None) -> torch.Tensor:
         """Cross attention over the memory (B,Sm,D): no mask but the empty
         slots', no rope, no softcap (the reference's ``_cross_attention``).
         A prefill writes the memory's K/V into ``cache``; a decode step
@@ -360,14 +380,14 @@ class LM(nn.Module):
             if memory is None:
                 raise ValueError(f"{self.cfg.name}: a cross-attention layer needs the memory "
                                  "(the batch's frontend)")
-            q, k, v = A.project_qkv(pa, h, memory)
+            q, k, v = A.project_qkv(pa, h, memory, tp=tp)
             kv_positions = torch.arange(k.shape[1], device=k.device)
             if cache is not None:
                 cache.k.copy_(k)
                 cache.v.copy_(v)
         out = A.attention(q, k, v, torch.zeros(q.shape[1], dtype=torch.long, device=q.device),
                           kv_positions, causal=False)
-        return A.attend(pa, out)
+        return A.attend(pa, out, tp=tp)
 
     def _layer(self, i: int, kind: str, g: int, x: torch.Tensor, positions: torch.Tensor,
                cache=None, decode_pos: Optional[int] = None,
@@ -375,23 +395,28 @@ class LM(nn.Module):
         """Layer ``l{i}_{kind}`` of group ``g`` -> (x, MoE aux or None); a
         recurrent state in ``cache`` is overwritten with the final one."""
         cfg = self.cfg
+        prefix = f"layers.l{i}_{kind}"
         p = self.layers[f"l{i}_{kind}"]
 
         def group(name):
-            return {k: v[g] for k, v in p[name].items()}
+            return self._leaves(f"{prefix}.{name}", p[name], g)
+
+        def tp(name):
+            return self._split(f"{prefix}.{name}")
 
         h = rmsnorm(p["norm1"]["scale"][g], x, cfg.norm_eps)
         if kind in ("mlstm", "slstm"):
             apply = X.mlstm_apply if kind == "mlstm" else X.slstm_apply
-            out, state = apply(group("cell"), h, cfg, cache)
+            out, state = apply(group("cell"), h, cfg, cache, tp=tp("cell"))
             if cache is not None:
                 _write_state(cache, state)
             return x + out, None
         if kind == "hybrid":
             kv, ssm_state = (None, None) if cache is None else cache
-            attn_out = self._attention(group("attn"), h, kind, positions, kv, decode_pos)
+            attn_out = self._attention(group("attn"), h, kind, positions, kv, decode_pos,
+                                       tp("attn"))
             if decode_pos is None:
-                ssm_out, state = S.ssm_apply(group("ssm"), h, cfg, ssm_state)
+                ssm_out, state = S.ssm_apply(group("ssm"), h, cfg, ssm_state, tp=tp("ssm"))
             else:
                 ssm_out, state = S.ssm_decode_step(group("ssm"), h, cfg, ssm_state)
             if cache is not None:
@@ -401,20 +426,23 @@ class LM(nn.Module):
             return x, None
         if kind == "dec_cross_mlp":
             self_cache, cross_cache = (None, None) if cache is None else cache
-            x = x + self._attention(group("attn"), h, kind, positions, self_cache, decode_pos)
+            x = x + self._attention(group("attn"), h, kind, positions, self_cache, decode_pos,
+                                    tp("attn"))
             hc = rmsnorm(p["norm_cross"]["scale"][g], x, cfg.norm_eps)
-            x = x + self._cross_attention(group("cross"), hc, memory, cross_cache, decode_pos)
+            x = x + self._cross_attention(group("cross"), hc, memory, cross_cache, decode_pos,
+                                          tp("cross"))
         elif kind.startswith("cross_attn"):
             gate = torch.tanh(p["cross_gate"][g].float())[0]
             x = x + gate.to(x.dtype) * self._cross_attention(group("cross"), h, memory, cache,
-                                                              decode_pos)
+                                                              decode_pos, tp("cross"))
         else:
-            x = x + self._attention(group("attn"), h, kind, positions, cache, decode_pos)
+            x = x + self._attention(group("attn"), h, kind, positions, cache, decode_pos,
+                                    tp("attn"))
         h2 = rmsnorm(p["norm2"]["scale"][g], x, cfg.norm_eps)
         if "moe" in p:
-            out, aux = M.moe_apply(group("moe"), h2, cfg)
+            out, aux = M.moe_apply(group("moe"), h2, cfg, tp=tp("moe"))
             return x + out, aux
-        return x + mlp(group("mlp"), h2, cfg.mlp_activation, tp=self._tp), None
+        return x + mlp(group("mlp"), h2, cfg.mlp_activation, tp=tp("mlp")), None
 
     def _head(self) -> Optional[torch.Tensor]:
         """The untied output head, or None when the table is tied."""
@@ -459,13 +487,15 @@ class LM(nn.Module):
         """Encoder layer ``l``: bidirectional self attention with rope, then
         the MLP, each pre-normed and residual."""
         cfg = self.cfg
-        p = {part: {k: v[l] for k, v in self.encoder[part].items()}
+        p = {part: self._leaves(f"encoder.{part}", self.encoder[part], l)
              for part in ("norm1", "attn", "norm2", "mlp")}
+        attn, ff = self._split("encoder.attn"), self._split("encoder.mlp")
         h = rmsnorm(p["norm1"]["scale"], x, cfg.norm_eps)
-        q, k, v = A.project_qkv(p["attn"], h, h, positions, positions, cfg.rope_theta)
-        x = x + A.attend(p["attn"], A.attention(q, k, v, positions, positions, causal=False))
+        q, k, v = A.project_qkv(p["attn"], h, h, positions, positions, cfg.rope_theta, tp=attn)
+        x = x + A.attend(p["attn"], A.attention(q, k, v, positions, positions, causal=False),
+                         tp=attn)
         h2 = rmsnorm(p["norm2"]["scale"], x, cfg.norm_eps)
-        return x + mlp(p["mlp"], h2, cfg.mlp_activation)
+        return x + mlp(p["mlp"], h2, cfg.mlp_activation, tp=ff)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, S_enc, D), the frontend's embeddings -> the memory
@@ -497,7 +527,7 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
                 return_hidden: bool = False):
         """tokens (B,S) -> (logits (B,S,V) f32 | final hidden, aux)."""
-        x, aux = self._stack(embed(self.embed["table"], tokens, tp=self._tp),
+        x, aux = self._stack(embed(self.embed["table"], tokens, tp=self._split("embed")),
                              torch.arange(tokens.shape[1], device=tokens.device),
                              memory=memory)
         if return_hidden:
@@ -548,7 +578,7 @@ class LM(nn.Module):
         memory = self.frontend_memory(batch.get("frontend"))
         hidden, aux = self.forward(batch["tokens"], memory=memory, return_hidden=True)
         ce = _chunked_ce(self.embed["table"], hidden, batch["targets"], self.cfg,
-                         head=self._head(), tp=self._tp)
+                         head=self._head(), tp=self._split("embed"))
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 

@@ -21,6 +21,15 @@ steps (log f 0, log i -1e30).  A decode step is the same function at one
 step.  The sLSTM's recurrence is a loop over the sequence (its recurrent
 matrix makes every step depend on the last ``h``), followed by its
 gated FFN; decode is the loop at one step.
+
+Under tensor parallelism (``tp``, ``models/tensor_parallel.py``) the mLSTM
+splits over ``d_inner`` (``tp.inner``): ``in_proj``'s product is re-laid to
+this rank's channels of ``xm`` and ``z`` (``tp.halves``), the conv runs on
+them, the products that contract them (``wq``, ``wk``, ``wv``, ``w_i``,
+``w_f``, ``w_o``) are reduced, the cell runs whole on every rank, and
+``down`` is row-parallel on this rank's channels of its output.  The
+sLSTM's cell replicates and its FFN splits over ``ff`` (``tp.ff``) as the
+MLP does.
 """
 
 from __future__ import annotations
@@ -93,23 +102,31 @@ def init_mlstm_state(batch: int, cfg, dtype=COMPUTE_DTYPE, device=None) -> MLSTM
         conv=torch.zeros((batch, cfg.ssm_conv_width - 1, di), dtype=dtype, device=device))
 
 
-def _gates_qkv(p, x, cfg, conv_prefix):
+def _gates_qkv(p, x, cfg, conv_prefix, tp=None):
     """x (B,S,D) -> (q, k, v (B,S,H,dh), log_i, log_f (B,S,H) f32, o, z,
-    conv tail)."""
+    conv tail); under ``tp.inner`` z and the tail are this rank's channels'
+    (and so is ``conv_prefix``)."""
     dt = x.dtype
     h, di = cfg.n_heads, _di(cfg)
     dh = di // h
-    xm, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
+    if tp is not None and tp.inner:
+        xm, z = torch.chunk(tp.halves(tp.copy(x) @ p["in_proj"].to(dt)), 2, dim=-1)
+        full = tp.reduce
+    else:
+        xm, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)
+
+        def full(t):
+            return t
     width = cfg.ssm_conv_width
     xp = torch.cat([conv_prefix.to(dt), xm], dim=1)
     xc = F.silu(causal_conv(p["conv_w"], p["conv_b"], xp))
     b, s = x.shape[:2]
-    q = (xc @ p["wq"].to(dt)).reshape(b, s, h, dh)
-    k = (xc @ p["wk"].to(dt)).reshape(b, s, h, dh) / (dh ** 0.5)
-    v = (xm @ p["wv"].to(dt)).reshape(b, s, h, dh)
-    log_i = (xm @ p["w_i"].to(dt)).float() + p["b_i"].float()
-    log_f = F.logsigmoid((xm @ p["w_f"].to(dt)).float() + p["b_f"].float())
-    o = torch.sigmoid(xm @ p["w_o"].to(dt))
+    q = full(xc @ p["wq"].to(dt)).reshape(b, s, h, dh)
+    k = full(xc @ p["wk"].to(dt)).reshape(b, s, h, dh) / (dh ** 0.5)
+    v = full(xm @ p["wv"].to(dt)).reshape(b, s, h, dh)
+    log_i = full(xm @ p["w_i"].to(dt)).float() + p["b_i"].float()
+    log_f = F.logsigmoid(full(xm @ p["w_f"].to(dt)).float() + p["b_f"].float())
+    o = torch.sigmoid(full(xm @ p["w_o"].to(dt)))
     # the last (width - 1) of [prefix ++ xm], whatever S is
     return q, k, v, log_i, log_f, o, z, xp[:, xp.shape[1] - (width - 1):]
 
@@ -148,14 +165,18 @@ def _mlstm_chunk(c0, n0, m0, q, k, v, li, lf):
     return c1, n1, m1, h_t
 
 
-def mlstm_apply(p, x: torch.Tensor, cfg,
-                state: Optional[MLSTMState] = None) -> Tuple[torch.Tensor, MLSTMState]:
-    """x (B,S,D) -> (out (B,S,D), final state)."""
+def mlstm_apply(p, x: torch.Tensor, cfg, state: Optional[MLSTMState] = None,
+                tp=None) -> Tuple[torch.Tensor, MLSTMState]:
+    """x (B,S,D) -> (out (B,S,D), final state); under ``tp.inner`` the
+    state's conv tail is this rank's channels'."""
     dt = x.dtype
     b, s, _ = x.shape
+    split = tp is not None and tp.inner
     if state is None:
         state = init_mlstm_state(b, cfg, dt, x.device)
-    q, k, v, log_i, log_f, o, z, conv_tail = _gates_qkv(p, x, cfg, state.conv)
+        if split:
+            state.conv = state.conv[..., tp.part(_di(cfg))]
+    q, k, v, log_i, log_f, o, z, conv_tail = _gates_qkv(p, x, cfg, state.conv, tp)
     xs = [q.transpose(0, 1).float(), k.transpose(0, 1).float(), v.transpose(0, 1).float(),
           log_i.transpose(0, 1), log_f.transpose(0, 1)]
     chunk = min(_TIME_CHUNK, s)
@@ -174,7 +195,11 @@ def mlstm_apply(p, x: torch.Tensor, cfg,
         hs.append(h_t)
     hs = torch.cat(hs)[:s].transpose(0, 1).reshape(b, s, _di(cfg)).to(dt)
     hs = rmsnorm(p["norm"], hs, cfg.norm_eps) * o
+    if split:
+        hs = tp.copy(hs)[..., tp.part(hs.shape[-1])]
     out = (hs * F.silu(z)) @ p["down"].to(dt)
+    if split:
+        out = tp.reduce(out)
     return out, MLSTMState(c, n, m, conv_tail.to(torch.bfloat16))
 
 
@@ -217,9 +242,10 @@ def init_slstm_state(batch: int, cfg, dtype=COMPUTE_DTYPE, device=None) -> SLSTM
     return SLSTMState(c=z, n=z + 1e-6, h=z, m=z + _NEG)
 
 
-def slstm_apply(p, x: torch.Tensor, cfg,
-                state: Optional[SLSTMState] = None) -> Tuple[torch.Tensor, SLSTMState]:
-    """x (B,S,D) -> (out (B,S,D), final state), the post-FFN included."""
+def slstm_apply(p, x: torch.Tensor, cfg, state: Optional[SLSTMState] = None,
+                tp=None) -> Tuple[torch.Tensor, SLSTMState]:
+    """x (B,S,D) -> (out (B,S,D), final state), the post-FFN included
+    (under ``tp.ff`` column- and row-parallel)."""
     dt = x.dtype
     if state is None:
         state = init_slstm_state(x.shape[0], cfg, dt, x.device)
@@ -240,8 +266,13 @@ def slstm_apply(p, x: torch.Tensor, cfg,
         hs.append(h)
     y = torch.stack(hs, dim=1).to(dt)
     yn = rmsnorm(p["ffn_norm"], y, cfg.norm_eps)
+    split = tp is not None and tp.ff
+    if split:
+        yn = tp.copy(yn)
     ff = (F.gelu(yn @ p["ffn_gate"].to(dt), approximate="tanh")
           * (yn @ p["ffn_up"].to(dt))) @ p["ffn_down"].to(dt)
+    if split:
+        ff = tp.reduce(ff)
     return y + ff, SLSTMState(c, n, h, m)
 
 

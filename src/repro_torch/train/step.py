@@ -23,14 +23,12 @@ guard's MIN runs over the ``flat`` group.
   leaves on the mesh's ``DeviceMesh`` (tensor parallelism over ``model``,
   FSDP over ``data``).  A step gathers each leaf over ``data`` at use (to
   its model-local block), runs the model with the model axis's explicit
-  collectives (``models/tensor_parallel.py``), redistributes each gradient
+  collectives (``models/tensor_parallel.py``: every layer kind, each block
+  split along its role's axis or computed whole), redistributes each gradient
   from partial sums over the batch axes to its leaf's placement (a
   reduce-scatter over ``data`` for an FSDP leaf, an all_reduce otherwise),
   clips by the global norm summed over shards -- each leaf counted once,
   however many ranks replicate it -- and runs AdamW on the local shards.
-  A layer kind whose leaves the rules shard over a ``model`` axis larger
-  than one and whose tensor parallelism is not ported raises when the step
-  is built; it is never quietly replicated.
 * ``compressed_dp`` -- the paper's setting: the exchange of the gradient
   through the reducer (with error feedback, the residual update), the
   non-finite guard, clipping and the optimizer.  Parameters replicated.
@@ -92,7 +90,7 @@ from repro_torch.dist_util import world_size
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.sharding import (TWO_LEVEL_DATA_AXES, placements,
                                          spec_tree_to_pspecs)
-from repro_torch.models.tensor_parallel import TP_KINDS, plan
+from repro_torch.models.tensor_parallel import plan
 from repro_torch.optim import OptConfig, apply_updates, clip_by_global_norm
 from repro_torch.optim.clipping import clip_to_norm
 
@@ -400,28 +398,6 @@ def _swapped(model, tensors: Mapping[str, torch.Tensor], tp):
             module._parameters[leaf] = old
 
 
-def _check_tensor_parallel(model, pspecs, mesh: Mesh) -> None:
-    """Raise for a leaf the rules shard over a model axis larger than one
-    whose layer kind's tensor parallelism is not ported."""
-    if mesh.shape.get("model", 1) <= 1:
-        return
-    specs = model.spec()
-    for path, spec in pspecs.items():
-        if "model" not in spec:
-            continue
-        parts = path.split(".")
-        if path in ("embed.table", "embed.head") or (
-                parts[0] == "layers" and parts[1].split("_", 1)[1] in TP_KINDS
-                and parts[2] in ("attn", "mlp")):
-            continue
-        logical = specs[path].logical_axes[spec.index("model")]
-        raise ValueError(
-            f"tensor parallelism is not ported for leaf {path}: the rule {logical!r} -> "
-            f"'model' shards it {mesh.shape['model']} ways (ported: the layer kinds "
-            f"{TP_KINDS}, the embedding and the head); use a mesh whose model axis is 1 "
-            "(FSDP over 'data' covers every kind)")
-
-
 def _sharded_pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, mesh: Mesh) -> Callable:
     """The dense baseline on the sharded state (module docstring)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
@@ -434,7 +410,6 @@ def _sharded_pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, mesh: Me
     batch_axes = mesh_batch_axes(step_cfg, mesh)
     _, world, batch_group, n_batch = _groups(step_cfg, mesh)
     pspecs = state_pspecs(model, opt_cfg, step_cfg, mesh)["params"]
-    _check_tensor_parallel(model, pspecs, mesh)
     names = list(model.leaves())
     leaf_pl = {k: placements(pspecs[k], axes) for k in names}
     for k, p in model.leaves().items():
@@ -452,7 +427,7 @@ def _sharded_pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, mesh: Me
     # that replicates it: once, whatever its placement
     counted = {k: all(mesh.index(a) == 0 for a, pl in zip(axes, leaf_pl[k])
                       if isinstance(pl, Replicate)) for k in names}
-    tp = plan(pspecs, mesh.group("model") if "model" in axes else None,
+    tp = plan(pspecs, model.spec(), mesh.group("model") if "model" in axes else None,
               mesh.shape.get("model", 1), mesh.index("model") if "model" in axes else 0)
 
     def step(state, batch, lr_scale: float = 1.0) -> Dict[str, float]:

@@ -178,13 +178,16 @@ hist = train_loop(model, opt, sc, state, stream, TrainLoopConfig(total_steps=2, 
 np.savez(path + f".dp.{rank}.npz", loss=np.array([r["loss"] for r in hist]),
          residual=state["residual"].numpy(), data=mesh.index("data"),
          **{"params/" + k: v.detach().numpy() for k, v in model.leaves().items()})
-# tensor parallelism of an unported kind is refused by name when the step is built
+# every layer kind runs split over model: hymba's step, which an earlier guard
+# refused by name, builds and steps (tests/test_torch_tp_kinds_b.py holds it)
 hymba = LM(configs.get_config("hymba_1_5b").reduced(), device="cpu")
 mesh = make_local_mesh((2, 2), ("data", "model"), device="cpu")
 sc = StepConfig(mode="pjit")
-init_state(hymba, opt, mesh=mesh, step_cfg=sc)
+state = init_state(hymba, opt, mesh=mesh, step_cfg=sc)
 try:
-    build_train_step(hymba, opt, sc, group=mesh)
+    rows = torch.from_numpy(toks[0, :2]).long()
+    errors["hymba_loss"] = build_train_step(hymba, opt, sc, group=mesh)(
+        state, {"tokens": rows[:, :-1], "targets": rows[:, 1:]})["loss"]
 except ValueError as e:
     errors["tp_kind"] = str(e)
 with open(path + f".errors.{rank}.json", "w") as f:
@@ -329,10 +332,36 @@ def test_local_blocks_are_their_placements_slices(runs, name):
 
 
 def test_named_errors(runs):
+    """The production mesh's world is refused by name; a layer kind split
+    over ``model`` is not (every kind splits, not only the dense ones)."""
     errors = json.load(open(f"{runs}.errors.0.json"))
     assert "needs a world of 256 workers, got 4" in errors["production"]
-    assert "tensor parallelism is not ported for leaf layers." in errors["tp_kind"]
-    assert "-> 'model'" in errors["tp_kind"]
+    assert "tp_kind" not in errors
+    assert np.isfinite(errors["hymba_loss"])
+
+
+@pytest.mark.parametrize("arch", jreg.ARCH_NAMES)
+def test_every_leaf_sharded_over_model_is_split(arch):
+    """With no process group: for every arch at full size on the production
+    meshes, every leaf the rules shard over ``model`` sits in a block that
+    the tensor-parallel plan computes split (the plan's role for it), and
+    the plan splits each MoE over experts where ``model`` divides them, else
+    over ff."""
+    from repro_torch.models.tensor_parallel import plan
+
+    cfg = configs.get_config(arch)
+    specs = param_specs(cfg)
+    for mesh in MESHES[:2]:
+        for fsdp in (False, True):
+            pspecs = S.spec_tree_to_pspecs(specs, mesh, fsdp=fsdp)
+            tp = plan(pspecs, specs, None, mesh["model"], 0)
+            sharded = [k for k, s in pspecs.items() if "model" in s]
+            assert sharded and tp is not None
+            assert [k for k in sharded if not tp.splits(k)] == [], (mesh, fsdp)
+            for block, t in tp.blocks.items():
+                if block.endswith(".moe"):
+                    assert (t.experts, t.ff) == (cfg.n_experts % mesh["model"] == 0,
+                                                 cfg.n_experts % mesh["model"] != 0)
 
 
 def test_compressed_dp_on_a_model_axis_exchanges_over_data(runs):
