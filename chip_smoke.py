@@ -144,7 +144,8 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    recurrent layer's decode path held to its full path, and decode held to
    ``forward`` within ``SERVE_LOGITS_REL`` end to end (xlstm's printed at
    48 layers and at one group, and held at one group and the width the
-   reference was read at: ``XLSTM_GROUP``);
+   reference was read at: ``XLSTM_GROUP``; llama-vision's also printed
+   with the model computing in f32);
 19. ``zoo``: internlm2_20b, phi3_medium_14b, qwen1_5_110b (QKV bias),
    mixtral_8x22b and qwen3_moe_235b_a22b at full width and one group, each
    built on the card, prefilling batch 2 x 256 and decoding 8 tokens, decode
@@ -161,7 +162,20 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    an encoder layer) and llama-vision (its cross layer), each rank holding
    its model-local blocks, the loss and every gradient block held against
    the unsplit model on rank 0 (xlstm also in f32), their times and peaks
-   printed; the split times are gloo's host round trips, not NCCL's.
+   printed; the split times are gloo's host round trips, not NCCL's;
+21. ``publish-sharded``: the sharded (FSDP, ``DTensor``) state of a one-card
+   ``(1, 1)`` ``("data", "model")`` mesh trains 3 dense steps with the
+   CLI's publisher, each leaf gathered whole for the ring's snapshot and
+   every delta, B4 and B2 once a publish; then ``publish-replicated``, the
+   same on the replicated state: the two rings bitwise, and a subscriber
+   that follows the sharded ring bitwise its publisher's mirror;
+22. ``train-sp``: the stream between groups sequence-parallel over the
+   ``model`` axis, gemma2_2b at full width and depth under ``remat="full"``,
+   batch 2 x 4096, over two processes on the one card in a gloo group:
+   each rank's checkpointed stream bytes halved (counted by a
+   ``saved_tensors_hooks`` pack hook), its loss and gradients bitwise
+   those of the stream kept replicated, and the split held against the
+   unsplit model on rank 0 (in bf16, and in f32 by accuracy).
 
 Phase 10 also runs ``train-psum-noderound``: ``train-psum`` with its
 exchange fed the island mean's irfft(rfft(g)), as ``train-hierarchical``
@@ -175,9 +189,10 @@ Then each training phase's mean steady step (``train-dense`` beside
 ``train``) and the ops phase's time, one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package.  ``--rows`` and ``--skip-train`` (which skips phases 4 to 6)
-shorten a run while a kernel is being brought up; ``--only theory,lab,zoo,tp``
-runs only the named phases after the kernel phases (``zoo``: phases 17-19;
-``tp``: phase 20); ``--profile`` traces the
+shorten a run while a kernel is being brought up; ``--only
+theory,lab,zoo,tp,publish,sp`` runs only the named phases after the kernel
+phases (``zoo``: phases 17-19; ``tp``: phase 20; ``publish``: 21; ``sp``:
+22); ``--profile`` traces the
 first training phase with ``torch.profiler`` and prints device time by
 kernel, by op and per step.
 """
@@ -1928,6 +1943,13 @@ def serve_phase(dev, counted, label: str) -> None:
         raise AssertionError(f"{label}: {what} {got}, expected {want}")
     gap = decode_vs_forward(model, tokens, prompt, max_seq, frontend)
     checks = ""
+    if arch == "llama3_2_vision_11b":
+        # ROADMAP §3 fault 13: the gap's stated cause is bf16 rounding; the
+        # same model computing in f32 (as fault 12 reads the gate's gradient)
+        with compute_dtype(torch.float32):
+            f32 = decode_vs_forward(model, tokens, prompt, max_seq, frontend)
+        checks += (f"; in f32: decode vs forward {f32['rel']:.3e} relative L2 (printed), max "
+                   f"abs {f32['max_abs']:.3e}, argmax agreement {f32['agree']:.4f}")
     gates = [p for name, p in model.named_parameters() if name.endswith("cross_gate")]
     if gates:
         # the gates start at zero: open them, so the cross layers' decode
@@ -2639,17 +2661,41 @@ def tp_case_config(case: dict):
 @contextlib.contextmanager
 def compute_dtype(dtype):
     """The LM computing in ``dtype`` in place of bf16: the stream's dtype is
-    the embedding's output's, and the encoder casts its frames to
-    ``transformer.COMPUTE_DTYPE``."""
+    the embedding's output's, the encoder casts its frames (and a frontend
+    arch its memory) to ``transformer.COMPUTE_DTYPE``, and the caches are
+    ``init_caches``' default dtype."""
     from repro_torch.models import layers, transformer
 
     embed_defaults, compute = layers.embed.__defaults__, transformer.COMPUTE_DTYPE
+    cache_defaults = transformer.LM.init_caches.__defaults__
     layers.embed.__defaults__ = (dtype,) + embed_defaults[1:]
     transformer.COMPUTE_DTYPE = dtype
+    transformer.LM.init_caches.__defaults__ = (dtype,) + cache_defaults[1:]
     try:
         yield
     finally:
         layers.embed.__defaults__, transformer.COMPUTE_DTYPE = embed_defaults, compute
+        transformer.LM.init_caches.__defaults__ = cache_defaults
+
+
+def grad_stats(pairs, dev) -> dict:
+    """Sums over (leaf, got, want) pairs, leaf by leaf on ``dev`` in f64:
+    the relative L2 of the difference, of the norms, the signs equal where
+    ``want`` is non-zero, and the worst leaf."""
+    sq_diff = sq_got = sq_want = agree = nonzero = 0.0
+    worst = (0.0, "")
+    for k, g, w in pairs:
+        g, w = g.to(dev).double(), w.to(dev).double()
+        d, ww = float(torch.sum(torch.square(g - w))), float(torch.sum(torch.square(w)))
+        sq_diff, sq_want = sq_diff + d, sq_want + ww
+        sq_got += float(torch.sum(torch.square(g)))
+        mask = w != 0
+        nonzero += float(mask.sum())
+        agree += float((torch.sign(g[mask]) == torch.sign(w[mask])).sum())
+        worst = max(worst, ((d / max(ww, 1e-60)) ** 0.5, k))
+    return {"grad_rel_l2": (sq_diff / sq_want) ** 0.5,
+            "grad_norm_rel": abs((sq_got / sq_want) ** 0.5 - 1.0),
+            "signs": agree / nonzero, "worst_leaf": worst[1], "worst_leaf_rel": worst[0]}
 
 
 def tp_kinds_worker(rank: int, port: int, spec: dict) -> int:
@@ -2700,25 +2746,6 @@ def tp_kinds_worker(rank: int, port: int, spec: dict) -> int:
 
     def block(t, pspec, r):
         return t[local_slice(pspec, t.shape, mesh, {"data": 0, "model": r})]
-
-    def stats(pairs):
-        """Sums over (got, want) pairs, leaf by leaf on the device in f64:
-        the relative L2 of the difference, of the norms, the signs equal
-        where ``want`` is non-zero, and the worst leaf."""
-        sq_diff = sq_got = sq_want = agree = nonzero = 0.0
-        worst = (0.0, "")
-        for k, g, w in pairs:
-            g, w = g.to(dev).double(), w.to(dev).double()
-            d, ww = float(torch.sum(torch.square(g - w))), float(torch.sum(torch.square(w)))
-            sq_diff, sq_want = sq_diff + d, sq_want + ww
-            sq_got += float(torch.sum(torch.square(g)))
-            mask = w != 0
-            nonzero += float(mask.sum())
-            agree += float((torch.sign(g[mask]) == torch.sign(w[mask])).sum())
-            worst = max(worst, ((d / max(ww, 1e-60)) ** 0.5, k))
-        return {"grad_rel_l2": (sq_diff / sq_want) ** 0.5,
-                "grad_norm_rel": abs((sq_got / sq_want) ** 0.5 - 1.0),
-                "signs": agree / nonzero, "worst_leaf": worst[1], "worst_leaf_rel": worst[0]}
 
     for name, case in spec["cases"].items():
         cfg = tp_case_config(case)
@@ -2822,7 +2849,7 @@ def tp_kinds_worker(rank: int, port: int, spec: dict) -> int:
             received[dt] = theirs
             diverged += [f"{k} ({dt})" for k in names if "model" not in pspecs[k]
                          and not torch.equal(mine[k].cpu(), theirs[k])]
-            got = stats(pairs_against(mine, theirs, full[dt][1]))
+            got = grad_stats(pairs_against(mine, theirs, full[dt][1]), dev)
             got.update(loss=loss, loss_unsplit=full[dt][0], loss_rank1=loss1,
                        loss_rel=abs(loss - full[dt][0]) / abs(full[dt][0]),
                        ms_split=[ms, ms1], ms_unsplit=full[dt][2])
@@ -2833,10 +2860,10 @@ def tp_kinds_worker(rank: int, port: int, spec: dict) -> int:
             # the bf16 gradients against the f32 unsplit one: the split's
             # distance over the unsplit's own
             truth = full["f32"][1]
-            got["bf16_vs_f32_split"] = stats(pairs_against(
-                split["bf16"][1], received["bf16"], truth))["grad_rel_l2"]
-            got["bf16_vs_f32_unsplit"] = stats(
-                [(k, full["bf16"][1][k], truth[k]) for k in names])["grad_rel_l2"]
+            got["bf16_vs_f32_split"] = grad_stats(pairs_against(
+                split["bf16"][1], received["bf16"], truth), dev)["grad_rel_l2"]
+            got["bf16_vs_f32_unsplit"] = grad_stats(
+                [(k, full["bf16"][1][k], truth[k]) for k in names], dev)["grad_rel_l2"]
             row["f32"] = got
         print("TP_CASE " + json.dumps(row), flush=True)
         if "f32" in row:
@@ -2860,20 +2887,17 @@ def tp_kinds_worker(rank: int, port: int, spec: dict) -> int:
     return 0
 
 
-def tp_kinds_phase(device: str = "cuda:0", cases=None, shape=TP_SHAPE) -> list:
-    """``train-tp-kinds``: two ``tp_kinds_worker`` processes on ``device``
-    (a gloo group on a free localhost port); fails unless both exit with 0.
-    Returns rank 0's rows.  The split times include gloo's staging of every
-    collective's CUDA tensors through the host: they are not NCCL's."""
+def two_rank_phase(label: str, worker: str, spec: dict, tag: str, env=None) -> list:
+    """Two ``chip_smoke.py --worker WORKER`` processes (a gloo group on a
+    free localhost port); fails unless both exit with 0.  Returns the JSON
+    of rank 0's lines that start with ``tag``."""
     import socket
 
-    spec = {"device": device, "shape": list(shape), "cases": cases or TP_CASES}
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker",
+    env = dict(os.environ, OMP_NUM_THREADS="1", **(env or {}))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", worker,
                                str(rank), str(port), json.dumps(spec)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for rank in range(2)]
@@ -2885,11 +2909,21 @@ def tp_kinds_phase(device: str = "cuda:0", cases=None, shape=TP_SHAPE) -> list:
                 p.kill()
                 p.wait()
     if any(p.returncode != 0 for p in procs):
-        raise AssertionError("train-tp-kinds: a worker failed:\n" + "\n".join(
+        raise AssertionError(f"{label}: a worker failed:\n" + "\n".join(
             f"--- rank {r} (rc {p.returncode}) ---\n{log[-6000:]}"
             for r, (p, log) in enumerate(zip(procs, logs))))
-    rows = [json.loads(line[len("TP_CASE "):]) for line in logs[0].splitlines()
-            if line.startswith("TP_CASE ")]
+    return [json.loads(line[len(tag):]) for line in logs[0].splitlines()
+            if line.startswith(tag)]
+
+
+def tp_kinds_phase(device: str = "cuda:0", cases=None, shape=TP_SHAPE) -> list:
+    """``train-tp-kinds``: two ``tp_kinds_worker`` processes on ``device``
+    (a gloo group on a free localhost port); fails unless both exit with 0.
+    Returns rank 0's rows.  The split times include gloo's staging of every
+    collective's CUDA tensors through the host: they are not NCCL's."""
+    spec = {"device": device, "shape": list(shape), "cases": cases or TP_CASES}
+    t0 = time.perf_counter()
+    rows = two_rank_phase("train-tp-kinds", "tp", spec, "TP_CASE ")
     for row in rows:
         log(f"[train-tp-kinds] {row['case']} ({row['arch']}, {row['params']} parameters; "
             f"split: {', '.join(row['split_blocks'])}): loss {row['loss']:.6f} split vs "
@@ -2914,6 +2948,387 @@ def tp_kinds_phase(device: str = "cuda:0", cases=None, shape=TP_SHAPE) -> list:
     return rows
 
 
+# train-sp: gemma2_2b at full width and depth (13 groups of a local and a
+# global layer) under remat="full", batch 2 x 4096 (the model axis, 2,
+# divides the sequence), split over two processes on the one card
+SP_ARCH = "gemma2_2b"
+SP_GROUPS = 13
+SP_SHAPE = (2, 4096)
+
+
+@contextlib.contextmanager
+def stream_bytes_saved():
+    """Yields ``[n]``: the bytes the checkpoints' input saving packs for the
+    stream (a checkpointed group's or encoder layer's second argument), by a
+    ``saved_tensors_hooks`` pack hook around each ``torch.utils.checkpoint``
+    call of the LM."""
+    from repro_torch.models import transformer
+
+    saved = [0]
+    checkpoint = transformer.checkpoint
+
+    def counted(fn, *args, **kwargs):
+        x = args[1]
+
+        def pack(t):
+            if t.data_ptr() == x.data_ptr() and t.shape == x.shape:
+                saved[0] += t.numel() * t.element_size()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            return checkpoint(fn, *args, **kwargs)
+
+    transformer.checkpoint = counted
+    try:
+        yield saved
+    finally:
+        transformer.checkpoint = checkpoint
+
+
+@contextlib.contextmanager
+def replicated_stream():
+    """The LM keeping the stream between groups replicated under a plan
+    (its sequence-parallel condition never met)."""
+    from repro_torch.models import LM
+
+    condition = LM._sequence_parallel
+    LM._sequence_parallel = lambda self, s: None
+    try:
+        yield
+    finally:
+        LM._sequence_parallel = condition
+
+
+def sp_worker(rank: int, port: int, spec: dict) -> int:
+    """One rank of ``train-sp``: rank 0 runs the unsplit model's loss and
+    backward (a warm run, a timed one, then one computing in f32); then both
+    ranks keep their model-local blocks and run the loss and backward under
+    their plan three times: the stream kept replicated, sequence-parallel,
+    and sequence-parallel in f32, each timed and its checkpointed stream
+    bytes counted (``stream_bytes_saved``).  Deterministic algorithms are
+    on, so the first two are held bitwise on each rank; rank 1 sends its
+    sequence-parallel gradients' blocks to rank 0, which holds them and the
+    loss to the unsplit run's: the loss, the gradient's norm and relative
+    L2 at the ``TP_*`` tolerances, and, as ``train-tp-kinds`` holds its f32
+    case, the f32 split to f32 rounding and the bf16 split as close to the
+    f32 gradient as the bf16 unsplit one (at full depth bf16 rounding flips
+    ~1.5% of the gradient's signs, so the signs are printed, not held).
+    Prints one JSON line on rank 0; raises on a failed check."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import all_kernels
+    from repro_torch.models import LM, registry
+    from repro_torch.models.sharding import local_slice, spec_tree_to_pspecs
+    from repro_torch.models.tensor_parallel import plan
+    from repro_torch.train.step import _swapped
+
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    kernels = all_kernels()
+    for kern in kernels:
+        kern.launches = 0
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    mesh = {"data": 1, "model": 2}
+    cfg = configs.get_config(SP_ARCH)
+    cfg = dataclasses.replace(registry.with_depth(cfg.reduced() if spec["reduced"] else cfg,
+                                                  2 * spec["groups"]), remat="full")
+    b, s = spec["shape"]
+    batch = registry.make_batch(cfg, b, s, generator=torch.Generator(device=dev).manual_seed(1),
+                                device=dev)
+
+    def build():
+        return LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+
+    def run(model, tp):
+        """(loss, gradients, ms, stream bytes saved, peak GB)."""
+        leaves = model.leaves()
+        for p in leaves.values():
+            p.grad = None
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with stream_bytes_saved() as saved, _swapped(model, leaves, tp):
+            loss, _ = model.loss(batch)
+            loss.backward()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        grads = {k: p.grad for k, p in leaves.items()}
+        for p in leaves.values():
+            p.grad = None
+        return (float(loss.detach()), grads, ms, saved[0],
+                torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else float("nan"))
+
+    def host(grads):
+        return {k: g.cpu() for k, g in grads.items()}
+
+    row = {"arch": SP_ARCH, "groups": spec["groups"], "shape": [b, s],
+           "params": cfg.param_count(), "width": "reduced" if spec["reduced"] else "full"}
+    if rank == 0:
+        model = build()
+        run(model, None)
+        loss_full, grads, ms, saved, gb = run(model, None)
+        full = {"bf16": host(grads)}
+        del grads
+        with compute_dtype(torch.float32):
+            loss32, grads, ms32, _, _ = run(model, None)
+        full["f32"] = host(grads)
+        del grads, model
+        row.update(loss_unsplit=loss_full, ms_unsplit=ms, gb_unsplit=gb, saved_unsplit=saved,
+                   loss_unsplit_f32=loss32, ms_unsplit_f32=ms32)
+    dist.barrier()
+    model = build()
+    specs = model.spec()
+    pspecs = spec_tree_to_pspecs(specs, mesh)
+    with torch.no_grad():
+        for k, p in model.leaves().items():
+            p.data = p.data[local_slice(pspecs[k], p.shape, mesh,
+                                        {"data": 0, "model": rank})].clone()
+    tp = plan(pspecs, specs, None, 2, rank)
+    runs, mine = {}, {}
+    # the stream replicated (the bitwise yardstick; rank 1's first pass),
+    # sequence-parallel, then sequence-parallel in f32
+    for key in ("rep", "sp", "sp_f32"):
+        with (replicated_stream() if key == "rep" else
+              compute_dtype(torch.float32) if key == "sp_f32" else contextlib.nullcontext()):
+            loss, grads, ms, saved, gb = run(model, tp)
+        runs[key] = {"loss": loss, "ms": ms, "saved": saved, "gb": gb}
+        grads = host(grads)
+        if key == "rep":
+            want = (loss, grads)
+        else:
+            mine["f32" if key == "sp_f32" else "bf16"] = grads
+        del grads
+    bitwise = want[0] == runs["sp"]["loss"] and all(
+        torch.equal(g, want[1][k]) for k, g in mine["bf16"].items())
+    del model, want
+    names = sorted(mine["bf16"])
+    fields = {"loss": float, "ms": float, "saved": int, "gb": float}
+    failed = []
+    if rank == 1:
+        for dt in ("bf16", "f32"):
+            for k in names:
+                dist.send(mine[dt][k].contiguous(), 0)
+        dist.send(torch.tensor([runs[k][f] for k in runs for f in fields] + [bitwise],
+                               dtype=torch.float64), 0)
+    else:
+        theirs = {}
+        for dt in ("bf16", "f32"):
+            theirs[dt] = {}
+            for k in names:
+                theirs[dt][k] = torch.empty(mine[dt][k].shape, dtype=mine[dt][k].dtype)
+                dist.recv(theirs[dt][k], 1)
+        buf = torch.empty(len(runs) * len(fields) + 1, dtype=torch.float64)
+        dist.recv(buf, 1)
+        other = iter(buf.tolist())
+        for k in runs:
+            for f, cast in fields.items():
+                row[f"{k}_{f}"] = [runs[k][f], cast(next(other))]
+        row["sp_bitwise"] = [bitwise, bool(next(other))]
+
+        def pairs(dt, want):
+            """(leaf, got, want) for each block of both ranks' ``dt`` split
+            gradients against the unsplit ``want``; a leaf both hold whole
+            once."""
+            out = []
+            for k in names:
+                if "model" in pspecs[k]:
+                    for r, got in ((0, mine[dt][k]), (1, theirs[dt][k])):
+                        block = local_slice(pspecs[k], want[k].shape, mesh,
+                                            {"data": 0, "model": r})
+                        out.append((k, got, want[k][block]))
+                else:
+                    out.append((k, mine[dt][k], want[k]))
+            return out
+
+        row.update(grad_stats(pairs("bf16", full["bf16"]), dev))
+        row["loss_rel"] = abs(runs["sp"]["loss"] - loss_full) / abs(loss_full)
+        row["f32"] = {**grad_stats(pairs("f32", full["f32"]), dev),
+                      "loss_rel": abs(runs["sp_f32"]["loss"] - loss32) / abs(loss32),
+                      "bf16_vs_f32_split": grad_stats(pairs("bf16", full["f32"]),
+                                                      dev)["grad_rel_l2"],
+                      "bf16_vs_f32_unsplit": grad_stats(
+                          [(k, full["bf16"][k], full["f32"][k]) for k in names],
+                          dev)["grad_rel_l2"]}
+        row["diverged"] = [k for k in names if "model" not in pspecs[k]
+                           and not torch.equal(mine["bf16"][k], theirs["bf16"][k])]
+        d, bytes_ = cfg.d_model, 2  # the stream's bf16
+        row["saved_want"] = {"sp": spec["groups"] * b * (s // 2) * d * bytes_,
+                             "rep": spec["groups"] * b * s * d * bytes_}
+        print("SP_CASE " + json.dumps(row), flush=True)
+        f = row["f32"]
+        if not (row["loss_rel"] <= TP_LOSS_REL and row["grad_norm_rel"] <= TP_NORM_REL
+                and row["grad_rel_l2"] <= TP_GRAD_REL):
+            failed.append("the split against the unsplit model")
+        if not (f["loss_rel"] <= TP_F32_LOSS_REL
+                and f["grad_rel_l2"] <= TP_F32_GRAD_SHARE * f["bf16_vs_f32_unsplit"]
+                and f["bf16_vs_f32_split"] <= TP_ACCURACY_RATIO * f["bf16_vs_f32_unsplit"]):
+            failed.append("the split in f32, or the bf16 split's accuracy against f32")
+        if not all(row["sp_bitwise"]):
+            failed.append("the sequence-parallel stream against the replicated one (bitwise)")
+        if row["sp_loss"][1] != row["sp_loss"][0] or row["diverged"]:
+            failed.append("the ranks' losses or replicated leaves")
+        if row["sp_saved"] != [row["saved_want"]["sp"]] * 2 or \
+                row["rep_saved"] != [row["saved_want"]["rep"]] * 2:
+            failed.append("the stream bytes the checkpoints saved")
+    launched = {k.name: k.launches for k in kernels if k.launches}
+    dist.barrier()
+    dist.destroy_process_group()
+    if launched or failed:
+        raise AssertionError(f"train-sp: kernels launched {launched}; failed: {failed}")
+    return 0
+
+
+def sp_phase(device: str = "cuda:0", groups: int = SP_GROUPS, shape=SP_SHAPE,
+             reduced: bool = False) -> dict:
+    """``train-sp``: two ``sp_worker`` processes on ``device``, in a gloo
+    group whose every collective goes through the host: the split times are
+    not NCCL's.  ``reduced`` takes the arch's CPU-test widths.  Returns
+    rank 0's row."""
+    t0 = time.perf_counter()
+    spec = {"device": device, "groups": groups, "shape": list(shape), "reduced": reduced}
+    rows = two_rank_phase("train-sp", "sp", spec, "SP_CASE ",
+                          env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    if len(rows) != 1:
+        raise AssertionError(f"train-sp: {len(rows)} rows reported")
+    row = rows[0]
+    f = row["f32"]
+    log(f"[train-sp] {row['arch']} at {row['width']} width, {row['groups']} groups "
+        f"({row['params']} parameters), remat full, batch {row['shape'][0]} x {row['shape'][1]}, "
+        f"a (1, 2) (data, model) mesh: loss {row['sp_loss'][0]:.6f} split vs "
+        f"{row['loss_unsplit']:.6f} unsplit (rel {row['loss_rel']:.2e}); gradient norm rel "
+        f"{row['grad_norm_rel']:.2e}, relative L2 {row['grad_rel_l2']:.3e}, signs "
+        f"{row['signs']:.4f} (printed), worst leaf {row['worst_leaf']} "
+        f"{row['worst_leaf_rel']:.3e}; sequence-parallel bitwise the replicated stream on both "
+        f"ranks: {row['sp_bitwise']}")
+    log(f"[train-sp] in f32: loss rel {f['loss_rel']:.2e}, gradient relative L2 "
+        f"{f['grad_rel_l2']:.3e}, norm rel {f['grad_norm_rel']:.2e}, signs {f['signs']:.4f}; "
+        f"bf16 gradients from the f32 unsplit one: split {f['bf16_vs_f32_split']:.3e}, "
+        f"unsplit {f['bf16_vs_f32_unsplit']:.3e}; ms split {row['sp_f32_ms'][0]:.1f}/"
+        f"{row['sp_f32_ms'][1]:.1f} vs unsplit {row['ms_unsplit_f32']:.1f}")
+    log(f"[train-sp] stream bytes the checkpoints saved a rank: sequence-parallel "
+        f"{row['sp_saved']} (want {row['saved_want']['sp']}), replicated {row['rep_saved']} "
+        f"(want {row['saved_want']['rep']}), unsplit {row['saved_unsplit']}")
+    log(f"[train-sp] loss+backward ms a rank: sequence-parallel {row['sp_ms'][0]:.1f}/"
+        f"{row['sp_ms'][1]:.1f}, replicated {row['rep_ms'][0]:.1f}/{row['rep_ms'][1]:.1f} "
+        f"(rank 1's first pass; gloo via the host, two processes sharing the card) vs unsplit "
+        f"{row['ms_unsplit']:.1f}; peak GB sequence-parallel {row['sp_gb'][0]:.2f}/"
+        f"{row['sp_gb'][1]:.2f}, replicated {row['rep_gb'][0]:.2f}/{row['rep_gb'][1]:.2f} vs "
+        f"unsplit {row['gb_unsplit']:.2f}; {time.perf_counter() - t0:.1f}s")
+    return row
+
+
+# publish-sharded's steps, a publish each
+PUBLISH_SHARDED_STEPS = 3
+
+
+def publish_sharded_phase(dev, kernels) -> None:
+    """``publish-sharded``: ``train-fsdp``'s run (``DENSE_ARGS``'s model and
+    batch in ``pjit`` with ``fsdp=True`` on a ``(1, 1)`` ``("data",
+    "model")`` mesh over a one-rank NCCL group: ``DTensor`` leaves) for
+    ``PUBLISH_SHARDED_STEPS`` steps with the CLI's publisher (``--backend
+    auto --selector auto``, a theta-0 delta every step, the flags'
+    defaults), each leaf gathered whole for the version-0 snapshot and
+    every publish; then ``publish-replicated``, the same on the replicated
+    state (``train-dense``'s).  B4 and B2 launch once a publish and nothing
+    else launches; the two rings are equal file for file (a one-rank mesh's
+    gathers move nothing, so the runs compute the same bits, as
+    ``train-fsdp`` and ``train-dense`` do); a subscriber that follows the
+    sharded ring ends bitwise its publisher's mirror."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.comms import calibrate
+    from repro_torch.data import SyntheticStream
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import stream_config
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.serve import (PublishConfig, ReplicaSubscriber, RingReader,
+                                   WeightDeltaPublisher)
+    from repro_torch.train import TrainLoopConfig, init_state, train_loop
+    from repro_torch.train.step import StepConfig
+
+    rings, mirrors, steps = {}, {}, PUBLISH_SHARDED_STEPS
+
+    def run(label, sharded):
+        cfg = dataclasses.replace(model_config(), n_layers=N_LAYERS)
+        model = build(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        opt = OptConfig(kind="adamw", lr=3e-4)
+        stream = SyntheticStream(stream_config(cfg, SEQ, BATCH, 0), device=dev)
+        step_cfg = StepConfig(mode="pjit", fsdp=sharded)
+        rings[label] = tempfile.mkdtemp(prefix="chip-smoke-ring-")
+
+        def go(mesh):
+            state = init_state(model, opt, mesh=mesh, step_cfg=step_cfg)
+            if sharded and not all(isinstance(v, DTensor) for v in model.leaves().values()):
+                raise AssertionError(f"{label}: the state is not DTensor leaves")
+            pub = WeightDeltaPublisher(rings[label], model.leaves(),
+                                       PublishConfig(backend="auto", selector="auto"))
+            result = train_loop(model, opt, step_cfg, state, stream,
+                                TrainLoopConfig(total_steps=steps, log_every=1,
+                                                publish_hook=pub.hook()), group=mesh)
+            pub.close()
+            mirrors[label] = pub.state.materialize().cpu()
+            _log_publishes(label, pub.timings)
+            result["state"] = None
+            return result
+
+        if not sharded:
+            return go(None)
+        with calibrate.process_group(dev):
+            return go(make_local_mesh((1, 1), ("data", "model"), device=dev))
+
+    fused = ("sampled_threshold", "fused_compress")
+    try:
+        for label, sharded in (("publish-sharded", True), ("publish-replicated", False)):
+            counts, _ = train_phase(lambda: run(label, sharded), kernels, label, fused)
+            launched = {k: v for k, v in counts.items() if v}
+            if launched != {name: steps for name in fused}:
+                raise AssertionError(f"{label} launched {launched}: B4 and B2 once a publish "
+                                     f"({steps}) and nothing else expected")
+        got, want = (rings[k] for k in ("publish-sharded", "publish-replicated"))
+        manifests = [RingReader(r).manifest() for r in (got, want)]
+        if manifests[0] != manifests[1]:
+            raise AssertionError(f"publish-sharded: manifests differ {manifests}")
+
+        def same_file(name):
+            with open(os.path.join(got, name), "rb") as f, open(os.path.join(want, name),
+                                                                "rb") as g:
+                return f.read() == g.read()
+
+        files = [manifests[0]["snapshot"]["path"]] + [d["path"] for d in manifests[0]["deltas"]]
+        bitwise = [same_file(name) for name in files]
+        sub = ReplicaSubscriber(got, device=dev)
+        version = sub.follow(timeout_s=60.0)
+        followed = torch.equal(sub.weights().cpu(), mirrors["publish-sharded"])
+        del sub
+        log(f"[publish-sharded] v{version}: the snapshot and {len(files) - 1} deltas bitwise the "
+            f"replicated state's {bitwise}; losses {LOSSES['publish-sharded']} vs "
+            f"{LOSSES['publish-replicated']}; the subscriber bitwise the mirror: {followed}")
+        if not all(bitwise) or version != steps or not followed:
+            raise AssertionError(f"publish-sharded: files bitwise {bitwise}; the subscriber "
+                                 f"ends at v{version}, bitwise the mirror {followed}")
+    finally:
+        for ring in rings.values():
+            shutil.rmtree(ring, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def zoo_phases(dev, kernels, fused) -> None:
     """Phases 17-19: the zoo's training, its two full-depth serve phases
     and ``zoo``."""
@@ -2922,6 +3337,10 @@ def zoo_phases(dev, kernels, fused) -> None:
     for label in ("serve-hymba", "serve-xlstm", "serve-seamless", "serve-vision"):
         serve_phase(dev, kernels, label)
     zoo_serve_phase(dev, kernels)
+
+
+# the phases --only names, run after the kernel phases
+ONLY = {"theory", "lab", "zoo", "tp", "publish", "sp"}
 
 
 def main() -> int:
@@ -2934,17 +3353,20 @@ def main() -> int:
                     help="trace the first training phase with torch.profiler")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel phases "
-                         "(theory, lab, zoo, tp); default every phase")
-    ap.add_argument("--tp-worker", nargs=3, default=None, metavar=("RANK", "PORT", "SPEC"),
-                    help="run one rank of train-tp-kinds (its phase starts two)")
+                         "(theory, lab, zoo, tp, publish, sp); default every phase")
+    ap.add_argument("--worker", nargs=4, default=None,
+                    metavar=("PHASE", "RANK", "PORT", "SPEC"),
+                    help="run one rank of train-tp-kinds (tp) or train-sp (sp); each phase "
+                         "starts two")
     args = ap.parse_args()
-    if args.tp_worker:
+    if args.worker:
         sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
-        rank, port, spec = args.tp_worker
-        return tp_kinds_worker(int(rank), int(port), json.loads(spec))
+        phase, rank, port, spec = args.worker
+        worker = {"tp": tp_kinds_worker, "sp": sp_worker}[phase]
+        return worker(int(rank), int(port), json.loads(spec))
     only = set(args.only.split(",")) if args.only else None
-    if only is not None and not only <= {"theory", "lab", "zoo", "tp"}:
-        ap.error(f"--only takes theory, lab, zoo and tp, got {sorted(only)}")
+    if only is not None and not only <= ONLY:
+        ap.error(f"--only takes {', '.join(sorted(ONLY))}, got {sorted(only)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3036,6 +3458,12 @@ def main() -> int:
         if only is None or "tp" in only:
             torch.cuda.empty_cache()
             tp_kinds_phase()
+        if only is None or "publish" in only:
+            torch.cuda.empty_cache()
+            publish_sharded_phase(dev, kernels)
+        if only is None or "sp" in only:
+            torch.cuda.empty_cache()
+            sp_phase()
 
     if PHASE_MS:
         order = [k for k in ("train", "train-dense") if k in PHASE_MS]

@@ -40,8 +40,11 @@ enc-dec arch it sets the encoder's depth too).  ``--mesh production`` builds
 the ``(16, 16)`` ``("data", "model")`` mesh and ``--mesh multi_pod`` the
 ``(2, 16, 16)`` ``("pod", "data", "model")`` one (``launch/mesh.py``; 256
 and 512 workers): ``--mode pjit`` on them keeps the state sharded (tensor
-parallelism over ``model`` for every layer kind), and ``--mode hierarchical`` needs the ``pod``
-axis of ``multi_pod`` (elsewhere it is refused by name).  Two differences
+parallelism over ``model`` for every layer kind, the stream between groups
+sequence-parallel), ``--publish-dir`` publishes it (rank 0 writes the ring
+from the gathered leaves, every other rank joins the gathers), and
+``--mode hierarchical`` needs the ``pod`` axis of ``multi_pod`` (elsewhere
+it is refused by name).  Two differences
 from the reference CLI: the publisher's delta codec runs on ``--backend``
 and ``--selector`` (defaults ``auto``), so on the card each publish launches
 the sampled threshold and fused compress kernels, where the reference CLI
@@ -76,8 +79,9 @@ from repro_torch.data import SyntheticConfig, SyntheticStream
 from repro_torch.launch.mesh import make_production_mesh, make_two_level_mesh
 from repro_torch.models import build, registry
 from repro_torch.optim import OptConfig, lr_schedules
+from repro_torch.serve.publish import PublishConfig, WeightDeltaPublisher, gather_hook
 from repro_torch.train import TrainLoopConfig, init_state, train_loop
-from repro_torch.train.step import StepConfig, sharded_state
+from repro_torch.train.step import StepConfig
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -199,9 +203,6 @@ def main(argv=None):
             selector=args.selector, sample_rate=args.sample_rate)
     step_cfg = StepConfig(mode=args.mode, multi_pod=args.mesh == "multi_pod", reducer=reducer,
                           calibration_path=args.calibration_path)
-    if args.publish_dir is not None and sharded_state(step_cfg, group):
-        ap.error("--publish-dir publishes a replicated model; the sharded --mode pjit state of "
-                 f"--mesh {args.mesh} is not published")
     opt_cfg = OptConfig(kind="adamw", lr=args.lr)
     stream = SyntheticStream(stream_config(cfg, args.seq, args.batch, args.seed), device=dev)
     state = init_state(model, opt_cfg,
@@ -210,14 +211,20 @@ def main(argv=None):
     calibration = None
     if args.calibrate and args.mode != "pjit":
         step_cfg, calibration = _calibrate(args, step_cfg, model, stream, dev, group)
-    # one writer a ring: under several workers rank 0 publishes
-    publisher = (_publisher(args, model) if args.publish_dir is not None
-                 and (not dist.is_initialized() or dist.get_rank() == 0) else None)
+    # one writer a ring: under several workers rank 0 publishes, and every
+    # other rank joins its gathers of a sharded state's leaves
+    publisher = publish_hook = None
+    if args.publish_dir is not None:
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            publisher = _publisher(args, model)
+            publish_hook = publisher.hook()
+        else:
+            publish_hook = gather_hook(model.leaves(), _publish_config(args))
     loop_cfg = TrainLoopConfig(
         total_steps=args.steps, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         log_every=max(1, args.steps // 20), theta_schedule=_theta_schedule(args),
         lr_schedule=lr_schedules.warmup_cosine(max(2, args.steps // 10), args.steps),
-        publish_hook=publisher.hook() if publisher is not None else None)
+        publish_hook=publish_hook)
     try:
         result = train_loop(model, opt_cfg, step_cfg, state, stream, loop_cfg, group=group)
     finally:
@@ -238,22 +245,23 @@ def main(argv=None):
     return result
 
 
+def _publish_config(args) -> PublishConfig:
+    """The ``--publish-*`` flags, on ``--backend`` and ``--selector``."""
+    return PublishConfig(publish_every=args.publish_every, capacity=args.publish_capacity,
+                         snapshot_every=args.publish_snapshot_every, theta=args.publish_theta,
+                         backend=args.backend, selector=args.selector)
+
+
 def _publisher(args, model):
     """``--publish-dir``: the weight-delta publisher over the model's leaves
-    (it writes the ring's version-0 snapshot now), on ``--backend`` and
-    ``--selector``; the manifest names the arch, ``reduced`` and, when
-    ``--n-layers`` cut the depth, ``n_layers``."""
-    from repro_torch.serve import PublishConfig, WeightDeltaPublisher
-
+    (it writes the ring's version-0 snapshot now); the manifest names the
+    arch, ``reduced`` and, when ``--n-layers`` cut the depth,
+    ``n_layers``."""
     meta = {"arch": args.arch, "reduced": bool(args.reduced)}
     if args.n_layers is not None:
         meta["n_layers"] = int(args.n_layers)
-    publisher = WeightDeltaPublisher(
-        args.publish_dir, model.leaves(),
-        PublishConfig(publish_every=args.publish_every, capacity=args.publish_capacity,
-                      snapshot_every=args.publish_snapshot_every, theta=args.publish_theta,
-                      backend=args.backend, selector=args.selector),
-        extra_meta=meta)
+    publisher = WeightDeltaPublisher(args.publish_dir, model.leaves(), _publish_config(args),
+                                     extra_meta=meta)
     print(f"[publish] ring at {args.publish_dir} (every {args.publish_every} steps, "
           f"theta={args.publish_theta})")
     return publisher

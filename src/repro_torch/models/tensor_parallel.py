@@ -3,9 +3,9 @@ column- and row-parallel projections with explicit collectives, in the
 Megatron style.
 
 Each rank of the ``model`` group holds the leaves' model-local blocks (the
-rules of ``models/sharding.py``) and computes on plain tensors; the
-replicated stream between blocks is bitwise the same on every rank.  Two
-autograd functions carry most of the collectives:
+rules of ``models/sharding.py``) and computes on plain tensors; inside a
+group of layers the stream is replicated, bitwise the same on every rank.
+Two autograd functions carry most of the collectives:
 
 * ``copy`` -- identity forward, SUM all_reduce of the gradient backward:
   where a replicated activation (or a replicated leaf, such as a ``wk``
@@ -21,6 +21,15 @@ computation uses whole, so its gradient is the same on every rank) and
 ``halves`` (the ``[x | z]`` trap of the SSM's and the mLSTM's ``in_proj``,
 below).  Every collective is a SUM all_reduce, which every backend carries
 on every device (gloo's CUDA tensors included).
+
+Between groups the stream is sequence-parallel (Megatron-SP at group
+granularity, the reference's ``_constrain_stream``): where the model axis
+divides the sequence, ``scatter`` keeps this rank's ``1/size`` of the
+sequence dim after the embedding and at each group's exit, and ``gather``
+joins it whole at each group's entry, so a checkpointed group stores only
+its rank's shard of its input (``Plan.stream``, ``LM._sequence_parallel``).
+The join is ``gather``'s SUM of zero-placed blocks: exact, but the
+collective is handed ``size`` times the shard an all_gather would take.
 
 The plan is per block (:func:`plan`): each block of leaves -- a layer's
 ``attn``, ``cross``, ``mlp``, ``moe``, ``ssm`` or ``cell``, the encoder's
@@ -145,6 +154,22 @@ class _Gather(torch.autograd.Function):
         return _taken(g, ctx.dim, ctx.spans), None, None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    """This rank's block at ``spans`` of a tensor every rank holds whole
+    and the same, in its own storage; backward: the ranks' blocks of the
+    gradient joined (the whole gradient on every rank, as the replicated
+    computation before it expects)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, spans):
+        ctx.group, ctx.dim, ctx.n, ctx.spans = group, dim, x.shape[dim], spans
+        return _taken(x, dim, spans)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(_placed(g, ctx.dim, ctx.n, ctx.spans), ctx.group), None, None, None
+
+
 class _Relay(torch.autograd.Function):
     """Columns at ``have`` (this rank's block) in, columns at ``want`` out,
     over one SUM exchange each way."""
@@ -201,10 +226,25 @@ class TensorParallel:
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The whole tensor from every rank's block along ``dim``; backward
         takes this rank's block of a gradient that a replicated computation
-        made the same on every rank."""
+        made the same on every rank.
+
+        On the sequence-parallel stream (a group's entry) that holds because
+        the group's layers use the gathered stream in replicated computations
+        only: the residual adds and norms run whole on every rank, and every
+        split block takes its input through ``copy``, whose backward sums the
+        ranks' parts of the gradient, and returns ``reduce``'s whole output.
+        So the gradient with respect to the gathered stream is the same on
+        every rank, and this rank's block of it is its shard's gradient."""
         dim %= x.dim()
         n = x.shape[dim] * self.size
         return _Gather.apply(x, self.group, dim, n, (self.part(n),))
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``x``, which every rank holds
+        whole and the same (the inverse of :meth:`gather`); backward joins
+        the ranks' blocks of the gradient."""
+        dim %= x.dim()
+        return _Scatter.apply(x, self.group, dim, (self.part(x.shape[dim]),))
 
     def halves(self, y: torch.Tensor) -> torch.Tensor:
         """``y`` this rank's block of the last axis of ``[x | z]`` (two
@@ -224,10 +264,13 @@ class TensorParallel:
 
 class Plan:
     """Block path -> its :class:`TensorParallel` (None: the block computes
-    whole and uses its leaves as they are)."""
+    whole and uses its leaves as they are); ``stream``: the ``model``
+    group's place, over which the stream between groups is scattered and
+    gathered."""
 
-    def __init__(self, blocks: Mapping[str, TensorParallel]):
+    def __init__(self, blocks: Mapping[str, TensorParallel], stream: TensorParallel):
         self.blocks = dict(blocks)
+        self.stream = stream
 
     def __call__(self, block: str) -> Optional[TensorParallel]:
         return self.blocks.get(block)
@@ -249,7 +292,7 @@ def _role_axes(block: str) -> Tuple[str, ...]:
 def plan(pspecs, specs, group, size: int, rank: int) -> Optional[Plan]:
     """The split of a model whose leaves (``specs``: path -> ParamSpec)
     resolve to ``pspecs`` (path -> spec) on a ``model`` axis of ``size``;
-    None when nothing is split.  Needs no process group to be read."""
+    None when the axis is 1.  Needs no process group to be read."""
     if size <= 1:
         return None
     by_block: Dict[str, Dict[str, Tuple[Optional[str], int]]] = {}
@@ -283,4 +326,4 @@ def plan(pspecs, specs, group, size: int, rank: int) -> Optional[Plan]:
         flags = {_FLAG[a]: True for a in taken}
         if flags or whole:
             blocks[block] = TensorParallel(group, size, rank, whole=whole, **flags)
-    return Plan(blocks) if blocks else None
+    return Plan(blocks, TensorParallel(group, size, rank))

@@ -23,7 +23,17 @@ Under the sharded ``pjit`` step the LM runs with a tensor-parallel plan
 ``cross``, ``mlp``, ``moe``, ``ssm`` or ``cell``, the encoder's ``attn``
 and ``mlp``, ``embed`` -- computes split over the ``model`` axis or whole,
 as the rules place its leaves, and the leaves it uses whole but holds a
-block of are gathered at use.
+block of are gathered at use.  Between groups the stream is
+sequence-parallel where the model axis divides the sequence (the
+reference's ``_constrain_stream``: ``S % size == 0 and S > 1``): each
+rank carries its ``1/size`` of the sequence, scattered after the
+embedding and at each group's exit and gathered whole at each group's
+entry, inside the checkpointed function, so ``remat`` stores a rank's
+shard of each group's input; it is gathered again before the final norm
+and the head.  The encoder does the same per layer, and its output is
+gathered whole before it becomes the memory.  The values are those of the
+replicated stream, bit for bit: only data moves, by exact joins.
+``prefill`` and ``decode_step`` run with no plan.
 
 ``cfg.remat`` is honoured as the reference's ``jax.checkpoint``: under
 ``"full"`` and ``"dots"`` each group of the stack (and each encoder layer)
@@ -340,6 +350,13 @@ class LM(nn.Module):
         tp = self._split(block)
         return leaves if tp is None else tp.use(leaves)
 
+    def _sequence_parallel(self, s: int):
+        """The ``model`` group's place when the stream between groups is
+        sharded over it on a sequence ``s`` long (the reference's
+        ``_constrain_stream`` condition), else None."""
+        tp = None if self._tp is None else self._tp.stream
+        return tp if tp is not None and s % tp.size == 0 and s > 1 else None
+
     def _remat(self) -> bool:
         """Whether a pass checkpoints its groups: ``cfg.remat`` is not
         ``"none"`` and autograd records (never in prefill or decode)."""
@@ -455,15 +472,19 @@ class LM(nn.Module):
         return softcap(logits, self.cfg.final_softcap)
 
     def _group(self, g: int, x: torch.Tensor, aux: torch.Tensor, positions: torch.Tensor,
-               memory: Optional[torch.Tensor], caches: Optional[Caches] = None,
+               memory: Optional[torch.Tensor], sp=None, caches: Optional[Caches] = None,
                decode_pos: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Group ``g``'s layers -> (x, aux plus their MoE aux)."""
+        """Group ``g``'s layers -> (x, aux plus their MoE aux).  Under
+        sequence parallelism ``sp`` the stream comes and goes as this rank's
+        sequence shard, gathered whole for the layers."""
+        if sp is not None:
+            x = sp.gather(x, 1)
         for i, kind in enumerate(self.pattern):
             cache = None if caches is None else _group_cache(caches[f"l{i}_{kind}"], g)
             x, a = self._layer(i, kind, g, x, positions, cache, decode_pos, memory)
             if a is not None:
                 aux = aux + a
-        return x, aux
+        return (x if sp is None else sp.scatter(x, 1)), aux
 
     def _stack(self, x: torch.Tensor, positions: torch.Tensor, caches: Optional[Caches] = None,
                decode_pos: Optional[int] = None,
@@ -471,22 +492,32 @@ class LM(nn.Module):
         """Every layer of every group, then the final norm -> (x, the MoE
         layers' aux summed and divided by ``n_layers``).  Under ``remat``
         each group is checkpointed (the reference's ``jax.checkpoint`` of
-        its scan body)."""
+        its scan body), with its sequence shard as input when the stream is
+        sequence-parallel."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = caches is None and self._remat()
+        sp = self._sequence_parallel(x.shape[1])
+        if sp is not None:
+            x = sp.scatter(x, 1)
         for g in range(self.n_groups):
             if remat:
-                x, aux = _checkpointed(self._group, g, x, aux, positions, memory,
+                x, aux = _checkpointed(self._group, g, x, aux, positions, memory, sp,
                                        policy=self.cfg.remat)
             else:
-                x, aux = self._group(g, x, aux, positions, memory, caches, decode_pos)
+                x, aux = self._group(g, x, aux, positions, memory, sp, caches, decode_pos)
+        if sp is not None:
+            x = sp.gather(x, 1)
         x = rmsnorm(self.final_norm["scale"], x, self.cfg.norm_eps)
         return x, aux / max(self.cfg.n_layers, 1)
 
-    def _encoder_layer(self, l: int, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _encoder_layer(self, l: int, x: torch.Tensor, positions: torch.Tensor,
+                       sp=None) -> torch.Tensor:
         """Encoder layer ``l``: bidirectional self attention with rope, then
-        the MLP, each pre-normed and residual."""
+        the MLP, each pre-normed and residual (under sequence parallelism
+        ``sp``, from and to this rank's sequence shard)."""
         cfg = self.cfg
+        if sp is not None:
+            x = sp.gather(x, 1)
         p = {part: self._leaves(f"encoder.{part}", self.encoder[part], l)
              for part in ("norm1", "attn", "norm2", "mlp")}
         attn, ff = self._split("encoder.attn"), self._split("encoder.mlp")
@@ -495,7 +526,8 @@ class LM(nn.Module):
         x = x + A.attend(p["attn"], A.attention(q, k, v, positions, positions, causal=False),
                          tp=attn)
         h2 = rmsnorm(p["norm2"]["scale"], x, cfg.norm_eps)
-        return x + mlp(p["mlp"], h2, cfg.mlp_activation, tp=ff)
+        x = x + mlp(p["mlp"], h2, cfg.mlp_activation, tp=ff)
+        return x if sp is None else sp.scatter(x, 1)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, S_enc, D), the frontend's embeddings -> the memory
@@ -503,11 +535,16 @@ class LM(nn.Module):
         whole, as the reference checkpoints its encoder under either mode."""
         x = frames.to(COMPUTE_DTYPE)
         positions = torch.arange(x.shape[1], device=x.device)
+        sp = self._sequence_parallel(x.shape[1])
+        if sp is not None:
+            x = sp.scatter(x, 1)
         for l in range(self.cfg.n_encoder_layers):
             if self._remat():
-                x = _checkpointed(self._encoder_layer, l, x, positions)
+                x = _checkpointed(self._encoder_layer, l, x, positions, sp)
             else:
-                x = self._encoder_layer(l, x, positions)
+                x = self._encoder_layer(l, x, positions, sp)
+        if sp is not None:
+            x = sp.gather(x, 1)
         return rmsnorm(self.encoder_norm["scale"], x, self.cfg.norm_eps)
 
     def frontend_memory(self, frontend: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

@@ -27,10 +27,18 @@ including the fallback that loads the snapshot file instead of rebasing
 locally (the file holds the same materialized bits).
 
 The flat vector is ``comms.reducers.flatten_tree`` of the model's leaves,
-the reference's order.  The delta codec runs on the parameters' device
-through ``FFTCompressor``'s backend: ``PublishConfig``'s default is the
-reference's, ``backend="reference"`` with the ``sort`` selector (plain
-stages).  The training CLI passes its ``--backend`` (default ``auto``) and
+the reference's order.  On a sharded state (``DTensor`` leaves, the sharded
+``pjit`` step) each leaf is gathered whole first, leaf by leaf in the
+mapping's order, for the version-0 snapshot and on every publish: a
+collective over the leaf's mesh.  One rank writes the ring; every other rank
+runs :func:`gather_hook`, which joins the same gathers at the same cadence
+and drops what they return.  The writer holds the full f32 model and the
+mirror, as the reference's publisher, whose arrays are global, does.
+
+The delta codec runs on the parameters' device through ``FFTCompressor``'s
+backend: ``PublishConfig``'s default is the reference's,
+``backend="reference"`` with the ``sort`` selector (plain stages).  The
+training CLI passes its ``--backend`` (default ``auto``) and
 ``--selector`` (default ``auto``), so on the card each publish runs the
 sampled threshold kernel (B4) and the fused compress kernel (B2); the
 reference CLI keeps the defaults.  The selector shapes which bins a delta
@@ -47,11 +55,12 @@ import torch
 
 from repro_torch.comms import bucketing
 from repro_torch.comms.reducers import flatten_tree
+from repro_torch.convert import full_tensor
 from repro_torch.core import fft as cfft
 from repro_torch.core.compressor import FFTCompressor, FFTCompressorConfig
 from repro_torch.serve.ring import RingWriter
 
-__all__ = ["PublishConfig", "SpectrumReplicaState", "WeightDeltaPublisher"]
+__all__ = ["PublishConfig", "SpectrumReplicaState", "WeightDeltaPublisher", "gather_hook"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,8 +138,33 @@ class SpectrumReplicaState:
 
 
 def _flat(params: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The leaves whole (a ``DTensor``'s gathered, in ``params``' order),
+    flattened."""
     with torch.no_grad():
-        return flatten_tree({k: v.detach() for k, v in params.items()})[0]
+        return flatten_tree({k: full_tensor(v.detach()) for k, v in params.items()})[0]
+
+
+def _join_gathers(params: Mapping[str, torch.Tensor]) -> None:
+    """The gathers :func:`_flat` makes, one leaf at a time, dropped."""
+    with torch.no_grad():
+        for v in params.values():
+            full_tensor(v.detach())
+
+
+def gather_hook(init_params: Mapping[str, torch.Tensor],
+                config: PublishConfig) -> Callable[[int, Dict], None]:
+    """The publish hook of a rank that does not write the ring: the
+    writer's publisher gathers a sharded state's leaves for the version-0
+    snapshot when it is built and on every ``publish_every``-th step, so
+    every other rank of the mesh joins those gathers, in the same order, and
+    drops the result (plain leaves gather nothing).  Joins the version-0
+    snapshot's gathers now: build it where the writer builds its publisher."""
+    _join_gathers(init_params)
+
+    def _hook(step: int, state: Dict) -> None:
+        if step % config.publish_every == 0:
+            _join_gathers(state["model"].leaves())
+    return _hook
 
 
 class WeightDeltaPublisher:

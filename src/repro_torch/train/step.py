@@ -24,7 +24,10 @@ guard's MIN runs over the ``flat`` group.
   FSDP over ``data``).  A step gathers each leaf over ``data`` at use (to
   its model-local block), runs the model with the model axis's explicit
   collectives (``models/tensor_parallel.py``: every layer kind, each block
-  split along its role's axis or computed whole), redistributes each gradient
+  split along its role's axis or computed whole; between groups the stream
+  is sequence-parallel over ``model`` where that axis divides the sequence,
+  the reference's activation sharding, so under ``remat`` each rank stores
+  its ``1/model`` shard of every group's input), redistributes each gradient
   from partial sums over the batch axes to its leaf's placement (a
   reduce-scatter over ``data`` for an FSDP leaf, an all_reduce otherwise),
   clips by the global norm summed over shards -- each leaf counted once,
@@ -39,8 +42,11 @@ guard's MIN runs over the ``flat`` group.
   pod mean through the compressed transport over the ``pod`` group: the
   reference's spelling ``ReducerConfig(axis=None, pod_axis="pod")``.
   Parameters stay replicated, as the reference's do in the compressed
-  modes; with error feedback the residual is one row per pod, which every
-  rank of the pod holds.
+  modes, and the ranks that differ only in ``model`` each compute their
+  rows whole, with no plan (the reference's ``inner_ctx`` lets XLA spread
+  that work over ``model``: a difference in speed, not in value); with
+  error feedback the residual is one row per pod, which every rank of the
+  pod holds.
 
 The guard: every worker checks that its local gradient, the reduced mean
 and the new residual are finite, and one MIN all_reduce makes the verdict

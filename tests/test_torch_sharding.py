@@ -28,6 +28,12 @@ Tolerances:
   ``fsdp``) is bitwise the replicated step;
 * every leaf's local block is bitwise the slice of the full array that its
   placement names, and every rank ends with the same full parameters.
+
+The sequence is 32 long, which the model axis divides, so the sharded step
+also runs the stream between groups sequence-parallel
+(``tests/test_torch_seq_parallel.py``): every output of the port here is
+bitwise the same with the stream kept replicated, so no value measured
+above moved.
 """
 
 import dataclasses

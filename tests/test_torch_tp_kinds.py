@@ -33,6 +33,12 @@ Tolerances (those of ``tests/test_torch_sharding.py``):
 
 The MoE cases start their routers at ``ROUTER_SCALE`` times the init
 scale (ROADMAP §3 fault 14, pinned by ``test_moe_router_at_init_scale``).
+
+The sequence is ``SEQ`` 32 long, which the model axis divides, so the
+sharded step also runs the stream between groups sequence-parallel
+(``tests/test_torch_seq_parallel.py``), here and in the ``_b`` and ``_c``
+files: every output of the port in the three files is bitwise the same
+with the stream kept replicated, so no value measured above moved.
 """
 
 import json

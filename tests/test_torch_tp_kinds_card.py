@@ -19,6 +19,10 @@ as far from the f32 gradient as the bf16 unsplit one is, within 1.2x
 
 Also ROADMAP §3 fault 15, which the seamless parity case of
 ``tests/test_torch_tp_kinds_c.py`` steps around.
+
+The phase's sequence (32) is even, so its split runs also carry the stream
+between groups sequence-parallel over the two ranks; the values are those
+of the stream kept replicated, bit for bit.
 """
 
 import importlib.util
