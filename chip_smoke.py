@@ -177,6 +177,30 @@ Phases (any failure exits nonzero; the last line is printed only on success):
    those of the stream kept replicated, and the split held against the
    unsplit model on rank 0 (in bf16, and in f32 by accuracy).
 
+23. ``dryrun-vs-card``: the dry-run (``launch/dryrun.py``) traces
+   ``train-dense``'s and ``train``'s configurations (gemma2_2b, 4 layers,
+   4 x 512, one process) on fake cuda tensors, and the same steps run on
+   the card under the same counters: the matmul flops and the kernels'
+   custom-op calls (B4 2, B2 2, B3 1 in ``train``) against the launches,
+   exactly, and the traced peak within ``DRYRUN_PEAK_REL`` of the
+   allocator's since a reset, the roofline's step time beside the
+   measured one;
+24. ``dryrun-production``: ``DRYRUN_CELLS`` (gemma2_2b ``train_4k``,
+   ``prefill_32k`` and ``decode_32k`` on ``(16, 16)``, ``train_4k
+   --multi-pod --mode hierarchical``, qwen1_5_110b and qwen3_moe_235b_a22b
+   ``train_4k``) traced on
+   the production meshes' fake worlds, in a process started before the
+   training phases and read here: each ``ok``, with its memory a rank
+   against the card's, its collectives and roofline;
+25. ``serve-sharded``: two gloo processes on the one card, a ``(1, 2)``
+   ``("data", "model")`` mesh (``SERVE_SHARDED_CASES``: gemma2_2b at 26
+   layers, batch 8 x 512 + 32 and batch 1 x 512 + 16; one hymba layer at
+   batch 8 and one xlstm group at batch 2, x 512 + 32, full width): the
+   sharded engine's greedy tokens and logits, against the unsplit model on
+   rank 0 along the same tokens, in f32 within ``SERVE_SHARDED_ATOL`` and
+   in bf16 held by accuracy against the f32 logits; the cache bytes a rank
+   printed.
+
 Phase 10 also runs ``train-psum-noderound``: ``train-psum`` with its
 exchange fed the island mean's irfft(rfft(g)), as ``train-hierarchical``
 feeds its own; its losses must be bitwise ``train-hierarchical``'s, which
@@ -190,9 +214,9 @@ Then each training phase's mean steady step (``train-dense`` beside
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
 package.  ``--rows`` and ``--skip-train`` (which skips phases 4 to 6)
 shorten a run while a kernel is being brought up; ``--only
-theory,lab,zoo,tp,publish,sp`` runs only the named phases after the kernel
-phases (``zoo``: phases 17-19; ``tp``: phase 20; ``publish``: 21; ``sp``:
-22); ``--profile`` traces the
+theory,lab,zoo,tp,publish,sp,dry,serve`` runs only the named phases after
+the kernel phases (``zoo``: phases 17-19; ``tp``: phase 20; ``publish``:
+21; ``sp``: 22; ``dry``: 23-24; ``serve``: 25); ``--profile`` traces the
 first training phase with ``torch.profiler`` and prints device time by
 kernel, by op and per step.
 """
@@ -3229,6 +3253,306 @@ def sp_phase(device: str = "cuda:0", groups: int = SP_GROUPS, shape=SP_SHAPE,
     return row
 
 
+# dryrun-vs-card: the dry-run's trace of the train-dense and train phases'
+# configurations (gemma2_2b full width, N_LAYERS layers, BATCH x SEQ, one
+# process) on fake cuda tensors, held to the same steps run on the card: the
+# matmul flops and the kernels' calls exactly, the traced peak within
+# DRYRUN_PEAK_REL of the allocator's
+DRYRUN_PEAK_REL = 0.10
+# dryrun-production: the cells traced on the production meshes' fake worlds,
+# in a process of their own beside the other phases (CPU work: fake tensors
+# move no bytes on the card)
+DRYRUN_CELLS = [("gemma2_2b", "train_4k", False, "pjit"),
+                ("gemma2_2b", "prefill_32k", False, "pjit"),
+                ("gemma2_2b", "decode_32k", False, "pjit"),
+                ("gemma2_2b", "train_4k", True, "hierarchical"),
+                ("qwen1_5_110b", "train_4k", False, "pjit"),
+                ("qwen3_moe_235b_a22b", "train_4k", False, "pjit")]
+# serve-sharded: two gloo processes on the one card, a (1, 2) ("data",
+# "model") mesh; each case's sharded prefill and greedy decode against the
+# unsplit model on rank 0 (name -> arch, layers, batch, prompt, new tokens)
+SERVE_SHARDED_CASES = {
+    "gemma2": ("gemma2_2b", 26, 8, 512, 32),
+    "gemma2-batch1": ("gemma2_2b", 26, 1, 512, 16),
+    "hymba-layer": ("hymba_1_5b", 1, 8, 512, 32),
+    "xlstm-group": ("xlstm_1_3b", 8, 2, 512, 32),
+}
+SERVE_SHARDED_ATOL = 5e-2
+# the f32 pass's tokens (along the bf16 greedy ones)
+SERVE_SHARDED_F32_STEPS = 8
+
+
+def dryrun_card_phase(kernels) -> None:
+    """``dryrun-vs-card`` (module constants above)."""
+    from repro_torch.analysis.roofline import compute_roofline
+    from repro_torch.comms.reducers import ReducerConfig
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+
+    cfg = registry.with_depth(registry.get_config("gemma2_2b"), N_LAYERS)
+    shape = ShapeConfig("train-smoke", SEQ, BATCH, "train")
+    main_path = ReducerConfig(kind="fft", theta=KEEP_THETA, error_feedback=True,
+                              transport="sequenced", bucket_bytes=BUCKET_MB << 20,
+                              backend="auto", selector="auto")
+    for label, mode, reducer in (("train-dense", "pjit", None),
+                                 ("train", "compressed_dp", main_path)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fake = dryrun.trace_cell(cfg, shape, None, mode=mode, device="cuda", reducer=reducer)
+        t_trace = time.perf_counter() - t0
+        real = dryrun.trace_cell(cfg, shape, None, mode=mode, device="cuda", reducer=reducer,
+                                 fake=False,
+                                 generator=torch.Generator(device="cuda").manual_seed(0))
+        launched = real["launches"]
+        peak = fake["argument"] + fake["temp"]
+        terms = compute_roofline(cost={"flops": fake["flops"], "bytes accessed": fake["bytes"]},
+                                 collectives={}, chips=1, n_active_params=fake["n_params"],
+                                 tokens=fake["tokens"], kind="train")
+        log(f"[dryrun-vs-card] {label}: flops traced {fake['flops']} card {real['flops']}; "
+            f"kernel calls traced {fake['kernels']} launched {launched}; peak traced "
+            f"{peak / 2**30:.3f} GiB (arguments {fake['argument'] / 2**30:.3f}, temp "
+            f"{fake['temp'] / 2**30:.3f}) card {real['cuda_peak'] / 2**30:.3f} GiB "
+            f"(rel {peak / real['cuda_peak'] - 1:+.4f}); bytes accessed traced "
+            f"{fake['bytes']} card {real['bytes']}; roofline step_time_s "
+            f"{terms.step_time_s:.6f} ({terms.dominant}) vs measured step "
+            f"{real['step_ms']:.1f} ms; trace {t_trace:.1f}s")
+        if fake["flops"] != real["flops"] or fake["flops"] <= 0:
+            raise AssertionError(f"dryrun-vs-card {label}: flops {fake['flops']} traced, "
+                                 f"{real['flops']} on the card")
+        want = LAUNCHES_PER_STEP if mode != "pjit" else {}
+        if fake["kernels"] != launched or launched != want:
+            raise AssertionError(f"dryrun-vs-card {label}: kernel calls {fake['kernels']} "
+                                 f"traced, {launched} launched, {want} expected")
+        if abs(peak / real["cuda_peak"] - 1) > DRYRUN_PEAK_REL:
+            raise AssertionError(f"dryrun-vs-card {label}: traced peak {peak} against the "
+                                 f"card's {real['cuda_peak']} (limit {DRYRUN_PEAK_REL:.0%})")
+        del fake, real
+
+
+def dryrun_worker(rank: int, port: int, spec: dict) -> int:
+    """The ``dryrun-production`` cells, one after another, each on its
+    fake world; prints one ``DRY_CELL`` JSON line a cell."""
+    from repro_torch.launch import dryrun
+
+    del rank, port
+    for arch, shape, multi_pod, mode in spec["cells"]:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, multi_pod=multi_pod, mode=mode, device="cuda",
+                            out_dir=None, verbose=False)
+        r["wall_s"] = time.perf_counter() - t0
+        print("DRY_CELL " + json.dumps(r), flush=True)
+    return 0
+
+
+def start_dryrun_production() -> subprocess.Popen:
+    """``dryrun-production``'s process, started beside the other phases."""
+    spec = {"cells": DRYRUN_CELLS}
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", "dry", "0",
+                             "0", json.dumps(spec)], env=dict(os.environ, OMP_NUM_THREADS="1"),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_production_phase(proc: subprocess.Popen) -> list:
+    """Collect ``dryrun-production``: every cell ``ok``, its memory a rank
+    against the card's, its collectives and roofline printed."""
+    try:
+        out = proc.communicate(timeout=900)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun-production failed (rc {proc.returncode}):\n{out[-6000:]}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    rows = [json.loads(line[len("DRY_CELL "):]) for line in out.splitlines()
+            if line.startswith("DRY_CELL ")]
+    for r in rows:
+        mem, roof = r["memory"], r["roofline"]
+        peak = (mem["argument_size_gib"] + mem["temp_size_gib"]) * 2**30
+        coll = {k: (v["count"], v["link_bytes"]) for k, v in r["collectives"].items()}
+        log(f"[dryrun-production] {r['arch']} x {r['shape']} "
+            f"{'multi' if r['multi_pod'] else 'single'} {r['mode']}: {r['status']}, "
+            f"{r['chips']} ranks; memory a rank argument {mem['argument_size_gib']:.3f} GiB, "
+            f"temp {mem['temp_size_gib']:.3f}, output {mem['output_size_gib']:.3f}; fits the "
+            f"card's {total / 2**30:.2f} GiB: {'yes' if peak <= total else 'no'}; flops "
+            f"{r['cost']['flops']:.4e}, bytes {r['cost']['bytes accessed']:.4e}; collectives "
+            f"(count, link bytes) {coll}; kernel calls {r['kernel_calls']}; roofline compute "
+            f"{roof['compute_s'] * 1e3:.2f} ms, memory {roof['memory_s'] * 1e3:.2f} ms, "
+            f"collective {roof['collective_s'] * 1e3:.2f} ms, {roof['dominant']}, useful "
+            f"{roof['useful_ratio']:.3f}; trace {r['trace_s']}s, wall {r['wall_s']:.1f}s")
+    if len(rows) != len(DRYRUN_CELLS) or any(r["status"] != "ok" for r in rows):
+        raise AssertionError(f"dryrun-production: {len(rows)} of {len(DRYRUN_CELLS)} cells "
+                             f"reported, statuses {[r['status'] for r in rows]}")
+    return rows
+
+
+def serve_sharded_worker(rank: int, port: int, spec: dict) -> int:
+    """One rank of ``serve-sharded``: for each case both ranks build the
+    model from one seed (its weights rounded to bf16, the values the
+    sharded engine's blocks hold) and serve the prompts on the ``(1, 2)``
+    mesh through the engine's prefill and decode steps, greedy (the
+    engine's ``generate``, keeping each step's logits), then in f32 along
+    the first ``SERVE_SHARDED_F32_STEPS`` of those tokens; rank 0 then runs
+    the unsplit model on the same tokens both ways, and its own greedy
+    generation, and prints one ``SERVE_CASE`` JSON line a case."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import all_kernels
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import LM, registry
+    from repro_torch.serve import Engine, ServeConfig
+
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    kernels = all_kernels()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    mesh = make_local_mesh((1, 2), ("data", "model"), device="cpu")
+
+    def cache_bytes(c):
+        if isinstance(c, dict):
+            return sum(cache_bytes(v) for v in c.values())
+        if isinstance(c, tuple):
+            return sum(cache_bytes(v) for v in c)
+        return sum(t.numel() * t.element_size() for t in vars(c).values()
+                   if isinstance(t, torch.Tensor))
+
+    def run(prefill, decode, prompts, steps, forced=None):
+        """Prefill and ``steps - 1`` decode steps, greedy or along
+        ``forced``'s tokens: (tokens, logits (B, steps, V) f32, caches)."""
+        prompt = prompts.shape[1]
+        logits, caches = prefill(prompts)
+        out, toks = [logits.float()], []
+        for i in range(steps):
+            tok = (torch.argmax(logits[:, -1], dim=-1)[:, None] if forced is None
+                   else forced[:, prompt + i:prompt + i + 1])
+            toks.append(tok)
+            if i == steps - 1:
+                break
+            logits, caches = decode(caches, tok, prompt + i)
+            out.append(logits.float())
+        return torch.cat([prompts] + toks, dim=1), torch.cat(out, dim=1), caches
+
+    for name, (arch, layers, batch, prompt, new) in spec["cases"].items():
+        cfg = registry.get_config(arch)
+        cfg = registry.with_depth(cfg.reduced() if spec.get("reduced") else cfg, layers)
+        model = LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16).float())
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        max_seq = prompt + new
+        f32_steps = min(spec["f32_steps"], new)
+        for kern in kernels:
+            kern.launches = 0
+        engine = Engine(model, ServeConfig(max_seq=max_seq), mesh=mesh)
+
+        def split_prefill(t):
+            return engine._prefill({"tokens": t}, global_batch=batch)
+
+        def split_decode(c, t, pos):
+            return engine._decode(c, t, pos, global_batch=batch, max_seq=max_seq)
+
+        sync()
+        t0 = time.perf_counter()
+        toks, split, caches = run(split_prefill, split_decode, prompts, new)
+        sync()
+        gen_s = time.perf_counter() - t0
+        mine = cache_bytes(caches)
+        kv = [s[0] if isinstance(s, tuple) else s
+              for s in engine.placement.cache_specs(batch, max_seq, None).values()]
+        kv_spec = next(([str(a) for a in s.k] for s in kv if hasattr(s, "k")), None)
+        del caches
+        with compute_dtype(torch.float32):
+            _, split32, _ = run(split_prefill, split_decode, prompts, f32_steps, forced=toks)
+        del engine
+        launched = {k.name: k.launches for k in kernels if k.launches}
+        both = torch.tensor([mine], dtype=torch.float64)
+        dist.all_reduce(both)
+        if rank == 0:
+            def whole_prefill(t):
+                return model.prefill(t, max_seq=max_seq, last_only=True)
+
+            whole_toks, whole, caches = run(whole_prefill, model.decode_step, prompts, new)
+            whole_bytes = cache_bytes(caches)
+            del caches
+            _, whole, _ = run(whole_prefill, model.decode_step, prompts, new, forced=toks)
+            with compute_dtype(torch.float32):
+                _, whole32, _ = run(whole_prefill, model.decode_step, prompts, f32_steps,
+                                    forced=toks)
+            gap = float((split - whole).abs().max())
+            head = slice(0, f32_steps)
+            row = {"case": name, "arch": arch, "layers": layers, "batch": batch,
+                   "prompt": prompt, "new": new, "gap": gap,
+                   "gap_f32": float((split32 - whole32).abs().max()),
+                   "split_from_f32": float((split[:, head] - whole32).abs().max()),
+                   "whole_from_f32": float((whole[:, head] - whole32).abs().max()),
+                   "tokens_equal": bool(torch.equal(toks, whole_toks)),
+                   "cache_bytes_rank": mine, "cache_bytes_total": float(both),
+                   "cache_bytes_whole": whole_bytes, "generate_s": gen_s,
+                   "k_spec": kv_spec, "launched": launched}
+            if not row["tokens_equal"]:
+                # the first differing token; whole[:, j] predicted token prompt + j
+                b, t = (toks != whole_toks).nonzero()[0].tolist()
+                top2 = torch.topk(whole[b, t - prompt], 2)
+                row["diverge"] = {"row": b, "position": t,
+                                  "margin": float(top2.values[0] - top2.values[1])}
+            print("SERVE_CASE " + json.dumps(row), flush=True)
+        del model
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def serve_sharded_phase(device: str = "cuda:0", cases=None, reduced: bool = False) -> list:
+    """``serve-sharded``: two ``serve_sharded_worker`` processes on
+    ``device`` in a gloo group (every collective through the host).  Each
+    case's f32 logits within ``SERVE_SHARDED_ATOL`` of the unsplit model's;
+    in bf16 the gap is printed, and the split is held by accuracy: its
+    logits no further from the unsplit f32 ones than ``TP_ACCURACY_RATIO``
+    times the unsplit bf16 ones are (at 26 layers a logit of ~20 has a bf16
+    ulp of 0.125); its greedy tokens equal, or the first divergence at a
+    near tie (the unsplit model's top-2 margin there under the bf16 logits
+    gap); no kernel launches.  ``reduced`` takes the archs' CPU-test
+    widths."""
+    spec = {"device": device, "cases": cases or SERVE_SHARDED_CASES, "reduced": reduced,
+            "f32_steps": SERVE_SHARDED_F32_STEPS}
+    t0 = time.perf_counter()
+    rows = two_rank_phase("serve-sharded", "serve", spec, "SERVE_CASE ")
+    for row in rows:
+        log(f"[serve-sharded] {row['case']} ({row['arch']}, {row['layers']} layers, batch "
+            f"{row['batch']} x {row['prompt']} + {row['new']}): logits gap in f32 "
+            f"{row['gap_f32']:.3e} (limit {SERVE_SHARDED_ATOL}), in bf16 {row['gap']:.3e}; "
+            f"from the unsplit f32 logits: split {row['split_from_f32']:.3e}, unsplit "
+            f"{row['whole_from_f32']:.3e}; greedy tokens equal: {row['tokens_equal']}"
+            f"{'' if row['tokens_equal'] else ', first divergence ' + json.dumps(row['diverge'])}"
+            f"; KV cache placed {row['k_spec']}; cache bytes a rank {row['cache_bytes_rank']}, "
+            f"both {row['cache_bytes_total']:.0f}, unsplit {row['cache_bytes_whole']}; sharded "
+            f"generate {row['generate_s']:.2f}s (gloo via the host)")
+        if (row["gap_f32"] > SERVE_SHARDED_ATOL or row["launched"] or row["split_from_f32"]
+                > TP_ACCURACY_RATIO * max(row["whole_from_f32"], SERVE_SHARDED_ATOL)):
+            raise AssertionError(f"serve-sharded {row['case']}: {row}")
+        if not row["tokens_equal"] and not row["diverge"]["margin"] < row["gap"]:
+            raise AssertionError(f"serve-sharded {row['case']}: tokens diverge at "
+                                 f"{row['diverge']} above the logits gap {row['gap']}")
+    if len(rows) != len(spec["cases"]):
+        raise AssertionError(f"serve-sharded: {len(rows)} of {len(spec['cases'])} cases")
+    log(f"[serve-sharded] {len(rows)} cases in {time.perf_counter() - t0:.1f}s")
+    return rows
+
+
 # publish-sharded's steps, a publish each
 PUBLISH_SHARDED_STEPS = 3
 
@@ -3340,7 +3664,7 @@ def zoo_phases(dev, kernels, fused) -> None:
 
 
 # the phases --only names, run after the kernel phases
-ONLY = {"theory", "lab", "zoo", "tp", "publish", "sp"}
+ONLY = {"theory", "lab", "zoo", "tp", "publish", "sp", "dry", "serve"}
 
 
 def main() -> int:
@@ -3353,16 +3677,19 @@ def main() -> int:
                     help="trace the first training phase with torch.profiler")
     ap.add_argument("--only", default=None,
                     help="comma-separated phases to run after the kernel phases "
-                         "(theory, lab, zoo, tp, publish, sp); default every phase")
+                         "(theory, lab, zoo, tp, publish, sp, dry, serve); default every "
+                         "phase")
     ap.add_argument("--worker", nargs=4, default=None,
                     metavar=("PHASE", "RANK", "PORT", "SPEC"),
-                    help="run one rank of train-tp-kinds (tp) or train-sp (sp); each phase "
-                         "starts two")
+                    help="run one rank of train-tp-kinds (tp), train-sp (sp) or "
+                         "serve-sharded (serve), each of which starts two, or the "
+                         "dryrun-production process (dry)")
     args = ap.parse_args()
     if args.worker:
         sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
         phase, rank, port, spec = args.worker
-        worker = {"tp": tp_kinds_worker, "sp": sp_worker}[phase]
+        worker = {"tp": tp_kinds_worker, "sp": sp_worker, "serve": serve_sharded_worker,
+                  "dry": dryrun_worker}[phase]
         return worker(int(rank), int(port), json.loads(spec))
     only = set(args.only.split(",")) if args.only else None
     if only is not None and not only <= ONLY:
@@ -3410,6 +3737,9 @@ def main() -> int:
 
     launches = {k.name: None for k in kernels}
     launches.update({r["kernel"].name: r["launches"] for r in results if "launches" in r})
+    dry = None
+    if not args.skip_train and (only is None or "dry" in only):
+        dry = start_dryrun_production()
     if not args.skip_train and only is None:
         ops_counts = ops_phase(dev, kernels)
         for name in ("fft4096", "pack", "unpack", "range_quant_encode", "range_quant_decode"):
@@ -3464,6 +3794,13 @@ def main() -> int:
         if only is None or "sp" in only:
             torch.cuda.empty_cache()
             sp_phase()
+        if only is None or "dry" in only:
+            torch.cuda.empty_cache()
+            dryrun_card_phase(kernels)
+            dryrun_production_phase(dry)
+        if only is None or "serve" in only:
+            torch.cuda.empty_cache()
+            serve_sharded_phase()
 
     if PHASE_MS:
         order = [k for k in ("train", "train-dense") if k in PHASE_MS]
@@ -3480,6 +3817,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             **{key: r[key] for key in ("inverse_ms", "inverse_library_ms", "fft_library_ms",
                                        "fft_library_covers") if key in r}})
+    log(smi)  # again beside the numbers: the start of a long log may be cut
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

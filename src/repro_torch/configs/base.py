@@ -113,6 +113,15 @@ class ArchConfig:
 
         return sum(int(_numel(s)) for s in param_shapes(self).values())
 
+    def active_param_count(self) -> int:
+        """The parameters a token uses (the reference's): of each MoE
+        layer's experts only ``experts_per_token`` of ``n_experts``."""
+        if not self.n_experts:
+            return self.param_count()
+        glu_mult = 3 if self.mlp_activation in ("swiglu", "geglu") else 2
+        per_expert = self.n_layers * glu_mult * self.d_model * self.d_ff
+        return self.param_count() - (self.n_experts - self.experts_per_token) * per_expert
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's sizes)."""
         return dataclasses.replace(

@@ -39,6 +39,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 __all__ = [
     "LN2",
@@ -152,7 +153,11 @@ def tune_eps_heuristic(vmin, vmax, config: RangeQuantConfig, eps_init: float = 0
     there are too many negative codes, so eps halves; else it doubles.  A
     fit stops when the sign of that error flips or after ``max_iters``.
     ``vmin``/``vmax`` are scalars or tensors of one shape (each element its
-    own search).  Returns (eps, P)."""
+    own search).  Returns (eps, P).
+
+    A finished element keeps its eps, so running every fit to ``max_iters``
+    gives the same result: on fake tensors (``launch/dryrun.py``), where
+    ``done`` cannot be read on the host, the loop runs to that cap."""
     m_scale = config.mantissa_scale
     n_codes = config.n_codes
     vmax = torch.clamp_min(torch.as_tensor(vmax, dtype=torch.float32), 1e-30)
@@ -171,7 +176,7 @@ def tune_eps_heuristic(vmin, vmax, config: RangeQuantConfig, eps_init: float = 0
     prev_sign = torch.zeros(vmax.shape, dtype=torch.int32, device=vmax.device)
     done = torch.zeros(vmax.shape, dtype=torch.bool, device=vmax.device)
     for _ in range(max_iters):
-        if bool(done.all()):
+        if not is_fake(done) and bool(done.all()):
             break
         one = torch.ones_like(prev_sign)
         sign = torch.where(actual_min_of_eps(eps) < vmin, -one, one)

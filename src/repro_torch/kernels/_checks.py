@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["on_cpu", "require", "row_params", "encode_row_params", "code_dtype"]
+__all__ = ["on_cpu", "require", "row_params", "encode_row_params", "code_dtype", "as_tensors"]
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -28,6 +28,13 @@ def require(name: str, t: torch.Tensor, dtype, shape=None, device=None) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def as_tensors(eps, p_codes, device):
+    """(eps, P) as tensors on ``device`` for a kernel's custom op, which
+    takes no Python numbers in their place (values and dtypes unchanged:
+    :func:`row_params` casts them)."""
+    return (torch.as_tensor(eps, device=device), torch.as_tensor(p_codes, device=device))
 
 
 def row_params(eps, p_codes, rows: int, device):

@@ -10,6 +10,13 @@ so processes that build at once never load a half-written file.
 :func:`build` starts one ``nvcc`` per missing library, all at once, and
 waits for them; :func:`Kernel.lib` builds a single library on first use.
 Nothing is compiled or loaded when this module is imported.
+
+Each wrapper reaches its kernel through a ``torch.library`` custom op
+(:func:`kernel_op`): the op's implementation is the wrapper's body (the
+plain version on a CPU tensor, the kernel on a CUDA one) and its fake
+implementation gives the outputs' shapes alone, so a step traced on fake
+tensors (``launch/dryrun.py``) sees each kernel as one op and never hands
+``ctypes`` the null pointer of a fake tensor's ``data_ptr()``.
 """
 
 from __future__ import annotations
@@ -24,8 +31,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "Kernel", "KernelError", "build", "nvcc_path",
-           "ptr"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "Kernel", "KernelError", "build", "kernel_op",
+           "nvcc_path", "ptr"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -104,6 +111,17 @@ def build(sources: Iterable[str], log: Optional[Dict[str, str]] = None) -> Dict[
     if failures:
         raise KernelError("kernel build failed:\n" + "\n".join(failures))
     return seconds
+
+
+def kernel_op(name: str, schema: str, impl, fake):
+    """``impl`` registered as the custom op ``repro_torch::<name>`` of
+    ``schema`` (no argument mutated, every output a new tensor), with
+    ``fake`` its shape function under a ``FakeTensorMode``."""
+    import torch
+
+    op = torch.library.custom_op(f"repro_torch::{name}", impl, mutates_args=(), schema=schema)
+    op.register_fake(fake)
+    return op
 
 
 def ptr(t) -> ctypes.c_void_p:

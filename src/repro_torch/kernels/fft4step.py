@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _checks
-from repro_torch.kernels.build import Kernel, ptr
+from repro_torch.kernels.build import Kernel, kernel_op, ptr
 
 __all__ = ["KERNEL", "CHUNK", "N1", "RADIX", "fft4096", "fft4096_plain", "twiddles"]
 
@@ -110,10 +110,7 @@ def fft4096_plain(x_re, x_im, *, inverse: bool = False):
     return out_re, out_im
 
 
-def fft4096(x_re, x_im, *, inverse: bool = False):
-    """(rows, 4096) re/im f32 -> (rows, 4096) re/im f32 of the DFT (or the
-    inverse DFT / 4096).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+def _fft4096(x_re, x_im, inverse: bool):
     if _checks.on_cpu(x_re):
         return fft4096_plain(x_re, x_im, inverse=inverse)
     rows = x_re.shape[0]
@@ -126,3 +123,16 @@ def fft4096(x_re, x_im, *, inverse: bool = False):
         KERNEL.launch(dev, ptr(x_re), ptr(x_im), rows, int(bool(inverse)), ptr(twiddles(dev)),
                       ptr(y_re), ptr(y_im))
     return y_re, y_im
+
+
+_OP = kernel_op(KERNEL.name, "(Tensor x_re, Tensor x_im, bool inverse) -> (Tensor, Tensor)",
+                _fft4096, lambda x_re, x_im, inverse: (
+                    x_re.new_empty((x_re.shape[0], CHUNK), dtype=torch.float32),
+                    x_re.new_empty((x_re.shape[0], CHUNK), dtype=torch.float32)))
+
+
+def fft4096(x_re, x_im, *, inverse: bool = False):
+    """(rows, 4096) re/im f32 -> (rows, 4096) re/im f32 of the DFT (or the
+    inverse DFT / 4096).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    return _OP(x_re, x_im, bool(inverse))

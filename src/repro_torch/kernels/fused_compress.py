@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core import selection
 from repro_torch.kernels import _checks
-from repro_torch.kernels.build import Kernel, ptr
+from repro_torch.kernels.build import Kernel, kernel_op, ptr
 from repro_torch.kernels.range_quant import encode_math
 
 __all__ = ["KERNEL", "BISECT_KERNEL", "K_TILE", "pad_k", "fused_compress",
@@ -81,19 +81,14 @@ def fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau=None, *, k_keep:
     return codes[0], codes[1], idx, tau
 
 
-def fused_compress(re2d, im2d, weights, eps, p_codes, tau=None, *, k_keep: int,
-                   n_bits: int = 8, m_bits: int = 3):
-    """(rows, cols) spectrum planes and per-row ``tau`` -> (re_codes,
-    im_codes, idx i32, tau (rows, 1)).
-
-    With ``tau=None`` each row's tau is bisected for ``k_keep`` first, as
-    B1 bisects it, and returned.  Codes are uint8 for ``n_bits <= 8``, else
-    uint16; the payload width is ``pad_k(k_keep)``.  ``eps``/``p_codes``
-    are scalars (one fit) or ``(rows,)`` vectors (one fit per row).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+def _fused_compress(re2d, im2d, weights, eps, p_codes, tau, k_keep: int, n_bits: int,
+                    m_bits: int):
+    """The op's body: (re_codes, im_codes, idx), and with ``tau`` None the
+    bisected tau too."""
     if _checks.on_cpu(re2d):
-        return fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, k_keep=k_keep,
-                                    n_bits=n_bits, m_bits=m_bits)
+        out = fused_compress_plain(re2d, im2d, weights, eps, p_codes, tau, k_keep=k_keep,
+                                   n_bits=n_bits, m_bits=m_bits)
+        return out if tau is None else out[:3]
     rows, cols = re2d.shape
     dev = re2d.device
     _checks.require("re", re2d, torch.float32)
@@ -121,4 +116,41 @@ def fused_compress(re2d, im2d, weights, eps, p_codes, tau=None, *, k_keep: int,
         KERNEL.launch(dev, ptr(re2d), ptr(im2d), ptr(w), ptr(tau), ptr(eps_r), ptr(p_r),
                       ptr(n_neg_r), rows, cols, k, m_scale, rec.element_size(),
                       ptr(rec), ptr(imc), ptr(idx))
-    return rec, imc, idx, tau.reshape(rows, 1)
+    return rec, imc, idx
+
+
+def _payload(re2d, k_keep, n_bits):
+    rows = re2d.shape[0]
+    k = pad_k(k_keep)
+    code = re2d.new_empty((rows, k), dtype=_checks.code_dtype(n_bits))
+    return code, torch.empty_like(code), re2d.new_empty((rows, k), dtype=torch.int32)
+
+
+_OP = kernel_op(
+    KERNEL.name, "(Tensor re, Tensor im, Tensor weights, Tensor eps, Tensor p_codes, Tensor tau, "
+    "int k_keep, int n_bits, int m_bits) -> (Tensor, Tensor, Tensor)", _fused_compress,
+    lambda re2d, im2d, w, eps, p, tau, k_keep, n_bits, m_bits: _payload(re2d, k_keep, n_bits))
+_BISECT_OP = kernel_op(
+    BISECT_KERNEL.name, "(Tensor re, Tensor im, Tensor weights, Tensor eps, Tensor p_codes, "
+    "int k_keep, int n_bits, int m_bits) -> (Tensor, Tensor, Tensor, Tensor)",
+    lambda re2d, im2d, w, eps, p, k_keep, n_bits, m_bits: _fused_compress(
+        re2d, im2d, w, eps, p, None, k_keep, n_bits, m_bits),
+    lambda re2d, im2d, w, eps, p, k_keep, n_bits, m_bits: _payload(re2d, k_keep, n_bits) + (
+        re2d.new_empty((re2d.shape[0], 1), dtype=torch.float32),))
+
+
+def fused_compress(re2d, im2d, weights, eps, p_codes, tau=None, *, k_keep: int,
+                   n_bits: int = 8, m_bits: int = 3):
+    """(rows, cols) spectrum planes and per-row ``tau`` -> (re_codes,
+    im_codes, idx i32, tau (rows, 1)).
+
+    With ``tau=None`` each row's tau is bisected for ``k_keep`` first, as
+    B1 bisects it, and returned.  Codes are uint8 for ``n_bits <= 8``, else
+    uint16; the payload width is ``pad_k(k_keep)``.  ``eps``/``p_codes``
+    are scalars (one fit) or ``(rows,)`` vectors (one fit per row).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    eps, p_codes = _checks.as_tensors(eps, p_codes, re2d.device)
+    if tau is None:
+        return _BISECT_OP(re2d, im2d, weights, eps, p_codes, k_keep, n_bits, m_bits)
+    return _OP(re2d, im2d, weights, eps, p_codes, tau, k_keep, n_bits, m_bits) + (
+        tau.reshape(re2d.shape[0], 1).float(),)

@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _checks, fft4step
-from repro_torch.kernels.build import Kernel, ptr
+from repro_torch.kernels.build import Kernel, kernel_op, ptr
 from repro_torch.kernels.range_quant import decode_math
 
 __all__ = ["KERNEL", "CHUNK", "fused_decompress", "fused_decompress_plain"]
@@ -55,13 +55,7 @@ def fused_decompress_plain(re_codes, im_codes, idx, eps, p_codes, *, m_bits: int
     return torch.fft.irfft(torch.complex(spec_re, spec_im), n=CHUNK, dim=-1)
 
 
-def fused_decompress(re_codes, im_codes, idx, eps, p_codes, *, m_bits: int = 3):
-    """Quantized payload planes -> (rows, 4096) f32 time-domain chunks.
-
-    ``re_codes``/``im_codes`` are uint8 or uint16 ``(rows, k)``; ``idx`` is
-    int16 or int32 bin indices in [0, 2048]; ``eps``/``p_codes`` are scalars
-    or ``(rows,)`` vectors.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+def _fused_decompress(re_codes, im_codes, idx, eps, p_codes, m_bits: int):
     if _checks.on_cpu(re_codes):
         return fused_decompress_plain(re_codes, im_codes, idx, eps, p_codes, m_bits=m_bits)
     rows, k = re_codes.shape
@@ -77,3 +71,20 @@ def fused_decompress(re_codes, im_codes, idx, eps, p_codes, *, m_bits: int = 3):
                       float(1 << m_bits), re_codes.element_size(), idx.element_size(),
                       ptr(fft4step.twiddles(dev)), ptr(out))
     return out
+
+
+_OP = kernel_op(KERNEL.name, "(Tensor re_codes, Tensor im_codes, Tensor idx, Tensor eps, "
+                "Tensor p_codes, int m_bits) -> Tensor", _fused_decompress,
+                lambda re_codes, *args: re_codes.new_empty((re_codes.shape[0], CHUNK),
+                                                           dtype=torch.float32))
+
+
+def fused_decompress(re_codes, im_codes, idx, eps, p_codes, *, m_bits: int = 3):
+    """Quantized payload planes -> (rows, 4096) f32 time-domain chunks.
+
+    ``re_codes``/``im_codes`` are uint8 or uint16 ``(rows, k)``; ``idx`` is
+    int16 or int32 bin indices in [0, 2048]; ``eps``/``p_codes`` are scalars
+    or ``(rows,)`` vectors.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    eps, p_codes = _checks.as_tensors(eps, p_codes, re_codes.device)
+    return _OP(re_codes, im_codes, idx, eps, p_codes, m_bits)

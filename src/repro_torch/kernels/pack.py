@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _checks
-from repro_torch.kernels.build import Kernel, ptr
+from repro_torch.kernels.build import Kernel, kernel_op, ptr
 
 __all__ = ["PACK_KERNEL", "UNPACK_KERNEL", "K_TILE", "F_TILE", "pack", "pack_plain",
            "unpack", "unpack_plain"]
@@ -69,10 +69,7 @@ def pack_plain(x2d, tau, *, k: int):
     return vals, idx
 
 
-def pack(x2d, tau, *, k: int):
-    """f32 ``(rows, cols)`` and per-row ``tau`` ``(rows, 1)`` -> (vals f32,
-    idx i32), each ``(rows, k)``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+def _pack(x2d, tau, k: int):
     if _checks.on_cpu(x2d):
         return pack_plain(x2d, tau, k=k)
     _check_k(k)
@@ -88,6 +85,18 @@ def pack(x2d, tau, *, k: int):
     return vals, idx
 
 
+_PACK_OP = kernel_op(PACK_KERNEL.name, "(Tensor x, Tensor tau, int k) -> (Tensor, Tensor)", _pack,
+                     lambda x2d, tau, k: (x2d.new_empty((x2d.shape[0], k), dtype=torch.float32),
+                                          x2d.new_empty((x2d.shape[0], k), dtype=torch.int32)))
+
+
+def pack(x2d, tau, *, k: int):
+    """f32 ``(rows, cols)`` and per-row ``tau`` ``(rows, 1)`` -> (vals f32,
+    idx i32), each ``(rows, k)``.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    return _PACK_OP(x2d, tau, k)
+
+
 def unpack_plain(vals, idx, *, cols: int):
     """Plain PyTorch version of :func:`unpack`."""
     _check_cols(cols)
@@ -99,10 +108,7 @@ def unpack_plain(vals, idx, *, cols: int):
     return dense
 
 
-def unpack(vals, idx, *, cols: int):
-    """(vals f32, idx int) ``(rows, k)`` -> dense f32 ``(rows, cols)``; an
-    index outside ``[0, cols)`` adds nothing.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+def _unpack(vals, idx, cols: int):
     if _checks.on_cpu(vals):
         return unpack_plain(vals, idx, cols=cols)
     _check_cols(cols)
@@ -115,3 +121,15 @@ def unpack(vals, idx, *, cols: int):
     if dense.numel():
         UNPACK_KERNEL.launch(dev, ptr(vals), ptr(idx), rows, k, cols, ptr(dense))
     return dense
+
+
+_UNPACK_OP = kernel_op(UNPACK_KERNEL.name, "(Tensor vals, Tensor idx, int cols) -> Tensor",
+                       _unpack, lambda vals, idx, cols: vals.new_empty((vals.shape[0], cols),
+                                                                       dtype=torch.float32))
+
+
+def unpack(vals, idx, *, cols: int):
+    """(vals f32, idx int) ``(rows, k)`` -> dense f32 ``(rows, cols)``; an
+    index outside ``[0, cols)`` adds nothing.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    return _UNPACK_OP(vals, idx, cols)

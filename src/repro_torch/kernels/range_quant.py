@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core.quantizer import exp2, log2
 from repro_torch.kernels import _checks
-from repro_torch.kernels.build import Kernel, ptr
+from repro_torch.kernels.build import Kernel, kernel_op, ptr
 
 __all__ = ["ENCODE_KERNEL", "DECODE_KERNEL", "encode_math", "decode_math", "encode",
            "encode_plain", "decode", "decode_plain"]
@@ -94,9 +94,7 @@ def encode_plain(x2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torc
     return codes.to(_checks.code_dtype(n_bits))
 
 
-def encode(x2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
-    """f32 ``(rows, cols)`` -> uint8/uint16 codes.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+def _encode(x2d, eps, p_codes, n_bits: int, m_bits: int) -> torch.Tensor:
     if _checks.on_cpu(x2d):
         return encode_plain(x2d, eps, p_codes, n_bits=n_bits, m_bits=m_bits)
     rows, cols = x2d.shape
@@ -109,6 +107,19 @@ def encode(x2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tens
     return codes
 
 
+_ENCODE_OP = kernel_op(ENCODE_KERNEL.name, "(Tensor x, Tensor eps, Tensor p_codes, int n_bits, "
+                       "int m_bits) -> Tensor", _encode,
+                       lambda x2d, eps, p, n_bits, m_bits: x2d.new_empty(
+                           x2d.shape, dtype=_checks.code_dtype(n_bits)))
+
+
+def encode(x2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
+    """f32 ``(rows, cols)`` -> uint8/uint16 codes.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    eps, p_codes = _checks.as_tensors(eps, p_codes, x2d.device)
+    return _ENCODE_OP(x2d, eps, p_codes, n_bits, m_bits)
+
+
 def decode_plain(codes2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
     """Plain PyTorch version of :func:`decode`."""
     del n_bits  # the code type carries it
@@ -117,9 +128,7 @@ def decode_plain(codes2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> 
     return decode_math(codes2d.float(), eps_r, p_r, float(1 << m_bits))
 
 
-def decode(codes2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
-    """uint8/uint16 codes ``(rows, cols)`` -> f32.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+def _decode(codes2d, eps, p_codes, n_bits: int, m_bits: int) -> torch.Tensor:
     if _checks.on_cpu(codes2d):
         return decode_plain(codes2d, eps, p_codes, n_bits=n_bits, m_bits=m_bits)
     rows, cols = codes2d.shape
@@ -130,3 +139,16 @@ def decode(codes2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.
         DECODE_KERNEL.launch(codes2d.device, ptr(codes2d), ptr(eps_r), ptr(p_r), rows, cols,
                              float(1 << m_bits), codes2d.element_size(), ptr(out))
     return out
+
+
+_DECODE_OP = kernel_op(DECODE_KERNEL.name, "(Tensor codes, Tensor eps, Tensor p_codes, "
+                       "int n_bits, int m_bits) -> Tensor", _decode,
+                       lambda codes2d, *args: codes2d.new_empty(codes2d.shape,
+                                                                dtype=torch.float32))
+
+
+def decode(codes2d, eps, p_codes, *, n_bits: int = 8, m_bits: int = 3) -> torch.Tensor:
+    """uint8/uint16 codes ``(rows, cols)`` -> f32.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    eps, p_codes = _checks.as_tensors(eps, p_codes, codes2d.device)
+    return _DECODE_OP(codes2d, eps, p_codes, n_bits, m_bits)

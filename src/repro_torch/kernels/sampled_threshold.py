@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.core import selection
 from repro_torch.kernels import _checks
-from repro_torch.kernels.build import Kernel, ptr
+from repro_torch.kernels.topk_threshold import _rows_tau_count
+from repro_torch.kernels.build import Kernel, kernel_op, ptr
 
 __all__ = ["KERNEL", "sampled_threshold", "sampled_threshold_plain", "sampled_select"]
 
@@ -39,13 +40,7 @@ def sampled_threshold_plain(mag2d, lo, hi, *, k: int,
     return tau[:, None], count[:, None]
 
 
-def sampled_threshold(mag2d, lo, hi, *, k: int,
-                      refine_iters: int = selection.DEFAULT_REFINE_ITERS):
-    """(rows, cols) magnitudes + estimated per-row bracket -> (tau, count).
-
-    Rows whose estimate breaks the bisection invariant fall back to the full
-    ``[0, nextafter(max)]`` range.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+def _sampled_threshold(mag2d, lo, hi, k: int, refine_iters: int):
     if _checks.on_cpu(mag2d):
         return sampled_threshold_plain(mag2d, lo, hi, k=k, refine_iters=refine_iters)
     rows, cols = mag2d.shape
@@ -60,6 +55,21 @@ def sampled_threshold(mag2d, lo, hi, *, k: int,
         KERNEL.launch(mag2d.device, ptr(mag2d), ptr(lo), ptr(hi), rows, cols, k, refine_iters,
                       ptr(tau), ptr(count))
     return tau, count
+
+
+_OP = kernel_op(KERNEL.name,
+                "(Tensor mag, Tensor lo, Tensor hi, int k, int refine_iters) -> (Tensor, Tensor)",
+                _sampled_threshold, _rows_tau_count)
+
+
+def sampled_threshold(mag2d, lo, hi, *, k: int,
+                      refine_iters: int = selection.DEFAULT_REFINE_ITERS):
+    """(rows, cols) magnitudes + estimated per-row bracket -> (tau, count).
+
+    Rows whose estimate breaks the bisection invariant fall back to the full
+    ``[0, nextafter(max)]`` range.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    return _OP(mag2d, lo, hi, k, refine_iters)
 
 
 def sampled_select(mag2d, *, k: int, sample_rate: float = selection.DEFAULT_SAMPLE_RATE,

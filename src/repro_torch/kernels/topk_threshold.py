@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import selection
 from repro_torch.kernels import _checks
-from repro_torch.kernels.build import Kernel, ptr
+from repro_torch.kernels.build import Kernel, kernel_op, ptr
 
 __all__ = ["KERNEL", "threshold", "threshold_plain", "BISECT_ITERS"]
 
@@ -38,10 +38,7 @@ def threshold_plain(mag2d: torch.Tensor, k: int):
     return tau[:, None], count[:, None]
 
 
-def threshold(mag2d: torch.Tensor, *, k: int):
-    """(rows, cols) magnitudes -> (tau (rows,1) f32, count (rows,1) i32).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+def _threshold(mag2d: torch.Tensor, k: int):
     if _checks.on_cpu(mag2d):
         return threshold_plain(mag2d, k)
     rows, cols = mag2d.shape
@@ -51,3 +48,20 @@ def threshold(mag2d: torch.Tensor, *, k: int):
     if rows:
         KERNEL.launch(mag2d.device, ptr(mag2d), rows, cols, k, BISECT_ITERS, ptr(tau), ptr(count))
     return tau, count
+
+
+def _rows_tau_count(mag2d, *args):
+    rows = mag2d.shape[0]
+    return (mag2d.new_empty((rows, 1), dtype=torch.float32),
+            mag2d.new_empty((rows, 1), dtype=torch.int32))
+
+
+_OP = kernel_op(KERNEL.name, "(Tensor mag, int k) -> (Tensor, Tensor)", _threshold,
+                _rows_tau_count)
+
+
+def threshold(mag2d: torch.Tensor, *, k: int):
+    """(rows, cols) magnitudes -> (tau (rows,1) f32, count (rows,1) i32).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    return _OP(mag2d, k)

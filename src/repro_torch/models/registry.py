@@ -4,8 +4,9 @@ ArchConfig -> LM, the long-context cells, and small concrete batches.
 ``make_batch`` draws its tokens, and the ``frontend`` embeddings of the
 archs that take them (audio frames as long as the sequence, or a vision
 arch's patches), from a ``torch.Generator``: the same contract as the
-reference's, not its ``jax.random`` bits.  ``input_specs`` (the dry-run's
-abstract inputs) is not ported; see ROADMAP.md.
+reference's, not its ``jax.random`` bits.  ``input_specs`` gives a cell's
+step inputs as tensors that hold no storage (``meta`` tensors, or fakes
+under the caller's ``FakeTensorMode``): what ``launch/dryrun.py`` traces.
 """
 
 from __future__ import annotations
@@ -16,10 +17,10 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs import ARCH_NAMES, ArchConfig, ShapeConfig, get_config
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, init_caches
 
 __all__ = ["ARCH_NAMES", "LONG_CONTEXT_OK", "get_config", "build", "cell_is_supported",
-           "make_batch", "check_arch", "frontend_len", "with_depth"]
+           "make_batch", "check_arch", "frontend_len", "with_depth", "input_specs"]
 
 # archs with sub-quadratic or bounded-window sequence mixing run long_500k
 LONG_CONTEXT_OK = {"xlstm_1_3b", "hymba_1_5b", "gemma2_2b", "mixtral_8x22b"}
@@ -48,6 +49,32 @@ def frontend_len(cfg: ArchConfig, seq_len: int) -> int:
     if cfg.frontend == "vision_patches":
         return cfg.n_frontend_tokens or 1601
     return 0
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, *, device="meta") -> Dict:
+    """The (train | prefill | decode) step's inputs for a cell, as the
+    reference's ``input_specs`` names and types them, holding no storage:
+    ``tokens`` and ``targets`` (B, S) int32 and, for an arch with a
+    frontend, ``frontend`` (B, frontend_len, d_model) f32; decode has
+    ``caches`` (the port's ``init_caches`` at the cell's sequence length),
+    ``token`` (B, 1) int32 and ``pos`` () int32.  ``device="meta"``
+    allocates nothing; under a ``FakeTensorMode`` any device gives fakes."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def empty(*dims, dtype=i32):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if shape.kind == "decode":
+        return {"caches": init_caches(cfg, b, s, device=device), "token": empty(b, 1),
+                "pos": empty()}
+    specs = {"tokens": empty(b, s)}
+    if shape.kind == "train":
+        specs["targets"] = empty(b, s)
+    fl = frontend_len(cfg, s)
+    if fl:
+        specs["frontend"] = empty(b, fl, cfg.d_model, dtype=torch.float32)
+    return specs
 
 
 def with_depth(cfg: ArchConfig, n_layers: int) -> ArchConfig:

@@ -155,15 +155,24 @@ def ssm_apply(p, x: torch.Tensor, cfg, state: Optional[SSMState] = None,
     return out, SSMState(conv=tail, h=h_final)
 
 
-def ssm_decode_step(p, x: torch.Tensor, cfg, state: SSMState) -> Tuple[torch.Tensor, SSMState]:
-    """One token: x (B, 1, D) -> (y (B, 1, D), state')."""
+def ssm_decode_step(p, x: torch.Tensor, cfg, state: SSMState,
+                    tp=None) -> Tuple[torch.Tensor, SSMState]:
+    """One token: x (B, 1, D) -> (y (B, 1, D), state'); under ``tp`` the
+    state is this rank's channels', as in :func:`ssm_apply`."""
     dt = x.dtype
-    xs, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)  # (B, 1, di)
+    split = tp is not None and tp.inner
+    if split:
+        xs, z = torch.chunk(tp.halves(tp.copy(x) @ p["in_proj"].to(dt)), 2, dim=-1)
+    else:
+        xs, z = torch.chunk(x @ p["in_proj"].to(dt), 2, dim=-1)  # (B, 1, di)
     conv_in = torch.cat([state.conv.to(dt), xs], dim=1)  # (B, width, di)
     w = p["conv_w"].to(dt)
     xc = F.silu(torch.sum(conv_in * w[None], dim=1, keepdim=True) + p["conv_b"].to(dt))
     st = cfg.ssm_state
-    dt_in, b_t, c_t = torch.split(xc @ p["x_proj"].to(dt), [_DT_RANK, st, st], dim=-1)
+    proj = xc @ p["x_proj"].to(dt)
+    if split:
+        proj = tp.copy(tp.reduce(proj))
+    dt_in, b_t, c_t = torch.split(proj, [_DT_RANK, st, st], dim=-1)
     delta = softplus(dt_in.float() @ p["dt_proj"].float() + p["dt_bias"].float())[:, 0]
     a = -torch.exp(p["a_log"].float())
     da = torch.exp(delta[..., None] * a)  # (B, di, st)
@@ -172,4 +181,6 @@ def ssm_decode_step(p, x: torch.Tensor, cfg, state: SSMState) -> Tuple[torch.Ten
     y = torch.sum(h * c_t.float()[:, 0, None, :], dim=-1)
     y = y + xc.float()[:, 0] * p["d_skip"].float()
     out = (y[:, None].to(dt) * F.silu(z)) @ p["out_proj"].to(dt)
+    if split:
+        out = tp.reduce(out)
     return out, SSMState(conv=conv_in[:, 1:].to(torch.bfloat16), h=h)

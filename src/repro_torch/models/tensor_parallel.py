@@ -95,7 +95,7 @@ _FLAG = {"heads": "heads", "kv_heads": "kv_heads", "ff": "ff", "experts": "exper
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """SUM over the group, accumulated in f32, in ``x``'s dtype."""
     y = x.float().contiguous()
-    if y.data_ptr() == x.data_ptr():
+    if y is x:
         y = y.clone()
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
     return y.to(x.dtype)

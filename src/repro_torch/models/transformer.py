@@ -77,6 +77,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as A
+from repro_torch.models import cache_sharding as CS
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models import xlstm as X
@@ -84,7 +85,7 @@ from repro_torch.models.layers import (COMPUTE_DTYPE, embed, mlp, padded_vocab, 
                                        softcap, unembed)
 from repro_torch.models.sharding import ParamSpec
 
-__all__ = ["LM", "param_shapes", "param_specs", "CROSS_KINDS"]
+__all__ = ["LM", "param_shapes", "param_specs", "init_caches", "CROSS_KINDS"]
 
 Caches = Dict[str, object]
 
@@ -241,6 +242,13 @@ def _group_cache(cache, g: int):
     return _map_cache(lambda t: t[g], cache)
 
 
+def _map_fields(fn, state):
+    """A recurrent state with ``fn(field name, tensor)`` applied to each
+    leaf."""
+    return type(state)(**{f.name: fn(f.name, getattr(state, f.name))
+                          for f in dataclasses.fields(state)})
+
+
 def _write_state(view, new) -> None:
     """Copy a recurrent state's new leaves into its cache view."""
     for f in dataclasses.fields(view):
@@ -304,6 +312,19 @@ def _checkpointed(fn, *args, policy: str = "full"):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+def init_caches(cfg, batch: int, max_seq: int, *, dtype=None,
+                memory_len: Optional[int] = None, device=None) -> Caches:
+    """:meth:`LM.init_caches` of a config (``dtype`` None: the compute
+    dtype), on ``device`` (``"meta"``, or under a ``FakeTensorMode`` any
+    device, allocates nothing)."""
+    dtype = COMPUTE_DTYPE if dtype is None else dtype
+    n = cfg.n_groups()
+    return {f"l{i}_{kind}": _map_cache(lambda t: t[None].expand((n,) + t.shape).clone(),
+                                       _init_layer_cache(kind, cfg, batch, max_seq, dtype,
+                                                         device, memory_len))
+            for i, kind in enumerate(cfg.layer_pattern())}
+
+
 class LM(nn.Module):
     """An LM over a repeating group of layer kinds: decoder-only, or with a
     frontend's memory (a vision arch's patches) or an encoder's (enc-dec)
@@ -328,8 +349,12 @@ class LM(nn.Module):
         for name, child in root.items():
             self.add_module(name, child)
         # tensor parallelism over the model axis (a models/tensor_parallel.py
-        # Plan): set by the sharded train step around its loss, None otherwise
+        # Plan): set by the sharded train step around its loss and by the
+        # sharded serving engine around its steps, None otherwise
         self._tp = None
+        # the caches' placement on the mesh (a cache_sharding.ServeLayout):
+        # set by the sharded serving engine around its steps, None otherwise
+        self._serve = None
 
     def spec(self) -> Dict[str, ParamSpec]:
         """Leaf path -> ParamSpec (shape, logical axes, init)."""
@@ -362,28 +387,69 @@ class LM(nn.Module):
         ``"none"`` and autograd records (never in prefill or decode)."""
         return self.cfg.remat != "none" and torch.is_grad_enabled()
 
+    def _heads_local(self, tp, lay) -> bool:
+        """Whether a sharded cache's kv heads are split over ``model`` as
+        the block's plan splits them (each rank then attends its own)."""
+        return tp is not None and tp.heads and tp.kv_heads and lay.k[2] == "model"
+
+    def _full_heads(self, tp, lay, **qkv):
+        """The given projections of every head where the plan splits the
+        heads and the cache's are not split with them (one gather), else as
+        they are."""
+        if tp is None or not tp.heads or self._heads_local(tp, lay):
+            return list(qkv.values())
+        return CS.full_heads(tp, self.cfg.n_kv_heads, self._serve.axes, **qkv)
+
+    def _attend_kv(self, q, cache, lay, q_positions, tp, **kw) -> torch.Tensor:
+        """Decode attention over the rank's block of a sharded cache:
+        ``q`` the queries of every head (or, where the cache's kv heads are
+        the plan's, this rank's) -> the output of the block's heads."""
+        local = self._heads_local(tp, lay)
+        split = tp is not None and tp.heads and not local
+        out = CS.attend_kv(q, cache, lay, q_positions, self._serve.axes, heads_local=local, **kw)
+        if split:
+            b, s, kh, g, dh = out.shape
+            if tp.kv_heads:
+                out = out[:, :, tp.part(kh)]
+            else:
+                out = out.reshape(b, s, kh * g, 1, dh)[:, :, tp.part(kh * g)]
+        return out
+
     def _attention(self, pa, h, kind: str, positions: torch.Tensor,
                    cache: Optional[A.KVCache], decode_pos: Optional[int],
-                   tp=None) -> torch.Tensor:
+                   tp=None, lay=None) -> torch.Tensor:
         """Self attention.  Full sequence: over its own keys and, given a
         cache, writes them at position 0 (the reference's
         ``_self_attention_full``); with ``decode_pos``: one token at that
         position, written into the cache, attending over the whole cache
-        (``_self_attention_decode``)."""
+        (``_self_attention_decode``).  ``lay``: the cache is the rank's
+        block of a sharded one, laid out so (``cache_sharding``)."""
         cfg = self.cfg
         q, k, v = A.project_qkv(pa, h, h, positions, positions, cfg.rope_theta, tp=tp)
+        window = _attn_window(cfg, kind)
+        if lay is not None:
+            local = self._heads_local(tp, lay)
+            if decode_pos is None:
+                kf, vf = self._full_heads(tp, lay, k=k, v=v)
+                CS.write_kv(cache, lay, kf, vf, 0, self._serve.axes, heads_local=local)
+                cache = None  # the prefill attends over its own keys
+            else:
+                qf, kf, vf = self._full_heads(tp, lay, q=q, k=k, v=v)
+                CS.write_kv(cache, lay, kf, vf, decode_pos, self._serve.axes, heads_local=local)
+                return A.attend(pa, self._attend_kv(qf, cache, lay, positions, tp, window=window,
+                                                    attn_softcap=cfg.attn_softcap), tp=tp)
         kv_positions = positions
         if cache is not None:
             A.update_kv_cache(cache, k, v, 0 if decode_pos is None else decode_pos)
             if decode_pos is not None:
                 k, v, kv_positions = cache.k, cache.v, cache.pos
-        out = A.attention(q, k, v, positions, kv_positions, window=_attn_window(cfg, kind),
+        out = A.attention(q, k, v, positions, kv_positions, window=window,
                           attn_softcap=cfg.attn_softcap)
         return A.attend(pa, out, tp=tp)
 
     def _cross_attention(self, pa, h, memory: Optional[torch.Tensor],
                          cache: Optional[A.KVCache], decode_pos: Optional[int],
-                         tp=None) -> torch.Tensor:
+                         tp=None, lay=None) -> torch.Tensor:
         """Cross attention over the memory (B,Sm,D): no mask but the empty
         slots', no rope, no softcap (the reference's ``_cross_attention``).
         A prefill writes the memory's K/V into ``cache``; a decode step
@@ -391,6 +457,15 @@ class LM(nn.Module):
         if decode_pos is not None:
             q = torch.einsum("bsd,dhk->bshk", h, pa["wq"].to(h.dtype))
             b, s, nh, dh = q.shape
+            if lay is not None:
+                kh = self.cfg.n_kv_heads
+                if tp is not None and tp.heads:
+                    kh = kh // tp.size if tp.kv_heads else nh
+                q, = self._full_heads(tp, lay, q=q.reshape(b, s, kh, nh // kh, dh))
+                out = self._attend_kv(q, cache, lay, torch.zeros(s, dtype=torch.long,
+                                                                 device=q.device), tp,
+                                      causal=False)
+                return A.attend(pa, out, tp=tp)
             q = q.reshape(b, s, cache.k.shape[2], nh // cache.k.shape[2], dh)
             k, v, kv_positions = cache.k, cache.v, cache.pos
         else:
@@ -399,7 +474,11 @@ class LM(nn.Module):
                                  "(the batch's frontend)")
             q, k, v = A.project_qkv(pa, h, memory, tp=tp)
             kv_positions = torch.arange(k.shape[1], device=k.device)
-            if cache is not None:
+            if cache is not None and lay is not None:
+                kf, vf = self._full_heads(tp, lay, k=k, v=v)
+                CS.write_kv(cache, lay, kf, vf, 0, self._serve.axes,
+                            heads_local=self._heads_local(tp, lay))
+            elif cache is not None:
                 cache.k.copy_(k)
                 cache.v.copy_(v)
         out = A.attention(q, k, v, torch.zeros(q.shape[1], dtype=torch.long, device=q.device),
@@ -421,55 +500,91 @@ class LM(nn.Module):
         def tp(name):
             return self._split(f"{prefix}.{name}")
 
+        lay = None if self._serve is None or cache is None else self._serve.specs[f"l{i}_{kind}"]
         h = rmsnorm(p["norm1"]["scale"][g], x, cfg.norm_eps)
         if kind in ("mlstm", "slstm"):
             apply = X.mlstm_apply if kind == "mlstm" else X.slstm_apply
-            out, state = apply(group("cell"), h, cfg, cache, tp=tp("cell"))
+            t = tp("cell")
+            split = {"conv": 2} if kind == "mlstm" and t is not None and t.inner else {}
+            out, state = apply(group("cell"), h, cfg, self._state_in(cache, lay, split), tp=t)
             if cache is not None:
-                _write_state(cache, state)
+                _write_state(cache, self._state_out(state, lay, split))
             return x + out, None
         if kind == "hybrid":
             kv, ssm_state = (None, None) if cache is None else cache
+            kv_lay, ssm_lay = (None, None) if lay is None else lay
             attn_out = self._attention(group("attn"), h, kind, positions, kv, decode_pos,
-                                       tp("attn"))
+                                       tp("attn"), kv_lay)
+            t = tp("ssm")
+            split = {"conv": 2, "h": 1} if t is not None and t.inner else {}
+            st = self._state_in(ssm_state, ssm_lay, split)
             if decode_pos is None:
-                ssm_out, state = S.ssm_apply(group("ssm"), h, cfg, ssm_state, tp=tp("ssm"))
+                ssm_out, state = S.ssm_apply(group("ssm"), h, cfg, st, tp=t)
             else:
-                ssm_out, state = S.ssm_decode_step(group("ssm"), h, cfg, ssm_state)
+                ssm_out, state = S.ssm_decode_step(group("ssm"), h, cfg, st, tp=t)
             if cache is not None:
-                _write_state(ssm_state, state)
+                _write_state(ssm_state, self._state_out(state, ssm_lay, split))
             x = x + 0.5 * (rmsnorm(p["norm_attn_out"]["scale"][g], attn_out, cfg.norm_eps)
                            + rmsnorm(p["norm_ssm_out"]["scale"][g], ssm_out, cfg.norm_eps))
             return x, None
         if kind == "dec_cross_mlp":
             self_cache, cross_cache = (None, None) if cache is None else cache
+            self_lay, cross_lay = (None, None) if lay is None else lay
             x = x + self._attention(group("attn"), h, kind, positions, self_cache, decode_pos,
-                                    tp("attn"))
+                                    tp("attn"), self_lay)
             hc = rmsnorm(p["norm_cross"]["scale"][g], x, cfg.norm_eps)
             x = x + self._cross_attention(group("cross"), hc, memory, cross_cache, decode_pos,
-                                          tp("cross"))
+                                          tp("cross"), cross_lay)
         elif kind.startswith("cross_attn"):
             gate = torch.tanh(p["cross_gate"][g].float())[0]
             x = x + gate.to(x.dtype) * self._cross_attention(group("cross"), h, memory, cache,
-                                                              decode_pos, tp("cross"))
+                                                              decode_pos, tp("cross"), lay)
         else:
             x = x + self._attention(group("attn"), h, kind, positions, cache, decode_pos,
-                                    tp("attn"))
+                                    tp("attn"), lay)
         h2 = rmsnorm(p["norm2"]["scale"][g], x, cfg.norm_eps)
         if "moe" in p:
-            out, aux = M.moe_apply(group("moe"), h2, cfg, tp=tp("moe"))
+            # a serving rank that holds its own rows routes every row's tokens,
+            # so the groups and their capacity are the unsplit batch's
+            rows = self._serve is not None and self._serve.rows
+            h_in = CS.gather(h2, 0, "data", self._serve.axes) if rows else h2
+            out, aux = M.moe_apply(group("moe"), h_in, cfg, tp=tp("moe"))
+            if rows:
+                out = CS.take(out, 0, "data", self._serve.axes)
             return x + out, aux
         return x + mlp(group("mlp"), h2, cfg.mlp_activation, tp=tp("mlp")), None
+
+    def _state_in(self, state, lay, split):
+        """A recurrent state as its block's step computes it: the rank's
+        block of a sharded one (``lay``) moved to the step's layout (whole,
+        but over ``model`` on the dims ``split`` names), else as it is."""
+        if lay is None:
+            return state
+        serve = self._serve
+        return _map_fields(lambda f, t: CS.relayout(t, getattr(lay, f), CS.step_spec(
+            getattr(lay, f), split.get(f), serve.rows), serve.axes), state)
+
+    def _state_out(self, state, lay, split):
+        """The step's new state back to the rank's block of the cache."""
+        if lay is None:
+            return state
+        serve = self._serve
+        return _map_fields(lambda f, t: CS.relayout(t, CS.step_spec(
+            getattr(lay, f), split.get(f), serve.rows), getattr(lay, f), serve.axes), state)
 
     def _head(self) -> Optional[torch.Tensor]:
         """The untied output head, or None when the table is tied."""
         return self.embed["head"] if "head" in self.embed else None
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final hidden (B,S,D) -> softcapped f32 logits (B,S,V)."""
-        logits = unembed(self.embed["table"], x, self.cfg.vocab_size,
-                         head=self._head())[..., : self.cfg.vocab_size]
-        return softcap(logits, self.cfg.final_softcap)
+        """Final hidden (B,S,D) -> softcapped f32 logits (B,S,V); under a
+        plan that splits the vocab, each rank's columns gathered."""
+        tp = self._split("embed")
+        if tp is not None and tp.vocab:
+            logits = tp.gather(unembed(self.embed["table"], x, head=self._head()), -1)
+        else:
+            logits = unembed(self.embed["table"], x, self.cfg.vocab_size, head=self._head())
+        return softcap(logits[..., : self.cfg.vocab_size], self.cfg.final_softcap)
 
     def _group(self, g: int, x: torch.Tensor, aux: torch.Tensor, positions: torch.Tensor,
                memory: Optional[torch.Tensor], sp=None, caches: Optional[Caches] = None,
@@ -578,25 +693,23 @@ class LM(nn.Module):
         local layer's KV cache is a ring of ``sliding_window`` slots when
         the window is the shorter; a cross block's holds ``memory_len``
         slots, by default the reference's ``n_frontend_tokens or max_seq``)."""
-        device = self.embed["table"].device
-        n = self.n_groups
-        return {f"l{i}_{kind}": _map_cache(lambda t: t[None].expand((n,) + t.shape).clone(),
-                                           _init_layer_cache(kind, self.cfg, batch, max_seq,
-                                                             dtype, device, memory_len))
-                for i, kind in enumerate(self.pattern)}
+        return init_caches(self.cfg, batch, max_seq, dtype=dtype, memory_len=memory_len,
+                           device=self.embed["table"].device)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, memory: Optional[torch.Tensor] = None,
-                max_seq: Optional[int] = None,
-                last_only: bool = False) -> Tuple[torch.Tensor, Caches]:
+                max_seq: Optional[int] = None, last_only: bool = False,
+                caches: Optional[Caches] = None) -> Tuple[torch.Tensor, Caches]:
         """tokens (B,S) -> (logits, caches filled through S).  ``last_only``
         unembeds the final position alone, (B,1,V).  The cross caches hold
         the memory's K/V at its own length, as the reference's prefill
-        returns them."""
+        returns them.  ``caches``: empty caches to fill (the sharded
+        engine's blocks), else :meth:`init_caches`'."""
         b, s = tokens.shape
-        caches = self.init_caches(b, max_seq or s,
-                                  memory_len=None if memory is None else memory.shape[1])
-        x, _ = self._stack(embed(self.embed["table"], tokens),
+        if caches is None:
+            caches = self.init_caches(b, max_seq or s,
+                                      memory_len=None if memory is None else memory.shape[1])
+        x, _ = self._stack(embed(self.embed["table"], tokens, tp=self._split("embed")),
                            torch.arange(s, device=tokens.device), caches, memory=memory)
         return self._logits(x[:, -1:] if last_only else x), caches
 
@@ -607,7 +720,8 @@ class LM(nn.Module):
         caches written in place (a cross block's memory K/V are read)."""
         pos = int(pos)
         positions = torch.full((1,), pos, dtype=torch.long, device=token.device)
-        x, _ = self._stack(embed(self.embed["table"], token), positions, caches, pos)
+        x, _ = self._stack(embed(self.embed["table"], token, tp=self._split("embed")), positions,
+                           caches, pos)
         return self._logits(x), caches
 
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -203,9 +203,9 @@ def mlstm_apply(p, x: torch.Tensor, cfg, state: Optional[MLSTMState] = None,
     return out, MLSTMState(c, n, m, conv_tail.to(torch.bfloat16))
 
 
-def mlstm_decode_step(p, x: torch.Tensor, cfg, state: MLSTMState):
+def mlstm_decode_step(p, x: torch.Tensor, cfg, state: MLSTMState, tp=None):
     """x (B,1,D): one step, the chunkwise form at L = 1."""
-    return mlstm_apply(p, x, cfg, state)
+    return mlstm_apply(p, x, cfg, state, tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -276,5 +276,5 @@ def slstm_apply(p, x: torch.Tensor, cfg, state: Optional[SLSTMState] = None,
     return y + ff, SLSTMState(c, n, h, m)
 
 
-def slstm_decode_step(p, x: torch.Tensor, cfg, state: SLSTMState):
-    return slstm_apply(p, x, cfg, state)
+def slstm_decode_step(p, x: torch.Tensor, cfg, state: SLSTMState, tp=None):
+    return slstm_apply(p, x, cfg, state, tp=tp)

@@ -259,9 +259,10 @@ def _exchange_shape(reducer_cfg: ReducerConfig, group, world: int):
 def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=None,
                      batch_tokens: Optional[int] = None) -> Callable:
     """Returns ``step(state, batch, lr_scale=1.0) -> metrics`` (host floats),
-    which updates ``state`` in place.  ``batch_tokens`` (the global batch's
-    tokens a step) prices ``schedule='auto'``; ``group`` is a group or a
-    ``launch.mesh.Mesh``."""
+    which updates ``state`` in place; ``step.body`` is its device work, the
+    metrics left as tensors (:func:`_with_epilogue`).  ``batch_tokens`` (the
+    global batch's tokens a step) prices ``schedule='auto'``; ``group`` is a
+    group or a ``launch.mesh.Mesh``."""
     if step_cfg.mode == "pjit":
         if sharded_state(step_cfg, group):
             return _sharded_pjit_step(model, opt_cfg, step_cfg, group)
@@ -308,7 +309,7 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=N
     resilient = reducer_cfg.resilient
     nan_events = reducer_cfg.faults.nan_events if reducer_cfg.faults is not None else ()
 
-    def step(state, batch, lr_scale: float = 1.0) -> Dict[str, float]:
+    def body(state, batch, lr_scale: float = 1.0, commit: Optional[bool] = None):
         params = model.leaves()
         step_no = state["step"]
         metrics, grads = _loss_and_grads(model, params, batch)
@@ -337,20 +338,32 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=N
             metrics = _worker_mean_metrics(metrics, batch_group, n_batch)
             clipped, gnorm = clip_by_global_norm(reduced, step_cfg.clip_norm)
             del reduced
-            keep = bool(ok)
+            keep = bool(ok) if commit is None else commit
             # nothing above touched the state: a raise leaves it as it was
             if keep:
                 apply_updates(opt_cfg, params, clipped, state["opt"], lr_scale)
                 if ef:
                     state["residual"] = new_residual
             state["step"] += 1
-        out = {k: float(v) for k, v in metrics.items()}
-        out.update(grad_norm=float(gnorm), skipped=0.0 if keep else 1.0)
-        return out
+        return dict(metrics, grad_norm=gnorm, skipped=0.0 if keep else 1.0)
 
+    step = _with_epilogue(body)
     step.reducer_config = reducer_cfg
     step.schedule_decision = decision
     step.transport_decision = transport_decision
+    return step
+
+
+def _with_epilogue(body) -> Callable:
+    """The step: ``body`` (the device work, metrics left as tensors) then
+    its host epilogue, which reads them as floats.  ``step.body`` is the
+    device work alone; a compressed step's ``body(..., commit=True)``
+    commits without reading its guard's verdict on the host, the branch a
+    trace on fake tensors follows (``launch/dryrun.py``)."""
+    def step(state, batch, lr_scale: float = 1.0) -> Dict[str, float]:
+        return {k: float(v) for k, v in body(state, batch, lr_scale).items()}
+
+    step.body = body
     return step
 
 
@@ -368,7 +381,7 @@ def _pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, group) -> Callab
     optimizer."""
     _, _, group, world = _groups(step_cfg, group)
 
-    def step(state, batch, lr_scale: float = 1.0) -> Dict[str, float]:
+    def body(state, batch, lr_scale: float = 1.0):
         params = model.leaves()
         metrics, grads = _loss_and_grads(model, params, batch)
         with torch.no_grad():
@@ -378,11 +391,9 @@ def _pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, group) -> Callab
             del grads
             apply_updates(opt_cfg, params, clipped, state["opt"], lr_scale)
             state["step"] += 1
-        out = {k: float(v) for k, v in metrics.items()}
-        out.update(grad_norm=float(gnorm))
-        return out
+        return dict(metrics, grad_norm=gnorm)
 
-    return step
+    return _with_epilogue(body)
 
 
 @contextlib.contextmanager
@@ -436,7 +447,7 @@ def _sharded_pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, mesh: Me
     tp = plan(pspecs, model.spec(), mesh.group("model") if "model" in axes else None,
               mesh.shape.get("model", 1), mesh.index("model") if "model" in axes else 0)
 
-    def step(state, batch, lr_scale: float = 1.0) -> Dict[str, float]:
+    def body(state, batch, lr_scale: float = 1.0):
         params = model.leaves()
         with torch.no_grad():
             use = {k: params[k].redistribute(dm, use_pl[k]).to_local().detach().requires_grad_()
@@ -467,8 +478,6 @@ def _sharded_pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, mesh: Me
                           lr_scale)
             opt["count"] = view["count"]
             state["step"] += 1
-        out = {k: float(v) for k, v in metrics.items()}
-        out.update(grad_norm=float(gnorm))
-        return out
+        return dict(metrics, grad_norm=gnorm)
 
-    return step
+    return _with_epilogue(body)

@@ -272,3 +272,45 @@ def test_cli_refuses_dense_with_error_feedback():
     with pytest.raises(ValueError, match="meaningless for dense"):
         train.main(["--reduced", "--device", "cpu", "--steps", "1", "--batch", "2", "--seq",
                     "16", "--mode", "compressed_dp", "--reducer", "dense", "--error-feedback"])
+
+
+@pytest.mark.parametrize("mode", ["pjit", "compressed_dp"])
+def test_step_is_its_body_and_host_epilogue(mode):
+    """``train/step.py`` splits each step into its device work
+    (``step.body``, the metrics left as tensors) and the host epilogue that
+    reads them: two steps through ``step`` and through ``body`` (a
+    compressed one committing without reading its guard, as a trace on fake
+    tensors does) leave bitwise the same parameters, moments, residual and
+    metrics.  The sharded ``pjit`` step is held the same way in
+    ``tests/test_torch_dryrun.py``."""
+    from repro_torch.comms.reducers import ReducerConfig
+
+    cfg = configs.get_config("gemma2_2b").reduced()
+    red = None if mode == "pjit" else ReducerConfig(
+        kind="fft", error_feedback=True, transport="sequenced", bucket_bytes=65536,
+        backend="auto", selector="auto")
+    toks = torch.from_numpy(_batches(7, 2)[0]).long()
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    runs = []
+    for split in (False, True):
+        model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        sc, opt = TStep(mode=mode, reducer=red), TOpt(kind="adamw", lr=LR)
+        state = t_init_state(model, opt, error_feedback=red is not None)
+        step = t_build(model, opt, sc)
+        metrics = []
+        for _ in range(2):
+            if not split:
+                metrics.append(step(state, batch))
+            else:
+                kw = {} if mode == "pjit" else {"commit": True}
+                metrics.append({k: float(v) for k, v in step.body(state, batch, **kw).items()})
+        leaves = {k: v.detach().clone() for k, v in model.leaves().items()}
+        leaves.update({f"mu/{k}": v for k, v in state["opt"]["mu"].items()})
+        leaves.update({f"nu/{k}": v for k, v in state["opt"]["nu"].items()})
+        if red is not None:
+            leaves["residual"] = state["residual"]
+        runs.append((metrics, leaves))
+    assert runs[0][0] == runs[1][0]
+    assert set(runs[0][1]) == set(runs[1][1])
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
