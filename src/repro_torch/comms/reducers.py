@@ -60,6 +60,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.comms import bucketing, collectives, scheduler
 from repro_torch.comms import faults as faults_mod
 from repro_torch.comms.transport import TRANSPORT_NAMES, get_transport
@@ -322,13 +323,16 @@ def make_reducer(config: ReducerConfig, group=None):
     def _flat(grads):
         """The flat gradient (fresh) and its specs; the hierarchical kind's
         is the island's dense mean."""
-        flat, specs = flatten_tree(grads)
+        with tracing.span("exchange.flat"):
+            flat, specs = flatten_tree(grads)
         return (flat if island is None else _pmean_flat(flat, island)), specs
 
     def compressed_reduce(grads, step=None):
         monitor = _monitor(step)
         flat, specs = _flat(grads)
-        mean = unflatten_tree(_run(flat, local=False, monitor=monitor), specs)
+        mean_flat = _run(flat, local=False, monitor=monitor)
+        with tracing.span("exchange.flat"):
+            mean = unflatten_tree(mean_flat, specs)
         return (mean, monitor.ok()) if resilient else mean
 
     if not config.error_feedback:
@@ -337,13 +341,16 @@ def make_reducer(config: ReducerConfig, group=None):
     def ef_reduce(grads, residual_flat, step=None):
         monitor = _monitor(step)
         flat, specs = _flat(grads)
-        corrected = flat.add_(residual_flat)  # flat is a fresh buffer
+        with tracing.span("exchange.flat"):
+            corrected = flat.add_(residual_flat)  # flat is a fresh buffer
         # the roundtrip is not monitored: the residual never crosses the wire
         local_hat = _run(corrected, local=True)
-        new_residual = corrected - local_hat
+        with tracing.span("exchange.flat"):
+            new_residual = corrected - local_hat
         del local_hat
         mean_flat = _run(corrected, local=False, monitor=monitor)
-        mean = unflatten_tree(mean_flat, specs)
+        with tracing.span("exchange.flat"):
+            mean = unflatten_tree(mean_flat, specs)
         return (mean, new_residual, monitor.ok()) if resilient else (mean, new_residual)
 
     return ef_reduce

@@ -81,6 +81,7 @@ from typing import List
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.comms import bucketing
 from repro_torch.core import fft as cfft
 from repro_torch.core.compressor import StackedPayload
@@ -141,24 +142,29 @@ def _can_stack(comp) -> bool:
 
 def _compress_stacked(flat: torch.Tensor, layout, comp, monitor=None) -> StackedPayload:
     """ONE batched compress of every bucket (one quantizer fit per bucket)."""
-    return _monitored(comp.compress_stacked(bucketing.stack_buckets(flat, layout),
-                                            layout.sizes()), monitor)
+    with tracing.span("exchange.flat"):
+        rows = bucketing.stack_buckets(flat, layout)
+    return _monitored(comp.compress_stacked(rows, layout.sizes()), monitor)
 
 
 def _stacked_roundtrip(flat: torch.Tensor, layout, comp) -> torch.Tensor:
     """This worker's stacked compress -> decompress, back to the flat layout."""
     payload = _compress_stacked(flat, layout, comp)
-    return bucketing.unstack_buckets(comp.decompress_stacked(payload), layout)
+    with tracing.span("exchange.decode"):
+        rows = comp.decompress_stacked(payload)
+    with tracing.span("exchange.flat"):
+        return bucketing.unstack_buckets(rows, layout)
 
 
 def _ordered_worker_mean(parts: List[torch.Tensor]) -> torch.Tensor:
     """Mean over workers as a left-to-right fold, ``((w0 + w1) + w2) ... / P``
     as ``acc * (1/P)``: the reference's fold, which fixes the sum order so
     every worker and every run gets bitwise the same mean."""
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = acc + part
-    return acc * (1.0 / len(parts))
+    with tracing.span("exchange.decode"):
+        acc = parts[0]
+        for part in parts[1:]:
+            acc = acc + part
+        return acc * (1.0 / len(parts))
 
 
 def _sum_over_workers(t: torch.Tensor, group) -> torch.Tensor:
@@ -185,6 +191,7 @@ def _gather_plane(t: torch.Tensor, world: int, group) -> torch.Tensor:
     if src.numel() == 0:
         return src.new_empty((world,) + tuple(src.shape))
     raw = src.reshape(-1).view(torch.uint8)
+    tracing.count("exchange.payload_bytes", raw.numel())
     out = torch.empty((world * raw.numel(),), dtype=torch.uint8, device=raw.device)
     dist.all_gather_into_tensor(out, raw, group=group)
     return out.view(src.dtype).reshape((world,) + tuple(src.shape))
@@ -195,30 +202,32 @@ def all_gather_payload(payload, group=None) -> list:
     field of the payload dataclass (``FFTPayload``, ``StackedPayload``,
     ``ScaledCodes``) and per leaf of its quantizer fit; ``[payload]`` when
     there is one worker."""
-    world = world_size(group)
-    if world == 1:
-        return [payload]
-    gathered = {}
-    for field in dataclasses.fields(payload):
-        value = getattr(payload, field.name)
-        if isinstance(value, torch.Tensor):
-            gathered[field.name] = _gather_plane(value, world, group)
-        elif isinstance(value, FittedQuantizer):
-            gathered[field.name] = value.map(lambda t: _gather_plane(t, world, group))
-    return [dataclasses.replace(payload, **{
-        name: value.map(lambda t: t[w]) if isinstance(value, FittedQuantizer) else value[w]
-        for name, value in gathered.items()}) for w in range(world)]
+    with tracing.span("exchange.gather"):
+        world = world_size(group)
+        if world == 1:
+            return [payload]
+        gathered = {}
+        for field in dataclasses.fields(payload):
+            value = getattr(payload, field.name)
+            if isinstance(value, torch.Tensor):
+                gathered[field.name] = _gather_plane(value, world, group)
+            elif isinstance(value, FittedQuantizer):
+                gathered[field.name] = value.map(lambda t: _gather_plane(t, world, group))
+        return [dataclasses.replace(payload, **{
+            name: value.map(lambda t: t[w]) if isinstance(value, FittedQuantizer) else value[w]
+            for name, value in gathered.items()}) for w in range(world)]
 
 
 def _decompress(comp, payload, stacked: bool, monitor=None) -> torch.Tensor:
     """What the workers' mean runs over: the payload's spectrum where the
     compressor has ``decompress_spectrum`` (the mean then takes one irfft),
     else its decompressed buffer."""
-    if monitor is not None:
-        payload = monitor.admit(payload)
-    if hasattr(comp, "decompress_spectrum"):
-        return comp.decompress_spectrum(payload)
-    return comp.decompress_stacked(payload) if stacked else comp.decompress(payload)
+    with tracing.span("exchange.decode"):
+        if monitor is not None:
+            payload = monitor.admit(payload)
+        if hasattr(comp, "decompress_spectrum"):
+            return comp.decompress_spectrum(payload)
+        return comp.decompress_stacked(payload) if stacked else comp.decompress(payload)
 
 
 def _gather_mean_payload(payload, comp, group, stacked: bool = False,
@@ -250,7 +259,8 @@ def _bucket_buffer(mean: torch.Tensor, payload) -> torch.Tensor:
     """One payload's mean as its flat buffer: a mean spectrum takes one
     chunked irfft."""
     if mean.is_complex():
-        return cfft.chunked_irfft(mean, payload.orig_len, payload.chunk)
+        with tracing.span("exchange.fft"):
+            return cfft.chunked_irfft(mean, payload.orig_len, payload.chunk)
     return mean
 
 
@@ -258,8 +268,10 @@ def _stacked_buffer(mean: torch.Tensor, layout) -> torch.Tensor:
     """The stacked mean back to the flat layout: a mean spectrum
     ``(n_buckets, max_chunks, f)`` takes one batched irfft."""
     if mean.is_complex():
-        mean = cfft.irfft_rows(mean, layout.chunk)
-    return bucketing.unstack_buckets(mean, layout)
+        with tracing.span("exchange.fft"):
+            mean = cfft.irfft_rows(mean, layout.chunk)
+    with tracing.span("exchange.flat"):
+        return bucketing.unstack_buckets(mean, layout)
 
 
 class Transport:
@@ -317,16 +329,21 @@ class Transport:
                 self._reduce(_compress_stacked(flat, layout, comp, monitor), comp, group, True,
                              monitor), layout)
         buckets = bucketing.split_buckets(flat, layout)
-        return bucketing.concat_buckets(
-            [_bucket_buffer(self._reduce(p, comp, group, False, monitor), p)
-             for p in _compress_all(buckets, comp, monitor)], layout)
+        parts = [_bucket_buffer(self._reduce(p, comp, group, False, monitor), p)
+                 for p in _compress_all(buckets, comp, monitor)]
+        with tracing.span("exchange.flat"):
+            return bucketing.concat_buckets(parts, layout)
 
     def _roundtrip_flat(self, flat, layout, comp, stacked: bool = True) -> torch.Tensor:
         if stacked and _can_stack(comp):
             return _stacked_roundtrip(flat, layout, comp)
         buckets = bucketing.split_buckets(flat, layout)
-        return bucketing.concat_buckets(
-            [comp.decompress(p) for p in _compress_all(buckets, comp)], layout)
+        payloads = _compress_all(buckets, comp)
+        with tracing.span("exchange.decode"):
+            parts = [comp.decompress(p) for p in payloads]
+        del payloads
+        with tracing.span("exchange.flat"):
+            return bucketing.concat_buckets(parts, layout)
 
 
 class AllGatherTransport(Transport):
@@ -341,7 +358,9 @@ class AllGatherTransport(Transport):
         return _bucket_buffer(self._reduce(payload, comp, group, False, monitor), payload)
 
     def _roundtrip_flat(self, flat, layout, comp, stacked=True):
-        return comp.decompress(comp.compress(flat))
+        payload = comp.compress(flat)
+        with tracing.span("exchange.decode"):
+            return comp.decompress(payload)
 
 
 class SequencedTransport(Transport):

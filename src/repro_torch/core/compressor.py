@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import fft as cfft
 from repro_torch.core import packing, selection, sparsify
 from repro_torch.core.quantizer import (
@@ -53,7 +54,9 @@ __all__ = [
 
 def valid_chunk_mask(sizes, max_chunks: int, chunk: int, device=None) -> torch.Tensor:
     """(n_buckets, max_chunks, 1) mask of the real chunk rows of a stacked
-    bucket matrix: False on the zero-padding rows the uniform width added."""
+    bucket matrix: False on the zero-padding rows the uniform width added.
+    The counts are copied to ``device``: on a card the host waits for it."""
+    tracing.count("host_syncs")
     counts = torch.tensor([-(-int(s) // chunk) for s in sizes], device=device)
     return (torch.arange(max_chunks, device=device)[None, :] < counts[:, None])[:, :, None]
 
@@ -236,6 +239,7 @@ class FFTCompressor:
 
     def compress(self, x_flat: torch.Tensor) -> FFTPayload:
         """One monolithic payload of the whole flat buffer (one fit)."""
+        tracing.count("exchange.compress_passes")
         return self.backend.compress(self.config, x_flat)
 
     def decompress(self, payload: FFTPayload) -> torch.Tensor:
@@ -244,12 +248,14 @@ class FFTCompressor:
 
     def compress_buckets(self, bucket_flats) -> list:
         """Per-bucket loop: one payload, and one quantizer fit, per bucket."""
+        tracing.count("exchange.compress_passes")
         return self.backend.compress_buckets(self.config, bucket_flats)
 
     def compress_stacked(self, stacked: torch.Tensor, sizes) -> StackedPayload:
         """Compress every bucket row of a ``(n_buckets, padded_size)`` matrix
         (``bucketing.stack_buckets``) in one batched pass, one quantizer fit
         per bucket."""
+        tracing.count("exchange.compress_passes")
         return self.backend.compress_stacked(self.config, stacked, sizes)
 
     def decompress_stacked(self, payload: StackedPayload) -> torch.Tensor:

@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import tracing
+
 __all__ = [
     "DEFAULT_CHUNK",
     "pad_to_chunks",
@@ -54,10 +56,14 @@ def irfft_rows(spectrum: torch.Tensor, chunk: int = DEFAULT_CHUNK) -> torch.Tens
 
 
 def hermitian_weights(chunk: int = DEFAULT_CHUNK, device=None) -> torch.Tensor:
-    """Energy weights per rfft bin: [1, 2, 2, ..., 2, 1] (len chunk//2+1)."""
+    """Energy weights per rfft bin: [1, 2, 2, ..., 2, 1] (len chunk//2+1).
+    Each bin set from a Python number is a copy to ``device``: on a card the
+    host waits for it."""
     f = chunk // 2 + 1
     w = torch.full((f,), 2.0, dtype=torch.float32, device=device)
+    tracing.count("host_syncs")
     w[0] = 1.0
     if chunk % 2 == 0:
+        tracing.count("host_syncs")
         w[-1] = 1.0
     return w

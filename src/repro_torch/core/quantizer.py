@@ -41,6 +41,8 @@ import numpy as np
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch import tracing
+
 __all__ = [
     "LN2",
     "exp2",
@@ -176,8 +178,10 @@ def tune_eps_heuristic(vmin, vmax, config: RangeQuantConfig, eps_init: float = 0
     prev_sign = torch.zeros(vmax.shape, dtype=torch.int32, device=vmax.device)
     done = torch.zeros(vmax.shape, dtype=torch.bool, device=vmax.device)
     for _ in range(max_iters):
-        if not is_fake(done) and bool(done.all()):
-            break
+        if not is_fake(done):
+            tracing.count("host_syncs")
+            if bool(done.all()):
+                break
         one = torch.ones_like(prev_sign)
         sign = torch.where(actual_min_of_eps(eps) < vmin, -one, one)
         flipped = (prev_sign != 0) & (sign != prev_sign)

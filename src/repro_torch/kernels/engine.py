@@ -40,6 +40,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import fft as cfft
 from repro_torch.core import packing, selection, sparsify
 from repro_torch.core.compressor import (
@@ -118,13 +119,15 @@ def _pack_unquantized(cfg, re, im, mag, k: int, sel: str):
     """The per-stage route for ``quantize=False``: the threshold kernel, the
     pack kernel (B6) on the magnitudes, and a gather of re and im at the
     packed indices -> (re_k, im_k, idx int16), each ``(rows, k)``."""
-    tau, _ = _kernel_tau(cfg, mag, k, sel)
-    mvals, idx = ops.pack_threshold(mag, tau, k)  # width pad_k(k)
-    valid = mvals != 0
-    bins = idx.long()
-    re_k = torch.gather(re, -1, bins) * valid
-    im_k = torch.gather(im, -1, bins) * valid
-    return re_k[:, :k], im_k[:, :k], idx[:, :k].to(torch.int16)
+    with tracing.span("exchange.select"):
+        tau, _ = _kernel_tau(cfg, mag, k, sel)
+    with tracing.span("exchange.encode"):
+        mvals, idx = ops.pack_threshold(mag, tau, k)  # width pad_k(k)
+        valid = mvals != 0
+        bins = idx.long()
+        re_k = torch.gather(re, -1, bins) * valid
+        im_k = torch.gather(im, -1, bins) * valid
+        return re_k[:, :k], im_k[:, :k], idx[:, :k].to(torch.int16)
 
 
 def _masked_range(mask, re, im, dims):
@@ -225,32 +228,40 @@ class ReferenceBackend(CompressorBackend):
         return super().decompress_spectrum(drop_outside_indices(payload))
 
     def compress(self, cfg, x_flat):
-        freqs, n = cfft.chunked_rfft(x_flat, cfg.chunk)
+        with tracing.span("exchange.fft"):
+            freqs, n = cfft.chunked_rfft(x_flat, cfg.chunk)
         k = _keep_k(cfg)
-        w = cfft.hermitian_weights(cfg.chunk, x_flat.device)
-        re_p, im_p = freqs.real.contiguous(), freqs.imag.contiguous()
-        mag = _weighted_magnitude(re_p, im_p, w)
-        sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
-        if sel == "sort":
-            idx = sparsify.topk_select(mag, k)
-            tau = None
-        else:
-            # threshold selector: tau + one count-and-compact pass; slots
-            # come out index-ascending (the cuda backend's order)
-            tau = _selector_tau(cfg, mag, k, sel)
-            idx = selection.count_compact(mag, tau, k)
-        re = packing.pack_by_indices(re_p, idx)
-        im = packing.pack_by_indices(im_p, idx)
+        with tracing.span("exchange.select"):
+            w = cfft.hermitian_weights(cfg.chunk, x_flat.device)
+        with tracing.span("exchange.fft"):
+            re_p, im_p = freqs.real.contiguous(), freqs.imag.contiguous()
+        with tracing.span("exchange.select"):
+            mag = _weighted_magnitude(re_p, im_p, w)
+            sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
+            if sel == "sort":
+                idx = sparsify.topk_select(mag, k)
+                tau = None
+            else:
+                # threshold selector: tau + one count-and-compact pass; slots
+                # come out index-ascending (the cuda backend's order)
+                tau = _selector_tau(cfg, mag, k, sel)
+                idx = selection.count_compact(mag, tau, k)
+        with tracing.span("exchange.encode"):
+            re = packing.pack_by_indices(re_p, idx)
+            im = packing.pack_by_indices(im_p, idx)
         quant = None
         if cfg.quantize:
-            if tau is None:
-                quant = self._fit(cfg, re, im)
-            else:
-                # fit over the PRE-truncation tau mask -- the set the cuda
-                # backend fits over, so codes agree under every selector
-                quant = self._fit_masked(cfg, re_p, im_p, mag >= tau)
-            re, im = q_encode(re, quant), q_encode(im, quant)
-        return FFTPayload(re, im, idx.to(torch.int16), quant, n, cfg.chunk)
+            with tracing.span("exchange.fit"):
+                if tau is None:
+                    quant = self._fit(cfg, re, im)
+                else:
+                    # fit over the PRE-truncation tau mask -- the set the cuda
+                    # backend fits over, so codes agree under every selector
+                    quant = self._fit_masked(cfg, re_p, im_p, mag >= tau)
+            with tracing.span("exchange.encode"):
+                re, im = q_encode(re, quant), q_encode(im, quant)
+        with tracing.span("exchange.encode"):
+            return FFTPayload(re, im, idx.to(torch.int16), quant, n, cfg.chunk)
 
     def _fit(self, cfg, re, im):
         if cfg.range_mode == "fixed":
@@ -274,34 +285,41 @@ class ReferenceBackend(CompressorBackend):
         n_buckets, padded = stacked.shape
         c_max = padded // cfg.chunk
         k = _keep_k(cfg)
-        w = cfft.hermitian_weights(cfg.chunk, stacked.device)
-        sel = selection.resolve_selector(cfg.selector, cfg.chunk // 2 + 1)
-        rows = torch.arange(c_max, device=stacked.device)
+        with tracing.span("exchange.select"):
+            w = cfft.hermitian_weights(cfg.chunk, stacked.device)
+            sel = selection.resolve_selector(cfg.selector, cfg.chunk // 2 + 1)
+        with tracing.span("exchange.fit"):
+            rows = torch.arange(c_max, device=stacked.device)
         res_re, res_im, res_idx, quants = [], [], [], []
         for b, x2d in enumerate(stacked.reshape(n_buckets, c_max, cfg.chunk)):
             c_b = -(-sizes[b] // cfg.chunk)
-            freqs = torch.fft.rfft(x2d.float(), dim=-1).to(torch.complex64)
-            re_p, im_p = freqs.real.contiguous(), freqs.imag.contiguous()
-            mag = _weighted_magnitude(re_p, im_p, w)
-            if sel == "sort":
-                idx = sparsify.topk_select(mag, k)
-                tau = None
-            else:
-                tau = _selector_tau(cfg, mag, k, sel)
-                idx = selection.count_compact(mag, tau, k)
-            re = packing.pack_by_indices(re_p, idx)
-            im = packing.pack_by_indices(im_p, idx)
-            if cfg.quantize:
-                if cfg.range_mode == "fixed":
-                    lo, hi = cfg.fixed_range
-                elif tau is None:
-                    lo, hi = _masked_range((rows < c_b)[:, None], re, im, None)
+            with tracing.span("exchange.fft"):
+                freqs = torch.fft.rfft(x2d.float(), dim=-1).to(torch.complex64)
+                re_p, im_p = freqs.real.contiguous(), freqs.imag.contiguous()
+            with tracing.span("exchange.select"):
+                mag = _weighted_magnitude(re_p, im_p, w)
+                if sel == "sort":
+                    idx = sparsify.topk_select(mag, k)
+                    tau = None
                 else:
-                    # pre-truncation tau mask, padding rows excluded
-                    lo, hi = _masked_range((mag >= tau) & (rows < c_b)[:, None], re_p, im_p,
-                                           None)
-                quant = fit_quantizer(lo, hi, _qcfg(cfg), device=stacked.device)
-                re, im = q_encode(re, quant), q_encode(im, quant)
+                    tau = _selector_tau(cfg, mag, k, sel)
+                    idx = selection.count_compact(mag, tau, k)
+            with tracing.span("exchange.encode"):
+                re = packing.pack_by_indices(re_p, idx)
+                im = packing.pack_by_indices(im_p, idx)
+            if cfg.quantize:
+                with tracing.span("exchange.fit"):
+                    if cfg.range_mode == "fixed":
+                        lo, hi = cfg.fixed_range
+                    elif tau is None:
+                        lo, hi = _masked_range((rows < c_b)[:, None], re, im, None)
+                    else:
+                        # pre-truncation tau mask, padding rows excluded
+                        lo, hi = _masked_range((mag >= tau) & (rows < c_b)[:, None], re_p,
+                                               im_p, None)
+                    quant = fit_quantizer(lo, hi, _qcfg(cfg), device=stacked.device)
+                with tracing.span("exchange.encode"):
+                    re, im = q_encode(re, quant), q_encode(im, quant)
                 quants.append(quant)
             res_re.append(re)
             res_im.append(im)
@@ -309,11 +327,14 @@ class ReferenceBackend(CompressorBackend):
         quant = None
         if cfg.quantize:
             q0 = quants[0]
-            quant = stack_bucket_quant(type(q0)(
-                q0.config, *(torch.stack([getattr(q, f) for q in quants])
-                             for f in ("eps", "p_codes", "vmax", "vmin"))))
-        return StackedPayload(torch.stack(res_re), torch.stack(res_im),
-                              torch.stack(res_idx).to(torch.int16), quant, sizes, cfg.chunk)
+            with tracing.span("exchange.fit"):
+                quant = stack_bucket_quant(type(q0)(
+                    q0.config, *(torch.stack([getattr(q, f) for q in quants])
+                                 for f in ("eps", "p_codes", "vmax", "vmin"))))
+        with tracing.span("exchange.encode"):
+            return StackedPayload(torch.stack(res_re), torch.stack(res_im),
+                                  torch.stack(res_idx).to(torch.int16), quant, sizes,
+                                  cfg.chunk)
 
 
 class CudaBackend(CompressorBackend):
@@ -333,31 +354,37 @@ class CudaBackend(CompressorBackend):
     @staticmethod
     def _planes(x2d):
         """rfft of (rows, chunk) -> contiguous re, im planes."""
-        freqs = torch.fft.rfft(x2d, dim=-1)
-        return freqs.real.contiguous(), freqs.imag.contiguous()
+        with tracing.span("exchange.fft"):
+            freqs = torch.fft.rfft(x2d, dim=-1)
+            return freqs.real.contiguous(), freqs.imag.contiguous()
 
     def compress(self, cfg, x_flat):
-        x2d, n = cfft.pad_to_chunks(x_flat.float(), cfg.chunk)
+        with tracing.span("exchange.flat"):
+            x2d, n = cfft.pad_to_chunks(x_flat.float(), cfg.chunk)
         re, im = self._planes(x2d)
         del x2d
         k = _keep_k(cfg)
-        w = cfft.hermitian_weights(cfg.chunk, x_flat.device)
-        mag = _weighted_magnitude(re, im, w)
-        sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
+        with tracing.span("exchange.select"):
+            w = cfft.hermitian_weights(cfg.chunk, x_flat.device)
+            mag = _weighted_magnitude(re, im, w)
+            sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
         if not cfg.quantize:
             return FFTPayload(*_pack_unquantized(cfg, re, im, mag, k, sel), None, n, cfg.chunk)
-        tau = _mid_gap_tau(cfg, mag, k, sel)
-        if cfg.range_mode == "fixed":
-            lo, hi = cfg.fixed_range
-        else:
-            lo, hi = _masked_range(mag >= tau, re, im, None)
-        del mag
-        quant = fit_quantizer(lo, hi, _qcfg(cfg), device=re.device)
-        rec, imc, idx, _ = fused_compress.fused_compress(
-            re, im, w, quant.eps, quant.p_codes, tau, k_keep=k, n_bits=cfg.n_bits,
-            m_bits=cfg.m_bits)
-        return FFTPayload(rec[:, :k].contiguous(), imc[:, :k].contiguous(),
-                          idx[:, :k].to(torch.int16), quant, n, cfg.chunk)
+        with tracing.span("exchange.select"):
+            tau = _mid_gap_tau(cfg, mag, k, sel)
+        with tracing.span("exchange.fit"):
+            if cfg.range_mode == "fixed":
+                lo, hi = cfg.fixed_range
+            else:
+                lo, hi = _masked_range(mag >= tau, re, im, None)
+            del mag
+            quant = fit_quantizer(lo, hi, _qcfg(cfg), device=re.device)
+        with tracing.span("exchange.encode"):
+            rec, imc, idx, _ = fused_compress.fused_compress(
+                re, im, w, quant.eps, quant.p_codes, tau, k_keep=k, n_bits=cfg.n_bits,
+                m_bits=cfg.m_bits)
+            return FFTPayload(rec[:, :k].contiguous(), imc[:, :k].contiguous(),
+                              idx[:, :k].to(torch.int16), quant, n, cfg.chunk)
 
     def compress_stacked(self, cfg, stacked, sizes):
         sizes = tuple(int(s) for s in sizes)
@@ -366,9 +393,10 @@ class CudaBackend(CompressorBackend):
         rows = n_buckets * c_max
         re, im = self._planes(stacked.reshape(rows, cfg.chunk).float())
         k = _keep_k(cfg)
-        w = cfft.hermitian_weights(cfg.chunk, stacked.device)
-        mag = _weighted_magnitude(re, im, w)
-        sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
+        with tracing.span("exchange.select"):
+            w = cfft.hermitian_weights(cfg.chunk, stacked.device)
+            mag = _weighted_magnitude(re, im, w)
+            sel = selection.resolve_selector(cfg.selector, mag.shape[-1])
         if not cfg.quantize:
             re_k, im_k, idx = _pack_unquantized(cfg, re, im, mag, k, sel)
             return StackedPayload(re_k.reshape(n_buckets, c_max, k),
@@ -377,30 +405,34 @@ class CudaBackend(CompressorBackend):
 
         # the same one-threshold / mid-gap-tau contract as compress, over
         # every bucket's chunk rows in one threshold-kernel launch
-        tau = _mid_gap_tau(cfg, mag, k, sel)
-        if cfg.range_mode == "fixed":
-            lo = torch.full((n_buckets,), cfg.fixed_range[0], device=stacked.device)
-            hi = torch.full((n_buckets,), cfg.fixed_range[1], device=stacked.device)
-        else:
-            # per-bucket fit over the kept set; padding rows (all-zero
-            # chunks: tau 0, mask all-true) are excluded
-            mask = (mag >= tau) & valid_chunk_mask(
-                sizes, c_max, cfg.chunk, stacked.device).reshape(rows, 1)
-            lo, hi = _masked_range(mask.reshape(n_buckets, c_max, -1),
-                                   re.reshape(n_buckets, c_max, -1),
-                                   im.reshape(n_buckets, c_max, -1), (1, 2))
-            del mask
-        del mag
-        quant = stack_bucket_quant(fit_quantizer(lo, hi, _qcfg(cfg)))
-        # per-bucket params -> per-row vectors for the single fused launch
-        eps_rows, p_rows = _bucket_rows(quant, n_buckets, c_max)
-        rec, imc, idx, _ = fused_compress.fused_compress(
-            re, im, w, eps_rows, p_rows, tau, k_keep=k, n_bits=cfg.n_bits, m_bits=cfg.m_bits)
-        return StackedPayload(
-            rec[:, :k].reshape(n_buckets, c_max, k).contiguous(),
-            imc[:, :k].reshape(n_buckets, c_max, k).contiguous(),
-            idx[:, :k].to(torch.int16).reshape(n_buckets, c_max, k),
-            quant, sizes, cfg.chunk)
+        with tracing.span("exchange.select"):
+            tau = _mid_gap_tau(cfg, mag, k, sel)
+        with tracing.span("exchange.fit"):
+            if cfg.range_mode == "fixed":
+                lo = torch.full((n_buckets,), cfg.fixed_range[0], device=stacked.device)
+                hi = torch.full((n_buckets,), cfg.fixed_range[1], device=stacked.device)
+            else:
+                # per-bucket fit over the kept set; padding rows (all-zero
+                # chunks: tau 0, mask all-true) are excluded
+                mask = (mag >= tau) & valid_chunk_mask(
+                    sizes, c_max, cfg.chunk, stacked.device).reshape(rows, 1)
+                lo, hi = _masked_range(mask.reshape(n_buckets, c_max, -1),
+                                       re.reshape(n_buckets, c_max, -1),
+                                       im.reshape(n_buckets, c_max, -1), (1, 2))
+                del mask
+            del mag
+            quant = stack_bucket_quant(fit_quantizer(lo, hi, _qcfg(cfg)))
+            # per-bucket params -> per-row vectors for the single fused launch
+            eps_rows, p_rows = _bucket_rows(quant, n_buckets, c_max)
+        with tracing.span("exchange.encode"):
+            rec, imc, idx, _ = fused_compress.fused_compress(
+                re, im, w, eps_rows, p_rows, tau, k_keep=k, n_bits=cfg.n_bits,
+                m_bits=cfg.m_bits)
+            return StackedPayload(
+                rec[:, :k].reshape(n_buckets, c_max, k).contiguous(),
+                imc[:, :k].reshape(n_buckets, c_max, k).contiguous(),
+                idx[:, :k].to(torch.int16).reshape(n_buckets, c_max, k),
+                quant, sizes, cfg.chunk)
 
     def decompress(self, payload: FFTPayload) -> torch.Tensor:
         if payload.quant is not None and payload.chunk == KERNEL_CHUNK:

@@ -6,6 +6,8 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
+from repro_torch import tracing
+
 __all__ = ["global_norm", "clip_by_global_norm", "clip_to_norm"]
 
 
@@ -16,7 +18,8 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 def clip_by_global_norm(tree: Mapping[str, torch.Tensor],
                         max_norm: float) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """-> (tree scaled by min(1, max_norm / norm), norm)."""
-    norm = global_norm(tree)
+    with tracing.span("optim.clip"):
+        norm = global_norm(tree)
     return clip_to_norm(tree, norm, max_norm), norm
 
 
@@ -24,5 +27,6 @@ def clip_to_norm(tree: Mapping[str, torch.Tensor], norm: torch.Tensor,
                  max_norm: float) -> Dict[str, torch.Tensor]:
     """``tree`` scaled by min(1, max_norm / norm), for a norm computed
     elsewhere (over shards)."""
-    scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
-    return {k: (l * scale).to(l.dtype) for k, l in tree.items()}
+    with tracing.span("optim.clip"):
+        scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
+        return {k: (l * scale).to(l.dtype) for k, l in tree.items()}

@@ -17,6 +17,8 @@ from typing import Any, Dict, Mapping
 
 import torch
 
+from repro_torch import tracing
+
 __all__ = ["OptConfig", "init_opt_state", "apply_updates"]
 
 
@@ -46,6 +48,11 @@ def apply_updates(config: OptConfig, params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
                   lr_scale: float = 1.0) -> None:
     """One optimizer step, in place on ``params`` and ``state``."""
+    with tracing.span("optim.update"):
+        _apply_updates(config, params, grads, state, lr_scale)
+
+
+def _apply_updates(config: OptConfig, params, grads, state, lr_scale: float) -> None:
     count = state["count"] + 1
     lr = config.lr * lr_scale
     if config.kind == "sgd":

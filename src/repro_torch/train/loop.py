@@ -50,6 +50,7 @@ from typing import Callable, Dict, List, Optional, Set
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.comms import faults as faults_mod
 from repro_torch.comms import reducers
 from repro_torch.core.schedules import quantize_theta
@@ -199,6 +200,7 @@ def train_loop(model, opt_cfg, step_cfg: StepConfig, state, stream,
             with torch.profiler.record_function("train_step"):
                 metrics = step_fn(state, batch)
                 if device.type == "cuda":
+                    tracing.count("host_syncs")
                     torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
             if metrics.get("skipped", 0.0):

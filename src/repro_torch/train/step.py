@@ -89,6 +89,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.comms import faults as faults_mod
 from repro_torch.comms import scheduler
 from repro_torch.comms.reducers import ReducerConfig, dense_mean, fault_worker, make_reducer
@@ -221,8 +222,10 @@ def _loss_and_grads(model, params, batch):
     is left empty."""
     for p in params.values():
         p.grad = None
-    loss, metrics = model.loss(batch)
-    loss.backward()
+    with tracing.span("step.forward"):
+        loss, metrics = model.loss(batch)
+    with tracing.span("step.backward"):
+        loss.backward()
     grads = {name: p.grad for name, p in params.items()}
     for p in params.values():
         p.grad = None
@@ -317,28 +320,35 @@ def build_train_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, *, group=N
             if nan_events and faults_mod.match_events(nan_events, step_no, worker):
                 grads = {k: torch.full_like(g, float("nan")) for k, g in grads.items()}
             extra = {"step": step_no} if resilient else {}
-            if ef:
-                res = reducer(grads, state["residual"], **extra)
-            else:
-                res = reducer(grads, **extra)
-                res = (res[0], None, res[1]) if resilient else (res, None)
+            with tracing.span("step.exchange"):
+                if ef:
+                    res = reducer(grads, state["residual"], **extra)
+                else:
+                    res = reducer(grads, **extra)
+                    res = (res[0], None, res[1]) if resilient else (res, None)
             reduced, new_residual = res[0], res[1]
             pay_ok = res[2] if resilient else True
             del res
-            ok = torch.ones((), dtype=torch.bool, device=metrics["loss"].device)
-            if step_cfg.guard:
-                ok = _all_finite(grads) & _all_finite(reduced) & pay_ok
-                if ef:
-                    ok = ok & torch.isfinite(new_residual).all()
-            del grads
-            if world > 1:
-                flags = ok.to(torch.int32)
-                dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=flat_group)
-                ok = flags > 0
+            with tracing.span("step.guard"):
+                ok = torch.ones((), dtype=torch.bool, device=metrics["loss"].device)
+                if step_cfg.guard:
+                    ok = _all_finite(grads) & _all_finite(reduced) & pay_ok
+                    if ef:
+                        ok = ok & torch.isfinite(new_residual).all()
+                del grads
+                if world > 1:
+                    flags = ok.to(torch.int32)
+                    dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=flat_group)
+                    ok = flags > 0
             metrics = _worker_mean_metrics(metrics, batch_group, n_batch)
             clipped, gnorm = clip_by_global_norm(reduced, step_cfg.clip_norm)
             del reduced
-            keep = bool(ok) if commit is None else commit
+            if commit is None:
+                with tracing.span("step.guard"):
+                    tracing.count("host_syncs")
+                    keep = bool(ok)
+            else:
+                keep = commit
             # nothing above touched the state: a raise leaves it as it was
             if keep:
                 apply_updates(opt_cfg, params, clipped, state["opt"], lr_scale)
@@ -361,7 +371,12 @@ def _with_epilogue(body) -> Callable:
     commits without reading its guard's verdict on the host, the branch a
     trace on fake tensors follows (``launch/dryrun.py``)."""
     def step(state, batch, lr_scale: float = 1.0) -> Dict[str, float]:
-        return {k: float(v) for k, v in body(state, batch, lr_scale).items()}
+        out = body(state, batch, lr_scale)
+        with tracing.span("step.epilogue"):
+            if tracing.enabled():  # each tensor's float() waits for the device
+                tracing.count("host_syncs", sum(isinstance(v, torch.Tensor)
+                                                for v in out.values()))
+            return {k: float(v) for k, v in out.items()}
 
     step.body = body
     return step
@@ -385,7 +400,8 @@ def _pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, group) -> Callab
         params = model.leaves()
         metrics, grads = _loss_and_grads(model, params, batch)
         with torch.no_grad():
-            grads = dense_mean(grads, group)
+            with tracing.span("step.exchange"):
+                grads = dense_mean(grads, group)
             metrics = _worker_mean_metrics(metrics, group, world)
             clipped, gnorm = clip_by_global_norm(grads, step_cfg.clip_norm)
             del grads
@@ -457,17 +473,19 @@ def _sharded_pjit_step(model, opt_cfg: OptConfig, step_cfg: StepConfig, mesh: Me
         del use
         with torch.no_grad():
             red = {}
-            for k in names:
-                g = DTensor.from_local(grads.pop(k), dm, grad_pl[k], run_check=False)
-                g = g.redistribute(dm, leaf_pl[k]).to_local()
-                red[k] = g / n_batch if n_batch > 1 else g
+            with tracing.span("step.exchange"):
+                for k in names:
+                    g = DTensor.from_local(grads.pop(k), dm, grad_pl[k], run_check=False)
+                    g = g.redistribute(dm, leaf_pl[k]).to_local()
+                    red[k] = g / n_batch if n_batch > 1 else g
             metrics = _worker_mean_metrics(metrics, batch_group, n_batch)
-            zero = torch.zeros((), dtype=torch.float32, device=metrics["loss"].device)
-            sq = torch.stack([torch.sum(torch.square(red[k].float())) if counted[k] else zero
-                              for k in names])
-            if world > 1:
-                dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=mesh.flat)
-            gnorm = torch.sqrt(sum(sq.unbind()))
+            with tracing.span("optim.clip"):
+                zero = torch.zeros((), dtype=torch.float32, device=metrics["loss"].device)
+                sq = torch.stack([torch.sum(torch.square(red[k].float())) if counted[k]
+                                  else zero for k in names])
+                if world > 1:
+                    dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=mesh.flat)
+                gnorm = torch.sqrt(sum(sq.unbind()))
             clipped = clip_to_norm(red, gnorm, step_cfg.clip_norm)
             del red
             opt = state["opt"]
