@@ -332,6 +332,8 @@ PTXAS_KERNEL_CTAS = {"fused_compress.cu": {r"fused_compress_kernelILi[0-8]E[ht]L
 B1_ROW_PASSES = 1 + 6
 # rows of the kernel phase's data that B1 also runs with a NaN or +inf put in
 B1_EDGE_ROWS = 384
+# the phi3m-l3 cells' chunk rows, where B4 is timed besides the main path's
+B4_CELL_ROWS = 329_929
 # rows of B5a's input given the edge values of b5_edge_values
 B5_EDGE_ROWS = 64
 
@@ -505,6 +507,44 @@ def compress_params(mag, re, im, s_tau):
     return 0.5 * (s_tau + below), quant.eps, quant.p_codes
 
 
+def b4_bound(rows: int, cols: int):
+    """B4: the magnitudes read once, 12 bytes a row written; the clamp, the
+    refine sweeps and the mid-gap a value (the sample's sweeps touch one
+    value a lane)."""
+    from repro_torch.core import selection
+
+    return bound(rows * cols * 4 + rows * 12,
+                 rows * cols * (selection.DEFAULT_REFINE_ITERS + 5))
+
+
+def b4_cell_rows(dev, k: int) -> None:
+    """B4 at the phi3m-l3 cells' 329,929 rows (its 1,146-row stacked
+    padding zero), against its plain chain, bitwise: the kernel's ms, its
+    bound, the plain chain's ms, and the eager ops B4 took in, as the
+    engine ran them around the refinement before (the sample's bracket,
+    the mid-gap)."""
+    from repro_torch.core import selection
+    from repro_torch.kernels import sampled_threshold
+
+    rows, cols = B4_CELL_ROWS, 2049
+    *_, mag, n_zero = spectrum(rows, 4096, dev, seed=11)
+    got = sampled_threshold.sampled_select(mag, k=k)
+    check_bitwise(f"B4 sampled_threshold, {rows} rows ({n_zero} zero)",
+                  zip((t.view(torch.int32) for t in got),
+                      (t.view(torch.int32) for t in
+                       sampled_threshold.sampled_select_plain(mag, k=k))))
+    tau_k = got[0]
+    ms = time_ms(lambda: sampled_threshold.sampled_select(mag, k=k), 5)
+    b_ms, b_by = b4_bound(rows, cols)
+    plain_ms = time_ms(lambda: sampled_threshold.sampled_select_plain(mag, k=k), 2)
+    bracket_ms = time_ms(lambda: selection.sample_bracket(selection.strided_sample(mag), k,
+                                                          cols), 2)
+    mid_gap_ms = time_ms(lambda: selection.mid_gap(mag, tau_k), 2)
+    log(f"[B4 at {rows} rows] kernel_ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+        f"plain_chain_ms={plain_ms:.4f}; the eager ops it took in: "
+        f"sample_bracket_ms={bracket_ms:.4f} mid_gap_ms={mid_gap_ms:.4f}")
+
+
 def b5_edge_values(x, eps, rows: int) -> None:
     """The first ``rows`` rows of ``x`` (in place) start with the values the
     encode must get right besides plain ones, at each row's ``eps``: NaN,
@@ -542,7 +582,7 @@ def b5_chunk2048_inputs(dev):
 
 def kernel_phase(rows: int, dev, counted) -> list:
     """Each kernel against its plain version at ``rows`` rows."""
-    from repro_torch.core import selection, sparsify
+    from repro_torch.core import sparsify
     from repro_torch.kernels import (fused_compress, fused_decompress, sampled_threshold,
                                      topk_threshold)
 
@@ -583,26 +623,27 @@ def kernel_phase(rows: int, dev, counted) -> list:
         library_ms=time_ms(lambda: torch.topk(mag, k, dim=-1).values[:, -1], 2),
         bound_ms=b_ms, bound_by=b_by))
 
-    # B4
-    sample = selection.strided_sample(mag)
-    lo, hi = selection.sample_bracket(sample, k, cols)
-    s_tau_k, s_cnt_k = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
-    s_tau_p, s_cnt_p = sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)
+    # B4: the sample's bracket, the refinement and the mid-gap in one launch
+    s_tau_k, s_cnt_k, s_mid_k = sampled_threshold.sampled_select(mag, k=k)
+    s_tau_p, s_cnt_p, s_mid_p = sampled_threshold.sampled_select_plain(mag, k=k)
     torch.cuda.synchronize()
-    mism = int((s_tau_k != s_tau_p).sum() + (s_cnt_k != s_cnt_p).sum())
+    mism = int((s_tau_k.view(torch.int32) != s_tau_p.view(torch.int32)).sum()
+               + (s_cnt_k != s_cnt_p).sum()
+               + (s_mid_k.view(torch.int32) != s_mid_p.view(torch.int32)).sum())
     err = float((s_tau_k - s_tau_p).abs().max())
-    log(f"[B4 sampled_threshold] rows={rows} tau/count mismatches={mism} "
+    log(f"[B4 sampled_threshold] rows={rows} tau_k/count/tau mismatches={mism} "
         f"(tolerance 0: bitwise); rows over k: {int((s_cnt_k > k).sum())}")
     if mism:
-        raise AssertionError(f"B4 disagrees with its plain version on {mism} values")
-    iters = selection.DEFAULT_REFINE_ITERS
-    b_ms, b_by = bound(rows * cols * 4 + rows * 16, rows * cols * (iters + 4))
+        raise AssertionError(f"B4 disagrees with its plain chain on {mism} values")
+    del s_mid_k, s_mid_p
+    b_ms, b_by = b4_bound(rows, cols)
     results.append(dict(
         kernel=sampled_threshold.KERNEL, max_abs_err=err,
-        ms=time_ms(lambda: sampled_threshold.sampled_threshold(mag, lo, hi, k=k), 5),
-        plain_ms=time_ms(lambda: sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k), 2),
+        ms=time_ms(lambda: sampled_threshold.sampled_select(mag, k=k), 5),
+        plain_ms=time_ms(lambda: sampled_threshold.sampled_select_plain(mag, k=k), 2),
         library_ms=time_ms(lambda: torch.topk(mag, k, dim=-1).values[:, -1], 2),
         bound_ms=b_ms, bound_by=b_by))
+    b4_cell_rows(dev, k)
 
     # B2: the engine's mid-gap tau, a quantizer fit per row
     tau, eps_rows, p_rows = compress_params(mag, re, im, s_tau_k)
@@ -751,7 +792,7 @@ def keep_count_phase(rows: int, dev) -> None:
     on ``rows`` rows of the main path's spectrum, against their plain
     versions: bitwise (B3 within 2e-6 * max|x| per row); with each one's
     time at that k."""
-    from repro_torch.core import selection, sparsify
+    from repro_torch.core import sparsify
     from repro_torch.kernels import (fused_compress, fused_decompress, sampled_threshold,
                                      topk_threshold)
 
@@ -764,11 +805,14 @@ def keep_count_phase(rows: int, dev) -> None:
         check_bitwise(f"B1 topk_threshold, {label}", zip(
             (t.view(torch.int32) for t in b1),
             (t.view(torch.int32) for t in topk_threshold.threshold_plain(mag, k))))
-        lo, hi = selection.sample_bracket(selection.strided_sample(mag), k, cols)
-        s_tau, s_cnt = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
+        b4 = sampled_threshold.sampled_select(mag, k=k)
         check_bitwise(f"B4 sampled_threshold, {label}", zip(
-            (s_tau, s_cnt), sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)))
-        tau, eps, p_codes = compress_params(mag, re, im, s_tau)
+            (t.view(torch.int32) for t in b4),
+            (t.view(torch.int32) for t in sampled_threshold.sampled_select_plain(mag, k=k))))
+        tau, eps, p_codes = compress_params(mag, re, im, b4[0])
+        check_bitwise(f"B4's mid-gap tau, {label}, against the engine's expression",
+                      [(b4[2].view(torch.int32), tau.view(torch.int32))])
+        del b4
         got = fused_compress.fused_compress(re, im, w, eps, p_codes, tau, k_keep=k)
         check_bitwise(f"B2 fused_compress, {label}", zip(
             got[:3], fused_compress.fused_compress_plain(re, im, w, eps, p_codes, tau,
@@ -794,7 +838,7 @@ def keep_count_phase(rows: int, dev) -> None:
         del y_k, y_p
         ms = {
             "B1": time_ms(lambda: topk_threshold.threshold(mag, k=k), 5),
-            "B4": time_ms(lambda: sampled_threshold.sampled_threshold(mag, lo, hi, k=k), 5),
+            "B4": time_ms(lambda: sampled_threshold.sampled_select(mag, k=k), 5),
             "B2": time_ms(lambda: fused_compress.fused_compress(re, im, w, eps, p_codes, tau,
                                                                 k_keep=k), 5),
             "B2 tau=None": time_ms(lambda: fused_compress.fused_compress(
@@ -819,7 +863,7 @@ def chunk2048_phase(rows: int, dev) -> None:
     route's ``rows`` with its layout's padding rows all zero; then B5a and
     B5b at its 384 slots with one fit per bucket (b5_chunk2048_inputs), edge
     values in B5a's first rows."""
-    from repro_torch.core import selection, sparsify
+    from repro_torch.core import sparsify
     from repro_torch.kernels import fused_compress, range_quant, sampled_threshold
 
     chunk = 2048
@@ -828,13 +872,13 @@ def chunk2048_phase(rows: int, dev) -> None:
     re, im, w, mag, n_zero = spectrum(rows, chunk, dev, seed=5)
     log(f"[chunk 2048] rows={rows} of {cols} bins, of which {n_zero} all-zero padding "
         f"rows; k={k}")
-    lo, hi = selection.sample_bracket(selection.strided_sample(mag), k, cols)
-    s_tau, s_cnt = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
+    b4 = sampled_threshold.sampled_select(mag, k=k)
     check_bitwise(f"B4 sampled_threshold, {cols} columns",
-                  zip((s_tau, s_cnt), sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)))
-    b4_ms = time_ms(lambda: sampled_threshold.sampled_threshold(mag, lo, hi, k=k), 5)
-    tau, eps, p_codes = compress_params(mag, re, im, s_tau)
-    del mag, lo, hi
+                  zip((t.view(torch.int32) for t in b4),
+                      (t.view(torch.int32) for t in sampled_threshold.sampled_select_plain(mag, k=k))))
+    b4_ms = time_ms(lambda: sampled_threshold.sampled_select(mag, k=k), 5)
+    tau, eps, p_codes = compress_params(mag, re, im, b4[0])
+    del mag, b4
     got = fused_compress.fused_compress(re, im, w, eps, p_codes, tau, k_keep=k)
     want = fused_compress.fused_compress_plain(re, im, w, eps, p_codes, tau, k_keep=k)
     check_bitwise(f"B2 fused_compress, {cols} columns", zip(got[:3], want[:3]))

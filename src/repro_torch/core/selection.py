@@ -41,7 +41,9 @@ __all__ = [
     "refine_bracket",
     "bisect_tau",
     "strided_sample",
+    "sample_ranks",
     "sample_bracket",
+    "mid_gap",
     "sampled_tau",
     "selector_tau",
     "count_compact",
@@ -135,22 +137,33 @@ def strided_sample(mag: torch.Tensor, sample_rate: float = DEFAULT_SAMPLE_RATE,
     return mag[..., offset:offset + (s - 1) * stride + 1:stride]
 
 
-def sample_bracket(sample: torch.Tensor, k: int, cols: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Bracket the full-row tau from sample order statistics: (lo, hi).
-
-    The k-th largest of a row maps to rank ``k*s/cols`` in the sample; a
-    ``4*sqrt(k_s)+2`` rank margin each side covers the sampling noise.  Each
-    rank's value is found by bisection on the sample, never a sort."""
-    s = sample.shape[-1]
+def sample_ranks(k: int, s: int, cols: int) -> Tuple[int, int]:
+    """(hi_rank, lo_rank): the sample ranks whose values bracket the row's
+    k-th largest.  It maps to rank ``k*s/cols`` in a sample of ``s``; a
+    ``4*sqrt(k_s)+2`` rank margin each side covers the sampling noise."""
     k_s = k * s / cols
     margin = 4.0 * (max(k_s, 1.0) ** 0.5) + 2.0
-    hi_rank = max(1, int(k_s - margin))
-    lo_rank = min(s, int(k_s + margin) + 1)
+    return max(1, int(k_s - margin)), min(s, int(k_s + margin) + 1)
+
+
+def sample_bracket(sample: torch.Tensor, k: int, cols: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bracket the full-row tau from sample order statistics: (lo, hi), the
+    values of :func:`sample_ranks`' ranks, each found by bisection on the
+    sample, never a sort."""
+    hi_rank, lo_rank = sample_ranks(k, sample.shape[-1], cols)
     hi0 = upper_bracket(torch.amax(sample, dim=-1))
     zero = torch.zeros_like(hi0)
     hi, _ = bisect_bracket(sample, zero, hi0, hi_rank, BISECT_ITERS)
     lo, _ = bisect_bracket(sample, zero, hi0, lo_rank, BISECT_ITERS)
     return lo, hi
+
+
+def mid_gap(mag: torch.Tensor, tau_k: torch.Tensor) -> torch.Tensor:
+    """The threshold moved from ``tau_k`` (rows, 1) to the middle of the gap
+    to the largest dropped magnitude (0 where none is dropped; a NaN is not
+    dropped), where an ulp of recompute noise cannot flip a comparison."""
+    below = torch.where(mag < tau_k, mag, 0.0).amax(dim=-1, keepdim=True)
+    return 0.5 * (tau_k + below)
 
 
 def sampled_tau(mag: torch.Tensor, k: int, *, sample_rate: float = DEFAULT_SAMPLE_RATE,

@@ -14,8 +14,9 @@ bucket) and ``decompress_spectrum``.
 * ``cuda``      -- the hand-written kernels, mirroring the reference's
   ``PallasBackend`` line for line: ``torch.fft.rfft`` for the forward
   transform (as the reference keeps XLA's rfft), the threshold kernel (B4
-  under ``sampled``, B1 under ``sort``/``bisect``), the mid-gap tau and the
-  range fit as plain ops, then ONE fused compress launch (B2) over every
+  under ``sampled``, which also gives the mid-gap tau; B1 under
+  ``sort``/``bisect``, the mid-gap then plain ops) and the range fit as
+  plain ops, then ONE fused compress launch (B2) over every
   chunk row; decompress is ONE fused decompress launch (B3).  Where the
   config does not fuse end to end it degrades stage by stage: with
   ``quantize=False`` compress runs the threshold kernel, the pack kernel
@@ -95,24 +96,21 @@ def _selector_tau(cfg, mag, k: int, sel: str):
                                   refine_iters=cfg.tau_refine_iters, seed=cfg.selector_seed)
 
 
-def _kernel_tau(cfg, mag2d, k: int, sel: str):
-    """Threshold-kernel dispatch: (tau (r,1), count).  ``sort`` and
-    ``bisect`` both run the full bisection kernel (B1); ``sampled`` runs the
-    sampled-bracket kernel (B4)."""
+def _kernel_taus(cfg, mag2d, k: int, sel: str):
+    """Threshold-kernel dispatch: (tau_k, the mid-gap tau), each (r,1).
+    One threshold-kernel pass defines the kept set, count(>= tau_k) >= k;
+    the mid-gap tau sits in the middle of the gap to the largest dropped
+    magnitude, where an ulp of recompute noise inside the fused kernel
+    cannot flip a comparison.  ``sampled`` runs the sampled kernel (B4),
+    which gives both in its one launch; ``sort`` and ``bisect`` run the full
+    bisection kernel (B1) and the mid-gap as plain ops."""
     if sel == "sampled":
-        return sampled_threshold.sampled_select(
+        tau_k, _, tau = sampled_threshold.sampled_select(
             mag2d, k=k, sample_rate=cfg.sample_rate,
             refine_iters=cfg.tau_refine_iters, seed=cfg.selector_seed)
-    return topk_threshold.threshold(mag2d, k=k)
-
-
-def _mid_gap_tau(cfg, mag2d, k: int, sel: str):
-    """One threshold-kernel pass defines the kept set; its tau moves to the
-    middle of the gap to the largest dropped magnitude, where an ulp of
-    recompute noise inside the fused kernel cannot flip a comparison."""
-    tau_k, _ = _kernel_tau(cfg, mag2d, k, sel)
-    below = torch.where(mag2d < tau_k, mag2d, 0.0).amax(dim=-1, keepdim=True)
-    return 0.5 * (tau_k + below)
+        return tau_k, tau
+    tau_k, _ = topk_threshold.threshold(mag2d, k=k)
+    return tau_k, selection.mid_gap(mag2d, tau_k)
 
 
 def _pack_unquantized(cfg, re, im, mag, k: int, sel: str):
@@ -120,7 +118,7 @@ def _pack_unquantized(cfg, re, im, mag, k: int, sel: str):
     pack kernel (B6) on the magnitudes, and a gather of re and im at the
     packed indices -> (re_k, im_k, idx int16), each ``(rows, k)``."""
     with tracing.span("exchange.select"):
-        tau, _ = _kernel_tau(cfg, mag, k, sel)
+        tau, _ = _kernel_taus(cfg, mag, k, sel)
     with tracing.span("exchange.encode"):
         mvals, idx = ops.pack_threshold(mag, tau, k)  # width pad_k(k)
         valid = mvals != 0
@@ -371,7 +369,7 @@ class CudaBackend(CompressorBackend):
         if not cfg.quantize:
             return FFTPayload(*_pack_unquantized(cfg, re, im, mag, k, sel), None, n, cfg.chunk)
         with tracing.span("exchange.select"):
-            tau = _mid_gap_tau(cfg, mag, k, sel)
+            _, tau = _kernel_taus(cfg, mag, k, sel)
         with tracing.span("exchange.fit"):
             if cfg.range_mode == "fixed":
                 lo, hi = cfg.fixed_range
@@ -406,7 +404,7 @@ class CudaBackend(CompressorBackend):
         # the same one-threshold / mid-gap-tau contract as compress, over
         # every bucket's chunk rows in one threshold-kernel launch
         with tracing.span("exchange.select"):
-            tau = _mid_gap_tau(cfg, mag, k, sel)
+            _, tau = _kernel_taus(cfg, mag, k, sel)
         with tracing.span("exchange.fit"):
             if cfg.range_mode == "fixed":
                 lo = torch.full((n_buckets,), cfg.fixed_range[0], device=stacked.device)

@@ -6,7 +6,9 @@ A span is a ``torch.profiler.record_function`` range named
 kernels and idle gaps; the loop's ``train_step`` range is their parent.  A
 counter is a number kept in memory (``exchange.compress_passes``,
 ``exchange.payload_bytes``, ``host_syncs``: each place in a step where the
-host waits on the device).
+host waits on the device), or a number a kernel adds to on the device
+(``exchange.bracket_fallback_rows``: the rows whose sampled bracket B4 had
+to widen), read once by :func:`counters`.
 
 Tracing is off by default, and the program never switches it on: an
 operator (or a benchmark) calls :func:`enable` around the steps it profiles.
@@ -24,15 +26,17 @@ Off, :func:`span` returns one shared no-op context after one flag check and
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["span", "count", "enable", "enabled", "counters", "reset"]
+__all__ = ["span", "count", "device_counter", "enable", "enabled", "counters", "reset"]
 
 _on = False
 _NOOP = contextlib.nullcontext()
 _counts: Dict[str, int] = {}
+# counters kept on a device: (name, device) -> a one-element int64 tensor
+_device_counts: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 # each kernel's Kernel.launches at the last reset()
 _launch_base: Dict[str, int] = {}
 
@@ -49,6 +53,19 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while tracing is on."""
     if _on:
         _counts[name] = _counts.get(name, 0) + n
+
+
+def device_counter(name: str, device) -> Optional[torch.Tensor]:
+    """While tracing is on, the one-element int64 tensor on ``device`` that
+    holds the counter ``name``, for a kernel to add to without a host wait;
+    None while off."""
+    if not _on:
+        return None
+    key = (name, torch.device(device))
+    t = _device_counts.get(key)
+    if t is None:
+        t = _device_counts[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return t
 
 
 def enable(on: bool) -> None:
@@ -70,15 +87,19 @@ def _kernels():
 def reset() -> None:
     """Clear the counters; kernel launches count from here on."""
     _counts.clear()
+    _device_counts.clear()
     _launch_base.clear()
     _launch_base.update({k.name: k.launches for k in _kernels()})
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot of the counters, and ``kernels.<name>``: the launches of
-    each kernel launched since the last :func:`reset`, read from its
+    """A snapshot of the counters (each device counter read once, which
+    waits for its device), and ``kernels.<name>``: the launches of each
+    kernel launched since the last :func:`reset`, read from its
     ``Kernel.launches``."""
     out = dict(_counts)
+    for (name, _), t in _device_counts.items():
+        out[name] = out.get(name, 0) + int(t.item())
     for k in _kernels():
         n = k.launches - _launch_base.get(k.name, 0)
         if n:

@@ -22,15 +22,22 @@ B6a runs phases 1 and 2 of B2 on keep = |x| >= tau (the same column map and
 scan, so the same walk), and in phase 3 copies the values and columns of
 the filled slots, (0.0, 0) past the count.
 
-B4, one warp per row: lane l holds the columns l + 32j, j < N (N =
-ceil(cols/32) when that is 8g + 1, else rounded up to a multiple of 8;
--inf past the row).  One pass counts >= lo and >= hi (packed into one
-integer for one warp sum) and takes the maximum (a NaN of the row, bits and
-all, if there is one); the clamp, then 16 sweeps of mid = 0.5 * (lo + hi)
+B4, one warp per row: lane l holds sample values l, l + 32, ... (the
+columns offset + stride * i of the strided sample, -inf past s) and the
+row's columns l + 32j, j < N (N = ceil(cols/32) when that is 8g + 1, else
+rounded up to a multiple of 8; -inf past the row).  The sample's two rank
+bisections on [0, upper_bracket(sample max)] give the estimates hi (rank
+hi_rank) and lo (rank lo_rank), each its lo; each counts by a ballot and
+a popc per item a lane, and both stop at the first sweep that moves
+neither bracket.  One pass
+counts >= lo and >= hi (packed into one integer for one warp sum) and
+takes the maximum (a NaN of the row, bits and all, if there is one); the
+clamp, then 16 sweeps of mid = 0.5 * (lo + hi)
 in float32, carrying count(>= lo) so the final count needs no pass.  After
 5 sweeps each lane keeps its values in [lo, hi) (at most 8, else the row
 goes on sweeping in full), and the last 11 sweeps count them alone, plus
-count(>= hi).
+count(>= hi).  Last, the mid-gap: the maximum of v < tau_k (else 0) over
+the lanes' items, and tau = 0.5 * (tau_k + that).
 
 B1, one warp per row, lane l holding columns l + 32j as B4: one pass counts
 >= 0 and takes the maximum as B4 does; lo = 0, hi = upper_bracket(max), and
@@ -66,6 +73,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import selection
 from repro_torch.core import sparsify
 from repro_torch.core.quantizer import RangeQuantConfig, fit_quantizer
@@ -274,9 +282,53 @@ def lane_count(v, t):
     return (parts[0] + parts[1]) + (parts[2] + parts[3])
 
 
+def b4_sample_bracket(row, s, stride, offset, hi_rank, lo_rank, iters):
+    """The sample's bracket as the warp runs it: (lo, hi, sweeps).  Lane l
+    holds sample values i = l, l + 32, ... (columns offset + stride * i;
+    -inf past s); each bisection counts by a ballot and a popc per item, and
+    both stop at the first sweep that moves neither."""
+    per_lane = -(-s // LANES)
+    i = LANES * np.arange(per_lane)[None, :] + LANE[:, None]  # (lane, item)
+    sv = np.where(i < s, row[offset + stride * np.minimum(i, s - 1)], np.float32(-np.inf))
+    sv = sv.astype(np.float32)
+    top = _upper_bracket(lane_max(sv))
+    half = np.float32(0.5)
+    lo_h, hi_h, lo_l, hi_l = np.float32(0.0), top, np.float32(0.0), top
+    sweeps = 0
+    with np.errstate(invalid="ignore", over="ignore"):
+        for _ in range(iters):
+            sweeps += 1
+            mid_h = np.float32(half * np.float32(lo_h + hi_h))
+            mid_l = np.float32(half * np.float32(lo_l + hi_l))
+            # item j's ballot over the lanes, its popc, summed over the items
+            c_h = sum(_popc(_ballot(sv[:, j] >= mid_h)) for j in range(per_lane))
+            c_l = sum(_popc(_ballot(sv[:, j] >= mid_l)) for j in range(per_lane))
+            feas_h, feas_l = c_h >= hi_rank, c_l >= lo_rank
+            moved_h, moved_l = (lo_h if feas_h else hi_h), (lo_l if feas_l else hi_l)
+            lo_h, hi_h = (mid_h, hi_h) if feas_h else (lo_h, mid_h)
+            lo_l, hi_l = (mid_l, hi_l) if feas_l else (lo_l, mid_l)
+            if _bits(mid_h) == _bits(moved_h) and _bits(mid_l) == _bits(moved_l):
+                break
+    return lo_l, lo_h, sweeps
+
+
+def _ballot(pred):
+    """__ballot_sync: bit l set where lane l's predicate holds."""
+    return sum(1 << int(lane) for lane in np.flatnonzero(pred))
+
+
+def _popc(mask):
+    return bin(mask).count("1")
+
+
+def _bits(x):
+    return int(np.array([x], np.float32).view(np.uint32)[0])
+
+
 def b4_walk(row, lo0, hi0, k, iters):
-    """One row as the warp runs it: (tau float32, count, whether the last
-    sweeps ran over the candidates alone)."""
+    """The clamp and the refine sweeps of one row as the warp runs them:
+    (tau float32, count, whether the last sweeps ran over the candidates
+    alone, whether the bracket fell back)."""
     v = lane_items(row)
     per_lane = (v >= lo0).sum(axis=1) | ((v >= hi0).sum(axis=1) << 16)
     both = int(per_lane.sum())
@@ -293,7 +345,7 @@ def b4_walk(row, lo0, hi0, k, iters):
         hi, hi_count, hi_known = _upper_bracket(m), 0, bool(m < FLT_MAX)
     half = np.float32(0.5)
     cand = None  # None: sweep the full row
-    with np.errstate(invalid="ignore"):  # a NaN hi makes every mid NaN
+    with np.errstate(invalid="ignore", over="ignore"):  # a NaN hi makes every mid NaN
         for it in range(iters):
             if (it == FULL_SWEEPS and hi_known and lo <= hi and abs(lo) <= MAX_BRACKET
                     and abs(hi) <= MAX_BRACKET):
@@ -312,60 +364,117 @@ def b4_walk(row, lo0, hi0, k, iters):
                 hi = mid
                 if cand is None:
                     hi_count, hi_known = c, True
-    return lo, lo_count, cand is not None
+    return lo, lo_count, cand is not None, c_lo < k or c_hi >= k
 
 
-def _b4_case(cols, kind, seed):
-    """(mag, lo, hi, k) for ``kind`` rows: the sampled bracket of the
-    selector, or an estimate that breaks one side of the invariant."""
+def b4_mid_gap(row, tau_k):
+    """The kernel's mid-gap: the maximum over the lanes' items of v where v
+    < tau_k, else 0, from -inf; then 0.5 * (tau_k + below)."""
+    v = lane_items(row)
+    below = np.float32(np.max(np.where(v < tau_k, v, np.float32(0.0))))
+    with np.errstate(over="ignore"):
+        return np.float32(np.float32(0.5) * np.float32(tau_k + below))
+
+
+def b4_select_walk(row, k, sample_rate, seed, iters=selection.DEFAULT_REFINE_ITERS):
+    """The whole launch for one row: (tau_k, count, tau, candidates alone,
+    fell back, the sample's sweeps)."""
+    cols = row.size
+    s, stride, offset = selection._sample_layout(cols, sample_rate, seed)
+    hi_rank, lo_rank = selection.sample_ranks(k, s, cols)
+    lo0, hi0, sweeps = b4_sample_bracket(row, s, stride, offset, hi_rank, lo_rank,
+                                         selection.BISECT_ITERS)
+    tau_k, cnt, dense, fell = b4_walk(row, lo0, hi0, k, iters)
+    return tau_k, cnt, b4_mid_gap(row, tau_k), dense, fell, sweeps
+
+
+def _b4_case(cols, kind, seed, sample_rate):
+    """(mag, k) for ``kind`` rows; ``lo_high`` and ``hi_low`` put values at
+    the sample's columns that break one side of the bracket's invariant."""
     rng = np.random.default_rng(seed)
     rows = 4
     mag = np.abs(rng.standard_normal((rows, cols))).astype(np.float32)
     k = sparsify.keep_count(cols, 0.7)
+    s, stride, offset = selection._sample_layout(cols, sample_rate, seed)
+    sample_cols = offset + stride * np.arange(s)
     if kind == "zero":
         mag[:] = 0.0
     elif kind == "sparse":  # fewer than k nonzeros: no sweep is feasible
         mag[:, 10:] = 0.0
     elif kind == "ties":  # a handful of values: the k-th is tied many times
         mag = np.floor(mag * 3).astype(np.float32)
-    elif kind == "nan":  # NaN counts as not >=; NaN maximum on a fallback row
+    elif kind == "nan":  # NaN counts as not >= and not <; one in the sample
         mag[:, 5] = np.nan
         mag[1, cols // 2] = np.nan
+        mag[2, sample_cols[s // 2]] = np.nan
     elif kind == "inf":
         mag[:, cols - 1] = np.inf
-    t = torch.from_numpy(mag)
-    lo, hi = (x.numpy().copy() for x in
-              selection.sample_bracket(selection.strided_sample(t), k, cols))
-    if kind in ("lo_high", "sparse"):  # count(>= lo) < k: lo falls back to 0
-        lo[:] = mag.max(axis=1)
-    elif kind in ("hi_low", "nan", "inf"):  # count(>= hi) >= k: hi falls back
-        hi[:] = 0.0
-    return mag, lo.astype(np.float32), hi.astype(np.float32), k
+        mag[3, sample_cols[0]] = np.inf
+    elif kind == "lo_high":  # the sample far above the row: count(>= lo) < k
+        mag[:, sample_cols] += np.float32(100.0)
+    elif kind == "hi_low":  # the sample all 0: count(>= hi) >= k
+        mag[:, sample_cols] = 0.0
+    return mag, k
 
 
-@pytest.mark.parametrize("kind", ["sampled", "lo_high", "hi_low", "zero", "sparse", "ties", "nan",
-                                  "inf"])
+B4_KINDS = ["sampled", "lo_high", "hi_low", "zero", "sparse", "ties", "nan", "inf"]
+
+
+def _check_b4_walk(cols, kind, sample_rate):
+    """tau_k, count and the mid-gap tau of the warp walk (the sample's
+    bracket, the clamp and sweeps, the mid-gap) against
+    ``sampled_select_plain``, bitwise, and the rows it counts as fallen back
+    against the plain chain's."""
+    seed = cols + len(kind)
+    mag, k = _b4_case(cols, kind, seed, sample_rate)
+    tracing.enable(True)
+    tracing.reset()
+    try:
+        want = tst.sampled_select_plain(torch.from_numpy(mag), k=k, sample_rate=sample_rate,
+                                        seed=seed)
+        want_fell = tracing.counters().get(tst.FALLBACK_COUNTER)
+    finally:
+        tracing.enable(False)
+    fell = 0
+    for r in range(mag.shape[0]):
+        tau_k, cnt, tau, _, row_fell, _ = b4_select_walk(mag[r], k, sample_rate, seed)
+        for got, w in ((tau_k, want[0][r]), (tau, want[2][r])):
+            assert _bits(got) == int(w.numpy().view(np.uint32)[0]), (r, got, w)
+        assert cnt == int(want[1][r])
+        fell += row_fell
+    assert fell == want_fell
+    if kind in ("lo_high", "hi_low", "zero"):
+        assert fell == mag.shape[0]
+
+
+@pytest.mark.parametrize("kind", B4_KINDS)
 @pytest.mark.parametrize("cols", [2049, 1025, 513, 512, 100])
 def test_b4_walk_equals_refine_bracket_and_count(cols, kind):
-    """Tau and count of the warp walk equal ``sampled_threshold_plain``
-    (``selection.refine_bracket`` + one count) bitwise, fallbacks, denormal
-    bracket of the zero rows, a row where no sweep is feasible (its count is
-    the fallback's count(>= 0)), ties, NaN and +inf included."""
-    mag, lo, hi, k = _b4_case(cols, kind, seed=cols + len(kind))
-    want_tau, want_cnt = tst.sampled_threshold_plain(
-        torch.from_numpy(mag), torch.from_numpy(lo), torch.from_numpy(hi), k=k)
-    for r in range(mag.shape[0]):
-        tau, cnt, _ = b4_walk(mag[r], lo[r], hi[r], k, selection.DEFAULT_REFINE_ITERS)
-        assert np.array([tau], np.float32).view(np.uint32) == \
-            want_tau[r].numpy().view(np.uint32), (r, tau, want_tau[r])
-        assert cnt == int(want_cnt[r])
+    """The whole launch's walk equals the plain chain (``strided_sample``,
+    ``sample_bracket``, ``refine_bracket`` and one count, ``mid_gap``)
+    bitwise at the selector's rate 1/64 (s <= 32, one sample value a lane):
+    fallbacks, the denormal bracket of the zero rows, a row where no sweep
+    is feasible (its count is the fallback's count(>= 0)), ties, NaN and
+    +inf in the row and in the sample."""
+    _check_b4_walk(cols, kind, selection.DEFAULT_SAMPLE_RATE)
+
+
+@pytest.mark.parametrize("kind", B4_KINDS)
+@pytest.mark.parametrize("cols", [2049, 1025, 513, 512, 100])
+def test_b4_walk_equals_the_plain_chain_at_rate_one_sixteenth(cols, kind):
+    """The same at rate 1/16: s = 128 and 64 at 2049 and 1025 columns (four
+    and two sample values a lane), 32 at 513 and 512 (one on every lane)."""
+    _check_b4_walk(cols, kind, 1 / 16)
 
 
 @pytest.mark.parametrize("cols", [2049, 1025])
 def test_b4_walk_sweeps_candidates_on_spectrum_rows_and_the_row_on_zero_rows(cols):
-    """On rfft magnitude rows (the main path's data) the 11 last sweeps run
-    over at most CAND_REGS candidates a lane; an all-zero row has every value
-    in its bracket [0, 2**-149) and sweeps the full row."""
+    """On rfft magnitude rows (the main path's data) the sample fits one
+    value a lane, its bisections reach their fixed point well inside 48
+    sweeps, no bracket falls back, and the 11 last sweeps run over at most
+    CAND_REGS candidates a lane; an all-zero row has every value in its
+    bracket [0, 2**-149) and sweeps the full row, its sample done after one
+    sweep and its hi fallen back."""
     rng = np.random.default_rng(cols)
     chunk = 2 * (cols - 1)
     z = np.fft.rfft(rng.standard_normal((16, chunk)) * 1e-3, axis=-1)
@@ -374,11 +483,13 @@ def test_b4_walk_sweeps_candidates_on_spectrum_rows_and_the_row_on_zero_rows(col
     mag = (np.abs(z).astype(np.float32) * w).astype(np.float32)
     mag[-1] = 0.0
     k = sparsify.keep_count(cols, 0.7)
-    lo, hi = (x.numpy() for x in
-              selection.sample_bracket(selection.strided_sample(torch.from_numpy(mag)), k, cols))
-    dense = [b4_walk(mag[r], lo[r], hi[r], k, selection.DEFAULT_REFINE_ITERS)[2]
+    s = selection._sample_layout(cols, selection.DEFAULT_SAMPLE_RATE, 0)[0]
+    assert s <= LANES
+    walks = [b4_select_walk(mag[r], k, selection.DEFAULT_SAMPLE_RATE, 0)
              for r in range(mag.shape[0])]
-    assert dense == [True] * 15 + [False]
+    assert [w[3] for w in walks] == [True] * 15 + [False]
+    assert [w[4] for w in walks] == [False] * 15 + [True]
+    assert max(w[5] for w in walks[:15]) <= 32 and walks[15][5] == 1
 
 
 def test_b4_items_cover_every_width_with_one_dispatch_entry():

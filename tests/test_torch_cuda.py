@@ -46,10 +46,9 @@ def test_threshold_kernels_bitwise(planes):
     for got, want in zip(topk_threshold.threshold(mag, k=K),
                          topk_threshold.threshold_plain(mag, K)):
         assert torch.equal(got, want)
-    lo, hi = selection.sample_bracket(selection.strided_sample(mag), K, mag.shape[-1])
-    for got, want in zip(sampled_threshold.sampled_threshold(mag, lo, hi, k=K),
-                         sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=K)):
-        assert torch.equal(got, want)
+    for got, want in zip(sampled_threshold.sampled_select(mag, k=K),
+                         sampled_threshold.sampled_select_plain(mag, k=K)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("selector", ["bisect", "sampled"])
@@ -389,45 +388,123 @@ def test_fused_compress_bisect_kernel(card, cols, k_keep, quant, kind):
     assert torch.equal(got[3].view(torch.int32).cpu(), tau_b1.view(torch.int32).cpu())
 
 
-def _bracket_rows(cols, kind, seed, rows=37):
-    """(mag, lo, hi, k) in numpy: the sampled selector's bracket, or one side
-    of it broken so the kernel's clamp falls back."""
-    rng = np.random.default_rng(seed)
-    mag = np.abs(rng.standard_normal((rows, cols))).astype(np.float32)
-    k = sparsify.keep_count(cols, 0.7)
+def _bracket_rows(mag, kind, sample_rate, seed):
+    """``mag`` (rows, cols) in numpy, in place, made ``kind`` rows: the
+    sampled selector's own rows, a sample far above the row (count(>= lo)
+    < k: lo falls back to 0) or all 0 (count(>= hi) >= k: hi falls back to
+    nextafter(max)), all-zero rows (the denormal bracket [0, 2**-149]), tied
+    magnitudes, rows holding a NaN or +inf, in the row and in the sample."""
+    rows, cols = mag.shape
+    s, stride, offset = selection._sample_layout(cols, sample_rate, seed)
+    sample_cols = offset + stride * np.arange(s)
     if kind == "zero":
         mag[:] = 0.0
     elif kind == "ties":
-        mag = np.floor(mag * 3).astype(np.float32)
+        mag[:] = np.floor(mag * 3)
     elif kind == "nan":
         mag[:, 5] = np.nan
+        mag[::3, sample_cols[s // 2]] = np.nan
     elif kind == "inf":
         mag[:, cols - 1] = np.inf
-    t = torch.from_numpy(mag)
-    lo, hi = (x.numpy().copy() for x in
-              selection.sample_bracket(selection.strided_sample(t), k, cols))
-    if kind == "lo_high":  # count(>= lo) < k: lo falls back to 0
-        lo[:] = mag.max(axis=1)
-    elif kind in ("hi_low", "nan", "inf"):  # count(>= hi) >= k: nextafter(max)
-        hi[:] = 0.0
-        hi[::2] = np.float32(0.5)  # and rows that keep their hi
-    return mag, lo.astype(np.float32), hi.astype(np.float32), k
+        mag[::3, sample_cols[0]] = np.inf
+    elif kind == "lo_high":
+        mag[:, sample_cols] = np.float32(1e30)
+    elif kind == "hi_low":
+        mag[::2, sample_cols] = 0.0  # and rows that keep their bracket
+    return mag
 
 
+def _select_both(mag, k, **kw):
+    """B4 and its plain chain on the same CUDA magnitudes, each with the
+    fallback counter it adds to: ((tau_k, count, tau), fallback rows) x 2."""
+    from repro_torch import tracing
+
+    out = []
+    for fn in (sampled_threshold.sampled_select, sampled_threshold.sampled_select_plain):
+        tracing.enable(True)
+        tracing.reset()
+        try:
+            got = fn(mag, k=k, **kw)
+            out.append((got, tracing.counters().get(sampled_threshold.FALLBACK_COUNTER)))
+        finally:
+            tracing.enable(False)
+    return out
+
+
+def _assert_select_bitwise(got, want):
+    (g, g_fell), (w, w_fell) = got, want
+    for a, b in zip(g, w):
+        assert torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+    assert g_fell == w_fell
+
+
+@pytest.mark.parametrize("sample_rate", [1 / 64, 1 / 16])
 @pytest.mark.parametrize("kind", ["sampled", "lo_high", "hi_low", "zero", "ties", "nan", "inf"])
 @pytest.mark.parametrize("cols", [2049, 1025])
-def test_sampled_threshold_kernel_edge_rows(card, cols, kind):
-    """B4 against its plain version, bitwise: estimates whose lo is too high
-    (falls back to 0) or whose hi is too low (falls back to nextafter(max)),
-    all-zero rows (the denormal bracket [0, 2**-149]), tied magnitudes, and
-    rows holding a NaN or +inf; 37 rows, not a multiple of the kernel's 4
-    rows per CTA."""
-    mag, lo, hi, k = _bracket_rows(cols, kind, cols + len(kind))
-    mag, lo, hi = (torch.from_numpy(a).cuda() for a in (mag, lo, hi))
-    got = sampled_threshold.sampled_threshold(mag, lo, hi, k=k)
-    want = sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)
-    for a, b in zip(got, want):
-        assert torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+def test_sampled_threshold_kernel_edge_rows(card, cols, kind, sample_rate):
+    """B4 (the sample's bracket, the clamp and sweeps, the mid-gap) against
+    its plain chain, bitwise in tau_k, count and tau, with the same count of
+    rows whose bracket fell back; 37 rows, not a multiple of the kernel's 4
+    rows per CTA; rate 1/16 reads 4 sample values a lane at 2049 columns."""
+    seed = cols + len(kind)
+    rng = np.random.default_rng(seed)
+    mag = np.abs(rng.standard_normal((37, cols))).astype(np.float32)
+    mag = torch.from_numpy(_bracket_rows(mag, kind, sample_rate, seed)).cuda()
+    k = sparsify.keep_count(cols, 0.7)
+    got, want = _select_both(mag, k, sample_rate=sample_rate, seed=seed)
+    _assert_select_bitwise(got, want)
+    if kind in ("lo_high", "zero"):
+        assert got[1] == 37
+
+
+CELL_ROWS, CELL_COLS = 329_929, 2049  # the phi3m-l3 cells' chunk rows and bins
+
+
+def test_sampled_select_kernel_at_the_cell_shape(card):
+    """B4 at the phi3m-l3 cells' 329,929 rows of 2049 bins, k = 615, the
+    rfft magnitudes of random chunks with 6 x 96 edge rows first (the kinds
+    of the edge-row test), against its plain chain bitwise, fallback rows
+    counted alike."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mag = torch.empty((CELL_ROWS, CELL_COLS), device="cuda")
+    w = cfft.hermitian_weights(4096, "cuda")
+    for r in range(0, CELL_ROWS, 65_536):
+        z = torch.fft.rfft(torch.randn((min(65_536, CELL_ROWS - r), 4096), generator=gen,
+                                       device="cuda") * 1e-3, dim=-1)
+        mag[r:r + z.shape[0]] = torch.sqrt(z.real * z.real + z.imag * z.imag) * w
+    kinds = ["lo_high", "hi_low", "zero", "ties", "nan", "inf"]
+    for i, kind in enumerate(kinds):
+        rows = mag[96 * i:96 * (i + 1)]
+        rows.copy_(torch.from_numpy(_bracket_rows(rows.cpu().numpy(), kind, 1 / 64, 0)))
+    got, want = _select_both(mag, K)
+    _assert_select_bitwise(got, want)
+    assert got[1] >= 2 * 96
+
+
+def test_compress_stacked_payload_at_the_cell_shape_is_the_plain_chains(card, monkeypatch):
+    """One ``compress_stacked`` payload at the phi3m-l3 cell's layout (81
+    buckets of 64 MiB, 329,929 valid chunk rows) with B4 giving the mid-gap
+    tau equals, bitwise, the payload with the plain chain in its place: the
+    sampled bracket and the mid-gap as eager ops around the refinement, as
+    the engine ran them before B4 took them in."""
+    from repro_torch.core.compressor import FFTCompressor, FFTCompressorConfig
+
+    bucket = 16 * 1024 * 1024
+    sizes = (bucket,) * 80 + (1_351_388_160 - 80 * bucket,)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    stacked = torch.randn((81, bucket), generator=gen, device="cuda") * 1e-3
+    stacked[-1, sizes[-1]:] = 0.0
+    comp = FFTCompressor(FFTCompressorConfig(backend="cuda", selector="sampled"))
+    before = sampled_threshold.KERNEL.launches
+    got = comp.compress_stacked(stacked, sizes)
+    assert sampled_threshold.KERNEL.launches == before + 1
+    monkeypatch.setattr(sampled_threshold, "sampled_select",
+                        sampled_threshold.sampled_select_plain)
+    want = comp.compress_stacked(stacked, sizes)
+    assert sampled_threshold.KERNEL.launches == before + 1
+    for a, b in ((got.re, want.re), (got.im, want.im), (got.idx, want.idx),
+                 (got.quant.eps, want.quant.eps), (got.quant.p_codes, want.quant.p_codes)):
+        assert torch.equal(a, b)
 
 
 def _threshold_rows(cols, kind, seed, rows=37):

@@ -244,7 +244,7 @@ def _fake_inputs():
     x = torch.empty(4, 4096)
     return [
         (lambda: topk_threshold.threshold(mag, k=10), [(4, 1), (4, 1)]),
-        (lambda: sampled_threshold.sampled_threshold(mag, col, col, k=10), [(4, 1), (4, 1)]),
+        (lambda: sampled_threshold.sampled_select(mag, k=10), [(4, 1)] * 3),
         (lambda: fused_compress.fused_compress(re, re, w, eps, p, col, k_keep=300),
          [(4, 384)] * 3 + [(4, 1)]),
         (lambda: fused_compress.fused_compress(re, re, w, eps, p, k_keep=300),

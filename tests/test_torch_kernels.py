@@ -3,8 +3,8 @@ a kernel wrapper runs on a CPU tensor) against the reference's Pallas kernel
 in interpret mode, on the same inputs, at <= 16 rows.
 
 Tolerances:
-* B1 ``topk_threshold``, B4 ``sampled_threshold``: bitwise tau and count --
-  compare, count and halve only.
+* B1 ``topk_threshold``, B4 ``sampled_threshold``: bitwise tau and count
+  (and B4's mid-gap tau) -- compare, count and halve only.
 * B2 ``fused_compress``: bitwise codes, indices and tau, given the same
   spectrum planes, weights, tau and quantizer params.  With ``tau=None``
   (its own bisection): codes and indices bitwise; tau bitwise against the
@@ -31,6 +31,7 @@ from repro.core.quantizer import RangeQuantConfig as JRQ, fit_quantizer as jfit
 from repro.kernels import (fused_compress as jfc, fused_decompress as jfd,
                            sampled_threshold as jst, topk_threshold as jtt)
 from repro_torch.core import fft as tfft
+from repro_torch.core import selection as tsel
 from repro_torch.kernels import (fused_compress as tfc, fused_decompress as tfd,
                                  sampled_threshold as tst, topk_threshold as ttt)
 
@@ -93,23 +94,40 @@ def test_topk_threshold_plain_vs_pallas_bitwise(rows, cols, k, kind):
     np.testing.assert_array_equal(_np(jc), tc.numpy())
 
 
+def _jax_mid_gap(mag, tau_k):
+    """The reference engine's mid-gap tau (``PallasBackend.compress``)."""
+    below = jnp.max(jnp.where(mag < tau_k, mag, 0.0), axis=-1, keepdims=True)
+    return 0.5 * (tau_k + below)
+
+
 @pytest.mark.parametrize("k", [615, 200])
 def test_sampled_threshold_plain_vs_pallas_bitwise(k):
+    """The port's sampled select (tau_k, count, the mid-gap tau) against the
+    reference's ``sampled_select`` and its engine's mid-gap, bitwise; then
+    rows whose sample sits far above the row, so lo falls back to 0, and
+    rows whose sample is all zero, so hi falls back to nextafter(max)."""
     re, im = _spectrum(6, 4096, k)
     mag = _mag(re, im, _np(jfft.hermitian_weights(4096)))
-    jt, jc = jst.sampled_select(jnp.asarray(mag), k=k, interpret=True)
-    tt, tc = tst.sampled_select(torch.from_numpy(mag), k=k)
-    np.testing.assert_array_equal(_np(jt), tt.numpy())
-    np.testing.assert_array_equal(_np(jc), tc.numpy())
-    # a bracket that violates the invariant on purpose falls back in both
-    lo = np.full((6, 1), 1e9, np.float32)
-    hi = np.zeros((6, 1), np.float32)
-    jt, jc = jst.sampled_threshold_pallas(jnp.asarray(mag), jnp.asarray(lo), jnp.asarray(hi),
-                                          k=k, interpret=True)
-    tt, tc = tst.sampled_threshold(torch.from_numpy(mag), torch.from_numpy(lo),
-                                   torch.from_numpy(hi), k=k)
-    np.testing.assert_array_equal(_np(jt), tt.numpy())
-    np.testing.assert_array_equal(_np(jc), tc.numpy())
+    cols = mag.shape[1]
+    s, stride, offset = tsel._sample_layout(cols, 1 / 64, 0)
+    sample_cols = offset + stride * np.arange(s)
+    lo_high = mag.copy()
+    lo_high[:, sample_cols] += np.float32(100.0)
+    hi_low = mag.copy()
+    hi_low[0::2, sample_cols] = 0.0
+    for m, side, rows in ((mag, None, []), (lo_high, "lo", range(6)), (hi_low, "hi", [0, 2, 4])):
+        t = torch.from_numpy(m)
+        lo, hi = tsel.sample_bracket(tsel.strided_sample(t), k, cols)
+        lo_broken = ((t >= lo[:, None]).sum(dim=-1) < k).nonzero().flatten().tolist()
+        hi_broken = ((t >= hi[:, None]).sum(dim=-1) >= k).nonzero().flatten().tolist()
+        assert (lo_broken, hi_broken) == ((list(rows), []) if side == "lo" else
+                                          ([], list(rows)))
+        jt, jc = jst.sampled_select(jnp.asarray(m), k=k, interpret=True)
+        jtau = _jax_mid_gap(jnp.asarray(m), jt)
+        tt, tc, ttau = tst.sampled_select(t, k=k)
+        np.testing.assert_array_equal(_np(jt).view(np.uint32), tt.numpy().view(np.uint32))
+        np.testing.assert_array_equal(_np(jc), tc.numpy())
+        np.testing.assert_array_equal(_np(jtau).view(np.uint32), ttau.numpy().view(np.uint32))
 
 
 def _fused_compress_both(re, im, w, eps, p, tau, k_keep, n_bits=8, m_bits=3):

@@ -69,3 +69,24 @@ def test_resolve_selector_matches():
             assert jsel.resolve_selector(sel, cols) == tsel.resolve_selector(sel, cols)
     with pytest.raises(ValueError):
         tsel.resolve_selector("nope", 10)
+
+
+@pytest.mark.parametrize("kind", ["plain", "nan", "zero", "ties"])
+def test_mid_gap_bitwise(kind):
+    """The mid-gap tau the engine keeps by, from the sampled selector's
+    tau_k, against the reference engine's expression: a NaN is not below
+    tau_k, a row with nothing below it keeps 0 as the gap's floor."""
+    mag = _mag(5, 2049, 11)
+    if kind == "nan":
+        mag[:, 7] = np.nan
+    elif kind == "zero":
+        mag[1:3] = 0.0
+    elif kind == "ties":
+        mag = np.floor(mag * 3).astype(np.float32)
+    jt = jsel.selector_tau(jnp.asarray(mag), 615, "sampled")
+    tt = tsel.selector_tau(torch.from_numpy(mag), 615, "sampled")
+    _eq(jt, tt)
+    jmag = jnp.asarray(mag)
+    want = 0.5 * (jt + jnp.max(jnp.where(jmag < jt, jmag, 0.0), axis=-1, keepdims=True))
+    np.testing.assert_array_equal(np.asarray(want).view(np.uint32),
+                                  tsel.mid_gap(torch.from_numpy(mag), tt).numpy().view(np.uint32))

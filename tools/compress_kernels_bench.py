@@ -16,8 +16,10 @@ printed.
 
 The inputs are ``chip_smoke.py``'s kernel phase: the rfft of N(0, 1e-6)
 chunks of 4096 at the main path's rows (221,184 by default, the stacked
-layout's 1,146 padding rows all zero), k = 615 of 2049 bins, B4's bracket
-from the sampled selector's strided sample, B2's mid-gap tau and one
+layout's 1,146 padding rows all zero), k = 615 of 2049 bins, B4 whole
+(the sample's bracket, the refinement and the mid-gap; a tree from before
+the bracket moved into B4 is given the plain bracket and timed as "B4
+bracket given"), B2's mid-gap tau and one
 quantizer fit per row, B6a's tau from B1 on the same magnitudes (k_pad =
 640 slots).  ``--cols 1025`` runs the ``chunk=2048`` route's shapes instead
 (chunks of 2048, 442,368 rows by default, k = 308); ``--rows 4096`` one
@@ -26,7 +28,8 @@ are first held bitwise to the plain PyTorch versions, then timed with CUDA
 events (mean of ``--iters`` launches after one warm-up) in turns, trees in
 order and then in reverse, so a drift of the card's clock shows as a gap
 between the two readings of one tree.  B4 is also timed at the sweep counts
-of ``--b4-sweeps`` (default 0: its loads and the clamp alone) and B1 at
+of ``--b4-sweeps`` (default 0: its loads, the sample's bracket, the clamp
+and the mid-gap alone) and B1 at
 those of ``--b1-sweeps`` (default 0: its loads and the maximum pass), each
 checked against the plain version with that many sweeps, which splits a
 kernel's time between the row's pass over device memory and the sweeps; B2
@@ -91,9 +94,10 @@ def main() -> int:
     re, im, w, mag, n_zero = chip_smoke.spectrum(rows, chunk, dev)
     lo, hi = selection.sample_bracket(selection.strided_sample(mag), k, cols)
     lo, hi = lo.float().contiguous(), hi.float().contiguous()
-    want_b4 = sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)
-    want_b4_sweeps = {n: sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k,
-                                                                   refine_iters=n)
+    layout = selection._sample_layout(cols, selection.DEFAULT_SAMPLE_RATE, 0)
+    ranks = selection.sample_ranks(k, layout[0], cols)
+    want_b4 = sampled_threshold.sampled_select_plain(mag, k=k)
+    want_b4_sweeps = {n: sampled_threshold.sampled_select_plain(mag, k=k, refine_iters=n)
                       for n in args.b4_sweeps}
     want_b1 = topk_threshold.threshold_plain(mag, k)
     want_b1_sweeps = {}
@@ -117,6 +121,7 @@ def main() -> int:
 
     tau_out = torch.empty((rows, 1), device=dev)
     cnt_out = torch.empty((rows, 1), dtype=torch.int32, device=dev)
+    mid_out = torch.empty((rows, 1), device=dev)
     rec = torch.empty((rows, k_pad), dtype=torch.uint8, device=dev)
     imc = torch.empty_like(rec)
     idx = torch.empty((rows, k_pad), dtype=torch.int32, device=dev)
@@ -135,13 +140,18 @@ def main() -> int:
         calls[(name, "B6a")] = (lambda b6=b6: b6.pack(
             p(mag), p(pack_tau), rows, cols, k_pad, p(vals), p(idx), stream),
             lambda: (vals, idx), want_b6a)
-        calls[(name, "B4")] = (lambda b4=b4: b4.sampled_threshold(
-            p(mag), p(lo), p(hi), rows, cols, k, iters, p(tau_out), p(cnt_out), stream),
-            lambda: (tau_out, cnt_out), want_b4)
-        for n in args.b4_sweeps:
-            calls[(name, f"B4 sweeps={n}")] = (lambda b4=b4, n=n: b4.sampled_threshold(
-                p(mag), p(lo), p(hi), rows, cols, k, n, p(tau_out), p(cnt_out), stream),
-                lambda: (tau_out, cnt_out), want_b4_sweeps[n])
+        for n in [iters] + args.b4_sweeps:
+            label = "B4" if n == iters else f"B4 sweeps={n}"
+            want = want_b4 if n == iters else want_b4_sweeps[n]
+            if hasattr(b4, "sampled_select"):
+                calls[(name, label)] = (lambda b4=b4, n=n: b4.sampled_select(
+                    p(mag), rows, cols, k, *layout, *ranks, selection.BISECT_ITERS, n,
+                    p(tau_out), p(cnt_out), p(mid_out), None, stream),
+                    lambda: (tau_out, cnt_out, mid_out), want)
+            else:  # before the sample's bracket and the mid-gap moved into B4
+                calls[(name, label + " bracket given")] = (lambda b4=b4, n=n: b4.sampled_threshold(
+                    p(mag), p(lo), p(hi), rows, cols, k, n, p(tau_out), p(cnt_out), stream),
+                    lambda: (tau_out, cnt_out), want[:2])
         calls[(name, "B2")] = (lambda b2=b2: b2.fused_compress(
             p(re), p(im), p(w), p(tau), p(eps), p(p_codes), p(n_neg), rows, cols, k_pad,
             ctypes.c_float(8.0), 1, p(rec), p(imc), p(idx), stream),
@@ -173,28 +183,34 @@ def main() -> int:
           "(first, second reading):")
     for (name, kernel), (first, second) in sorted(times.items(), key=lambda kv: kv[0][1]):
         print(f"[time {name}] {kernel}: {first:.3f} {second:.3f} ms")
-    return 1 if edge_rows(libs, mag, lo, hi, k, stream) else 0
+    return 1 if edge_rows(libs, mag, k, stream) else 0
 
 
-def edge_rows(libs, mag, lo, hi, k, stream, n=256):
+def edge_rows(libs, mag, k, stream, n=256):
     """B1 and B4 of every tree on ``n`` rows that each hold a NaN and ``n``
-    that each hold a +inf, the rest of those scaled by 1e30 (half of each
-    with hi = 0, so B4's clamp falls back to nextafter(max)), against their
-    plain versions: the rows that disagree are counted; returns how many
-    disagreed in all."""
+    that each hold a +inf, the rest of those scaled by 1e30 (in half of
+    each the sample's columns 0, so B4's clamp falls back to
+    nextafter(max)), against their plain versions: the rows that disagree
+    are counted; returns how many disagreed in all.  A tree whose B4 takes
+    the bracket (before the sample's bracket moved into it) is given the
+    plain one."""
     from repro_torch.core import selection
     from repro_torch.kernels import sampled_threshold, topk_threshold
 
     mag = torch.cat([mag[:n], mag[:n] * 1e30])  # the +inf rows' rest far from 0
     mag[:n, 7] = float("nan")
     mag[n:, -1] = float("inf")
-    lo, hi = torch.cat([lo[:n], lo[:n]]), torch.cat([hi[:n], hi[:n]])
-    hi[::2] = 0.0
     rows, cols = mag.shape
+    layout = selection._sample_layout(cols, selection.DEFAULT_SAMPLE_RATE, 0)
+    mag[::2, layout[2]::layout[1]][:, :layout[0]] = 0.0
+    ranks = selection.sample_ranks(k, layout[0], cols)
+    lo, hi = selection.sample_bracket(selection.strided_sample(mag), k, cols)
+    lo, hi = lo.contiguous(), hi.contiguous()
     want = {"B1": topk_threshold.threshold_plain(mag, k),
-            "B4": sampled_threshold.sampled_threshold_plain(mag, lo, hi, k=k)}
+            "B4": sampled_threshold.sampled_select_plain(mag, k=k)[:2]}
     tau = torch.empty((rows, 1), device=mag.device)
     cnt = torch.empty((rows, 1), dtype=torch.int32, device=mag.device)
+    mid = torch.empty((rows, 1), device=mag.device)
     ptr = ctypes.c_void_p
     total = 0
     for name, trees in libs.items():
@@ -203,6 +219,11 @@ def edge_rows(libs, mag, lo, hi, k, stream, n=256):
                 rc = trees["topk_threshold.cu"].topk_threshold(
                     ptr(mag.data_ptr()), rows, cols, k, selection.BISECT_ITERS,
                     ptr(tau.data_ptr()), ptr(cnt.data_ptr()), stream)
+            elif hasattr(trees["sampled_threshold.cu"], "sampled_select"):
+                rc = trees["sampled_threshold.cu"].sampled_select(
+                    ptr(mag.data_ptr()), rows, cols, k, *layout, *ranks, selection.BISECT_ITERS,
+                    selection.DEFAULT_REFINE_ITERS, ptr(tau.data_ptr()), ptr(cnt.data_ptr()),
+                    ptr(mid.data_ptr()), None, stream)
             else:
                 rc = trees["sampled_threshold.cu"].sampled_threshold(
                     ptr(mag.data_ptr()), ptr(lo.data_ptr()), ptr(hi.data_ptr()), rows, cols, k,
